@@ -1,0 +1,120 @@
+"""Build the CUDA kernels of csrc/ into a shared library and load it.
+
+nvcc compiles every ``csrc/*.cu`` into one library with a plain C interface
+(no PyTorch headers, so the build takes seconds), which ctypes loads. The
+library's name carries a hash of the sources and flags: an edited ``.cu``
+builds a new library, an unchanged one is reused. The build happens at
+first use, never at import, so the package imports on machines without
+nvcc or a GPU.
+
+The build directory is ``<checkout>/build/kernels`` (``build/`` is in
+.gitignore).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+
+# -fmad=false: no a*b - c*d contracted into an FMA, and no fast-math flag
+# (so 1/det is the IEEE quotient). The kernels then agree with their eager
+# PyTorch twins, which never fuse, on which face a ray hits.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+_log = ""
+
+
+BUILD_DIR = CSRC.parent.parent / "build" / "kernels"
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError(
+        "nvcc not found (searched PATH and $CUDA_HOME/bin): the CUDA kernels "
+        "of pyrenderer_tpu_torch cannot be built on this machine")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _declare(lib) -> None:
+    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.pr_closest_hit.argtypes = [p, i32, p, p, p, f32, f32, i64, p, p, p, p]
+    lib.pr_closest_hit.restype = ctypes.c_int
+    lib.pr_occluded.argtypes = [p, i32, p, p, p, f32, f32, i64, p, p]
+    lib.pr_occluded.restype = ctypes.c_int
+
+
+def build() -> str:
+    """Compile the library if it is not built yet; return its path.
+
+    Raises RuntimeError with nvcc's output if the compiler fails."""
+    global _log
+    sources = _sources()
+    out_dir = BUILD_DIR
+    out = out_dir / f"libpyrenderer_kernels_{_digest()}.so"
+    if out.exists():
+        return str(out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: a concurrent build never
+    # sees (or loads) a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        _log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{_log}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return str(out)
+
+
+def build_log() -> str:
+    """nvcc's output (ptxas register and shared-memory report) of the last
+    build in this process; empty if the library was already built."""
+    return _log
+
+
+def library():
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            _declare(lib)
+            _lib = lib
+    return _lib
