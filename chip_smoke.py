@@ -6,21 +6,42 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 0. Environment: requires a CUDA device; prints the card's name and power
    limit (nvidia-smi), the torch and CUDA versions.
-1. Build: compiles csrc/*.cu with nvcc for sm_90a (kernels/build.py) and
-   prints the build time and ptxas's register/shared-memory report.
-2. Each kernel against its plain PyTorch twin on the card, at the main
-   path's shapes (65,536 rays against the 36 Cornell triangles): random
-   rays, real camera rays, rays with dead lanes (t1 = 0), and a ragged
-   N = 100, with scalar and per-ray t1.
-3. The main path through the CLI entry point: the Cornell box, reference
-   estimator, 1024x1024, 4 bounces, 16 spp on cuda:0. Checks the PNG and
-   EXR, a finite HDR, exactly 16 passes x 16 chunks x 4 bounces launches of
-   each kernel, and no call of a plain twin.
+1. Build: compiles csrc/*.cu with nvcc for sm_90a (kernels/build.py, one
+   nvcc per source, in parallel) and prints the build time and ptxas's
+   register/shared-memory report.
+2. Each whole-table kernel against its plain PyTorch twin on the card, at
+   the Cornell path's shapes (65,536 rays against the 36 triangles):
+   random rays, real camera rays, rays with dead lanes (t1 = 0), and a
+   ragged N = 100, with scalar and per-ray t1.
+3. The Cornell path through the CLI entry point: reference estimator,
+   1024x1024, 4 bounces, 16 spp on cuda:0. Checks the PNG and EXR, a finite
+   HDR, exactly 16 passes x 16 chunks x 4 bounces launches of each
+   whole-table kernel, and no call of a plain twin.
 4. GPU against CPU: render_image at 64x64 (2 spp, 4 bounces, seed 3) on the
    card and with the CPU twins; then the mean radiance at 160x160
    (32 spp, 8 bounces, seed 1) against the JAX package's CPU value.
-5. Timings: each kernel and its twin on the card (median of CUDA-event
-   timings), and the phase-3 frame in Mrays/s, counted as bench.py counts.
+5. Timings: each whole-table kernel and its twin on the card (median of
+   CUDA-event timings), and the phase-3 frame in Mrays/s, counted as
+   bench.py counts.
+6. Each cluster-sweep kernel against its twin on the card, at the
+   terrain100k tables (100,364 triangles, 785 clusters padded to 800):
+   65,536 random rays, camera rays, the integrator's real bounce-1
+   wavefront and its NEE shadow rays, dead lanes, per-ray t1 and a ragged
+   N = 100, each with Moeller-Trumbore and watertight leaves, sort off and
+   on; then the shared-edge leak hunt (4,096 rays) through the watertight
+   kernels.
+7. The large-scene path through ProgressiveRenderer: terrain100k,
+   reference estimator, 512x512, 4 spp, 4 bounces, chunks of 2^16,
+   cluster_sort and cluster_watertight on "auto" (both resolve to on).
+   Checks a finite HDR, exactly 4 passes x 4 chunks x 4 bounces launches of
+   each cluster kernel, no twin call and no whole-table launch; prints
+   Mrays/s.
+8. GPU against references: the terrain8k image (32x32, 2 spp) on the card
+   and with the CPU twins, with MT and with watertight leaves; the
+   terrain100k mean radiance (32x32, 2 spp, 4 bounces, seed 0) against the
+   JAX package's CPU value.
+9. Timings: each cluster kernel and its twin on the bounce-1 wavefront at
+   terrain100k (median of CUDA-event timings).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. No result is printed when a
@@ -52,10 +73,28 @@ T_MAX = 99999.9
 JAX_MEAN_RADIANCE_160 = 0.10746552795171738
 MEAN_TOL = 1e-3
 
-KERNEL_SOURCE = "pyrenderer_tpu_torch/csrc/intersect.cu"
-REPLACES = {
-    "closest_hit": "pyrenderer_tpu/kernels/pallas_intersect.py:80",
-    "occluded": "pyrenderer_tpu/kernels/pallas_intersect.py:111",
+# Mean radiance of the terrain100k scene (scene/procgen.py
+# big_scene_data("terrain", res=224)) at 32x32, 2 spp, 4 bounces, seed 0,
+# "reference" estimator, float32, watertight leaves (cluster_watertight
+# "auto"): pyrenderer_tpu.core.integrator.render_image(..., backend="cluster")
+# on the CPU (JAX 0.9.0), i.e.
+#   scene, camera, _ = build_scene(big_scene_data("terrain", res=224))
+#   render_image(jax.tree.map(jnp.asarray, scene),
+#                camera._replace(resolution=(32, 32)),
+#                RenderConfig(max_bounces=4, spp=2, seed=0,
+#                             estimator="reference"), backend="cluster").mean()
+JAX_MEAN_RADIANCE_TERRAIN100K = 0.044580455869436264
+
+# name -> (source, TPU kernel it replaces)
+KERNELS = {
+    "closest_hit": ("pyrenderer_tpu_torch/csrc/intersect.cu",
+                    "pyrenderer_tpu/kernels/pallas_intersect.py:80"),
+    "occluded": ("pyrenderer_tpu_torch/csrc/intersect.cu",
+                 "pyrenderer_tpu/kernels/pallas_intersect.py:111"),
+    "cluster_closest_hit": ("pyrenderer_tpu_torch/csrc/cluster.cu",
+                            "pyrenderer_tpu/kernels/pallas_cluster.py:449"),
+    "cluster_occluded": ("pyrenderer_tpu_torch/csrc/cluster.cu",
+                         "pyrenderer_tpu/kernels/pallas_cluster.py:577"),
 }
 
 
@@ -90,6 +129,17 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def cuda_ms_pair(kernel_fn, twin_fn, reps=20, twin_reps=3):
+    """(kernel ms, twin ms): medians of CUDA-event timings, in turns
+    twin, kernel, kernel, twin so that drift of the card shows in neither
+    alone."""
+    twin_a = cuda_ms(twin_fn, reps=twin_reps, warmup=1)
+    kern_a = cuda_ms(kernel_fn, reps=reps)
+    kern_b = cuda_ms(kernel_fn, reps=reps)
+    twin_b = cuda_ms(twin_fn, reps=twin_reps, warmup=1)
+    return float(np.median([kern_a, kern_b])), float(np.median([twin_a, twin_b]))
 
 
 def random_rays(n, seed, dev):
@@ -140,6 +190,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     from pyrenderer_tpu_torch.kernels import build
+    from pyrenderer_tpu_torch.kernels import cluster as kc
     from pyrenderer_tpu_torch.kernels import intersect as ki
 
     phase("1 build")
@@ -197,10 +248,13 @@ def main() -> int:
                 "--out", png, "--hdr-out", exr]
         torch.cuda.synchronize()
         ki.reset_counters()
+        kc.reset_counters()
         rc, log = run_cli(cli, argv)
         launches = {"closest_hit": ki.closest_hit.launches,
                     "occluded": ki.occluded.launches}
         twins = ki.closest_hit.twin_calls + ki.occluded.twin_calls
+        cluster_calls = (kc.closest_hit.launches + kc.occluded.launches
+                         + kc.closest_hit.twin_calls + kc.occluded.twin_calls)
         check(rc == 0, f"cli.main returned {rc}")
         check(os.path.getsize(png) > 0 and os.path.getsize(exr) > 0, "outputs missing")
         hdr = read_exr(exr)
@@ -212,6 +266,7 @@ def main() -> int:
     for name, n in launches.items():
         check(n == expect, f"{name} launched {n} times, expected {expect}")
     check(twins == 0, f"{twins} twin calls during the GPU render")
+    check(cluster_calls == 0, "the Cornell path reached the cluster sweep")
     m = re.search(r"(\d+) rays in ([0-9.]+) s = ([0-9.]+) Mrays/s", log)
     check(m is not None, "the CLI printed no ray count")
     rays, secs = int(m.group(1)), float(m.group(2))
@@ -249,16 +304,214 @@ def main() -> int:
     print(f"frame: {rays} rays in {secs:.3f} s = {rays / secs / 1e6:.3f} Mrays/s "
           f"(1024x1024, 16 spp, 4 bounces, {card})", flush=True)
 
+    large = large_scene_phases(dev, card)
+    launches.update(large["launches"])
+    max_abs_err.update(large["max_abs_err"])
+    ms.update(large["ms"])
+    plain_ms.update(large["plain_ms"])
+
     print(card)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": max_abs_err[name], "ms": ms[name], "plain_ms": plain_ms[name]}
-        for name in ("closest_hit", "occluded")]}))
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[name], "max_abs_err": max_abs_err[name],
+         "ms": ms[name], "plain_ms": plain_ms[name]}
+        for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def compare_cluster(kc, cl, cs, ro, rd, t1, label):
+    """Both cluster kernels against their twins on one ray set, with MT and
+    watertight leaves, sort off and on; returns the max absolute
+    differences (closest-hit t, occluded flag) over all of them."""
+    err = np.zeros(2)
+    for wt in (False, True):
+        hit_r, t_r, slot_r = cl.closest_hit_ref(cs, ro, rd, T0, t1, watertight=wt)
+        face_r = cl.slot_to_face(cs, slot_r).to(torch.int32)
+        occ_r = cl.occluded_ref(cs, ro, rd, T0, t1, watertight=wt)
+        for sort in (False, True):
+            tag = f"{label}, {'watertight' if wt else 'MT'}, sort {'on' if sort else 'off'}"
+            hit, t, face = kc.closest_hit(cs, ro, rd, T0, t1, sort=sort,
+                                          watertight=wt, exact_t=False)
+            occ = kc.occluded(cs, ro, rd, T0, t1, sort=sort, watertight=wt)
+            torch.cuda.synchronize()
+            check(torch.equal(hit, hit_r), f"{tag}: hit masks differ")
+            n_hit = int(hit.sum())
+            same = (face == face_r) & hit
+            n_same = int(same.sum())
+            check(n_same >= 0.999 * n_hit, f"{tag}: faces equal on {n_same}/{n_hit} hits")
+            torch.testing.assert_close(t[same], t_r[same], rtol=1e-5, atol=0.0)
+            check(torch.equal(occ, occ_r), f"{tag}: occluded differs")
+            err_t = float((t - t_r).abs().max()) if t.numel() else 0.0
+            err = np.maximum(err, [err_t, float((occ != occ_r).any())])
+            print(f"{tag}: n={ro.shape[0]} hits={n_hit} faces equal {n_same}/{n_hit} "
+                  f"max|dt|={err_t:.3g} occluded={int(occ.sum())} (equal)", flush=True)
+    return err
+
+
+def integrator_wavefronts(scene, camera, tables, cfg, px, py):
+    """The integrator's real bounce-1 wavefront: the (ro, rd, t1) of the
+    second closest-hit query and of the second shadow query that
+    render_sample makes, recorded on their way to the kernel wrappers."""
+    import types
+
+    from pyrenderer_tpu_torch.core import integrator
+
+    kc = integrator.cluster_kernels
+    calls = {"closest_hit": [], "occluded": []}
+
+    def recorder(name):
+        def record(cs, ro, rd, t0, t1, **kw):
+            calls[name].append((ro, rd, t1))
+            return getattr(kc, name)(cs, ro, rd, t0, t1, **kw)
+        return record
+
+    integrator.cluster_kernels = types.SimpleNamespace(
+        **{name: recorder(name) for name in calls})
+    try:
+        integrator.render_sample(scene, camera, cfg.replace(max_bounces=2),
+                                 cfg.seed, 0, px, py, tables=tables)
+    finally:
+        integrator.cluster_kernels = kc
+    return calls["closest_hit"][1], calls["occluded"][1]
+
+
+def large_scene_phases(dev, card):
+    """Phases 6-9 (the terrain100k cluster path); returns the kernel-line
+    entries of the two cluster kernels."""
+    from pyrenderer_tpu_torch.accel import clusters as cl
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.core.camera import generate_rays, morton_pixel_order
+    from pyrenderer_tpu_torch.core.integrator import TraceTables, render_image
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+    from pyrenderer_tpu_torch.kernels import intersect as ki
+    from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
+    from pyrenderer_tpu_torch.scene import procgen, to_device
+    from pyrenderer_tpu_torch.scene.tungsten import build_scene
+
+    host, host_cam, _ = build_scene(procgen.big_scene_data("terrain", res=224))
+    cam512 = host_cam._replace(resolution=(512, 512))
+    scene, camera = to_device(host, cam512, dev)
+    t = time.perf_counter()
+    cs = cl.build_clusters(host.vertices, host.faces).to(dev)
+    print(f"terrain100k: {host.faces.shape[0]} triangles, {cs.n_clusters} clusters, "
+          f"{cs.n_superclusters} superclusters, built in {time.perf_counter() - t:.3f} s",
+          flush=True)
+    cfg = RenderConfig(max_bounces=4, spp=4, seed=0, estimator="reference")
+
+    phase(f"6 cluster kernels against twins on the card ({N_RAYS} rays, terrain100k)")
+    err = np.zeros(2)
+    ro, rd = random_rays(N_RAYS, 0, dev)
+    err = np.maximum(err, compare_cluster(kc, cl, cs, ro, rd, T_MAX, "random, scalar t1"))
+    perm, _ = morton_pixel_order(512, 512)
+    ys, xs = np.mgrid[0:512, 0:512]
+    px = torch.as_tensor(xs.reshape(-1)[perm][:N_RAYS], device=dev)
+    py = torch.as_tensor(ys.reshape(-1)[perm][:N_RAYS], device=dev)
+    cro, crd = generate_rays(camera, px, py, 0, 0)
+    err = np.maximum(err, compare_cluster(kc, cl, cs, cro.contiguous(), crd.contiguous(),
+                                          T_MAX, "camera rays, scalar t1"))
+    tables = TraceTables(scene, cfg, accel=cs)
+    bounce1, shadow1 = integrator_wavefronts(scene, camera, tables, cfg, px, py)
+    err = np.maximum(err, compare_cluster(kc, cl, cs, *bounce1, "bounce-1 wavefront"))
+    err = np.maximum(err, compare_cluster(kc, cl, cs, *shadow1, "bounce-1 shadow rays"))
+    lanes = torch.arange(N_RAYS, device=dev)
+    t1_dead = torch.where(lanes % 3 == 0, 0.0, T_MAX).float()
+    err = np.maximum(err, compare_cluster(kc, cl, cs, ro, rd, t1_dead, "random, dead lanes t1=0"))
+    hit_dead, _, _ = kc.closest_hit(cs, ro, rd, T0, t1_dead, sort=True)
+    occ_dead = kc.occluded(cs, ro, rd, T0, t1_dead, sort=True)
+    check(not bool((hit_dead | occ_dead)[lanes % 3 == 0].any()), "a dead lane (t1=0) hit")
+    t1_var = torch.as_tensor(np.random.RandomState(1).uniform(0.1, 3.0, N_RAYS),
+                             dtype=torch.float32, device=dev)
+    err = np.maximum(err, compare_cluster(kc, cl, cs, ro, rd, t1_var, "random, per-ray t1"))
+    rro, rrd = random_rays(100, 4, dev)
+    err = np.maximum(err, compare_cluster(kc, cl, cs, rro, rrd, T_MAX, "ragged N=100"))
+    max_abs_err = {"cluster_closest_hit": float(err[0]), "cluster_occluded": float(err[1])}
+
+    # shared-edge leak hunt (tests/test_watertight.py:168-205) on the kernels
+    quad = cl.build_clusters(np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]], np.float32),
+                             np.array([[0, 1, 2], [0, 2, 3]], np.int32)).to(dev)
+    ts = np.linspace(1e-4, 1.0 - 1e-4, 4096).astype(np.float32)
+    edge_ro = torch.as_tensor(np.stack([ts, ts, np.ones_like(ts)], axis=1), device=dev)
+    edge_rd = torch.tensor([[0.0, 0.0, -1.0]], device=dev).expand(4096, 3).contiguous()
+    for sort in (False, True):
+        hit, t, _ = kc.closest_hit(quad, edge_ro, edge_rd, T0, 10.0, sort=sort, watertight=True)
+        occ = kc.occluded(quad, edge_ro, edge_rd, T0, 10.0, sort=sort, watertight=True)
+        mt_hit, _, _ = kc.closest_hit(quad, edge_ro, edge_rd, T0, 10.0, sort=sort)
+        leaked, leaked_occ = int((~hit).sum()), int((~occ).sum())
+        print(f"leak hunt, sort {'on' if sort else 'off'}: watertight kernels leaked "
+              f"{leaked} (closest) and {leaked_occ} (occluded) of 4096 shared-edge rays; "
+              f"MT leaves leak {int((~mt_hit).sum())}", flush=True)
+        check(leaked == 0 and leaked_occ == 0, "the watertight kernels leak")
+        torch.testing.assert_close(t, torch.ones_like(t), rtol=1e-4, atol=0.0)
+
+    phase("7 large-scene path: ProgressiveRenderer, terrain100k, 512x512, 4 spp, 4 bounces")
+    renderer = ProgressiveRenderer(scene, camera, cfg, chunk=1 << 16)
+    check(renderer.backend == "cluster" and renderer.tables.cluster_sort
+          and renderer.tables.cluster_watertight,
+          f"auto resolved to {renderer.backend}, sort/watertight not both on")
+    torch.cuda.synchronize()
+    kc.reset_counters()
+    ki.reset_counters()
+    film = renderer.run(quiet=True)
+    launches = {"cluster_closest_hit": kc.closest_hit.launches,
+                "cluster_occluded": kc.occluded.launches}
+    twins = (kc.closest_hit.twin_calls + kc.occluded.twin_calls
+             + ki.closest_hit.twin_calls + ki.occluded.twin_calls)
+    whole_table = ki.closest_hit.launches + ki.occluded.launches
+    hdr = film.hdr
+    check(hdr.shape == (512, 512, 3) and bool(np.isfinite(hdr).all()), "HDR not finite")
+    expect = 4 * 4 * 4
+    print(f"launches {launches} (expected {expect} each), twin calls {twins}, "
+          f"whole-table launches {whole_table}, HDR mean {float(hdr.mean()):.6f}", flush=True)
+    for name, n in launches.items():
+        check(n == expect, f"{name} launched {n} times, expected {expect}")
+    check(twins == 0 and whole_table == 0, "the large-scene path left the cluster kernels")
+    rays, secs = renderer.rays_traced, renderer.render_seconds
+    print(f"frame: {rays:.0f} rays in {secs:.3f} s = {rays / secs / 1e6:.3f} Mrays/s "
+          f"(terrain100k, 512x512, 4 spp, 4 bounces, {card})", flush=True)
+
+    phase("8 GPU against references (terrain8k images, terrain100k mean radiance)")
+    host8, cam8, _ = build_scene(procgen.big_scene_data("terrain", res=64))
+    cam32 = cam8._replace(resolution=(32, 32))
+    s_gpu, c_gpu = to_device(host8, cam32, dev)
+    s_cpu, c_cpu = to_device(host8, cam32, "cpu")
+    for wt in (False, True):
+        cfg8 = RenderConfig(max_bounces=4, spp=2, seed=3, estimator="reference",
+                            cluster_watertight=wt)
+        img_gpu = render_image(s_gpu, c_gpu, cfg8).cpu().numpy()
+        img_cpu = render_image(s_cpu, c_cpu, cfg8).numpy()
+        close = float(np.isclose(img_gpu, img_cpu, rtol=1e-3, atol=1e-4).mean())
+        med = float(np.median(np.abs(img_gpu - img_cpu)))
+        print(f"terrain8k 32x32, {'watertight' if wt else 'MT'} leaves: close fraction "
+              f"{close:.6f} (> 0.95), median |diff| {med:.3g} (< 1e-5)", flush=True)
+        check(close > 0.95 and med < 1e-5, "terrain8k GPU and CPU images disagree")
+    s32, c32 = to_device(host, host_cam._replace(resolution=(32, 32)), dev)
+    cfg32 = RenderConfig(max_bounces=4, spp=2, seed=0, estimator="reference")
+    mean = float(render_image(s32, c32, cfg32).mean())
+    ref = JAX_MEAN_RADIANCE_TERRAIN100K
+    print(f"terrain100k 32x32 mean radiance {mean!r}, JAX CPU {ref!r}, "
+          f"|diff| {abs(mean - ref):.3g} (<= {MEAN_TOL})", flush=True)
+    check(abs(mean - ref) <= MEAN_TOL, "terrain100k mean radiance off")
+
+    phase(f"9 cluster timings on {card}")
+    b_ro, b_rd, b_t1 = bounce1
+    s_ro, s_rd, s_t1 = shadow1
+    ms, plain_ms = {}, {}
+    ms["cluster_closest_hit"], plain_ms["cluster_closest_hit"] = cuda_ms_pair(
+        lambda: kc.closest_hit(cs, b_ro, b_rd, T0, b_t1, sort=True, watertight=True,
+                               exact_t=False),
+        lambda: cl.closest_hit_ref(cs, b_ro, b_rd, T0, b_t1, watertight=True))
+    ms["cluster_occluded"], plain_ms["cluster_occluded"] = cuda_ms_pair(
+        lambda: kc.occluded(cs, s_ro, s_rd, T0, s_t1, sort=True, watertight=True),
+        lambda: cl.occluded_ref(cs, s_ro, s_rd, T0, s_t1, watertight=True))
+    for name in ms:
+        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms "
+              f"(bounce-1 wavefront of {N_RAYS} rays, terrain100k, watertight, sorted, "
+              f"{card})", flush=True)
+    return {"launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms}
 
 
 def run_cli(cli, argv):

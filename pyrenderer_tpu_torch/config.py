@@ -45,51 +45,38 @@ class RenderConfig:
     #                                of plain Moeller-Trumbore (leak-free
     #                                shared edges; reference
     #                                intersection_taichi.py:94 exists for
-    #                                the same reason). "auto" (default
-    #                                since round 5) = watertight for big
-    #                                meshes (>= 256 clusters ~ 32k tris,
-    #                                where the round-5 leaf costs <= 1.3x:
-    #                                chip A/B 2.34 vs 3.02 Mrays/s on
-    #                                terrain100k = 1.29x), Moeller-
-    #                                Trumbore below (terrain8k still pays
-    #                                1.65x). True/False force it — see
-    #                                integrator.resolve_cluster_watertight
-    #                                (perf/RESULTS.md round 4) — above the
-    #                                ~1.3x bar set for flipping the
-    #                                default, so the default matches the
-    #                                reference's (MT). The watertight path
-    #                                is first-class either way: same hit
-    #                                set on CPU and TPU (unified fallback),
-    #                                tested through the traversal, one
-    #                                config flag away.
+    #                                the same reason). "auto" = watertight
+    #                                for scenes of at least
+    #                                integrator.AUTO_SORT_MIN_CLUSTERS
+    #                                clusters (~32k triangles), MT below, as
+    #                                the JAX package chooses; True/False
+    #                                force it (integrator.
+    #                                resolve_cluster_watertight). The JAX
+    #                                package set the threshold from the
+    #                                leaf's cost measured on a TPU; not
+    #                                measured on this card (ROADMAP A10).
     cluster_sort: object = "auto"  # coherence-sort wavefronts before each
     #                                cluster query (accel/clusters.sort_keys:
-    #                                origin Morton | quantized direction).
-    #                                True | False | "auto" (default): sort
-    #                                only when the scene is large enough
-    #                                that the kernel win beats the ~6 ms
-    #                                sort glue per 262k-ray query — chip-
-    #                                measured crossover (perf/RESULTS.md
-    #                                round 4): terrain8k runs 1.34x FASTER
-    #                                unsorted, terrain100k/blob82k ~7-10%%
-    #                                faster sorted; the auto threshold is
-    #                                integrator.AUTO_SORT_MIN_CLUSTERS.
+    #                                origin Morton | quantized direction,
+    #                                dead lanes last). True | False | "auto":
+    #                                sort scenes of at least
+    #                                integrator.AUTO_SORT_MIN_CLUSTERS
+    #                                clusters. The crossover was measured on
+    #                                a TPU; not measured on this card
+    #                                (ROADMAP A10).
     cluster_rounds: int = 1        # suspend/resume passes for cluster
     #                                closest-hit: pass 1 sweeps at most
     #                                cluster_budget superclusters per tile
-    #                                (front-to-back), then unresolved rays
-    #                                are compacted to the front and finished
-    #                                unbudgeted. Default 1 (single
-    #                                exhaustive pass): measured on chip,
-    #                                2 rounds LOSE ~30%% end-to-end because
-    #                                bounce tiles virtually always contain
-    #                                miss-rays that need the full sweep, so
-    #                                no tile retires early and the resume
-    #                                pass re-pays most of the traversal
-    #                                (perf/RESULTS.md round 4).
-    cluster_budget: int = 8        # supercluster visit budget per 128-ray
-    #                                tile in pass 1 (even; visits pop in
-    #                                pairs). Only used when cluster_rounds>1.
+    #                                (front to back), then unresolved rays
+    #                                are finished unbudgeted. Only 1 (a
+    #                                single exhaustive sweep) is ported;
+    #                                more raises NotImplementedError
+    #                                (ROADMAP A10). The JAX default of 1 was
+    #                                chosen from a TPU measurement; not
+    #                                measured on this card.
+    cluster_budget: int = 8        # supercluster visit budget per ray tile
+    #                                in pass 1; only read when
+    #                                cluster_rounds > 1.
     t_min: float = 1e-5            # reference tracing.py:125 hit epsilon
     t_max: float = 99999.9         # reference tracing.py:125
     output_file: str = "out.png"

@@ -6,11 +6,17 @@ with terminated lanes masked instead of diverging; the bounce loop is a
 Python loop (the JAX package's ``lax.scan``).
 
 Intersection backends:
-  "cuda"  -- the hand-written whole-table kernels (kernels/intersect.py);
-             the counterpart of the TPU's "pallas". "auto" picks it for
-             CUDA tensors.
-  "brute" -- the plain broadcast test (core/intersect.py). "auto" picks it
-             for CPU tensors.
+  "cuda"       -- the hand-written whole-table kernels (kernels/intersect.py);
+                  the counterpart of the TPU's "pallas". "auto" picks it for
+                  CUDA tensors of scenes up to AUTO_BRUTE_MAX_TRIS faces.
+  "brute"      -- the plain broadcast test (core/intersect.py). "auto" picks
+                  it for CPU tensors of such scenes.
+  "cluster"    -- the cluster sweep over a ClusterScene (accel/clusters.py):
+                  the CUDA kernels of kernels/cluster.py on a GPU, their
+                  plain twins on the CPU. "auto" picks it above
+                  AUTO_BRUTE_MAX_TRIS on every device (the JAX package picks
+                  "bvh" on the CPU, which is not ported yet, ROADMAP A10).
+  "watertight" -- the plain broadcast watertight test (core/watertight.py).
 
 The "reference" estimator reproduces the reference renderer's
 core/tracing.py: emissive hits add the hardcoded light color (beta at
@@ -31,11 +37,14 @@ import numpy as np
 import torch
 
 from pyrenderer_tpu_torch import rng
+from pyrenderer_tpu_torch.accel.clusters import build_clusters
 from pyrenderer_tpu_torch.config import RenderConfig
 from pyrenderer_tpu_torch.core import intersect as isect
 from pyrenderer_tpu_torch.core import sampling
+from pyrenderer_tpu_torch.core import watertight as wt
 from pyrenderer_tpu_torch.core.camera import generate_rays, morton_pixel_order
 from pyrenderer_tpu_torch.core.sampling import INV_PI
+from pyrenderer_tpu_torch.kernels import cluster as cluster_kernels
 from pyrenderer_tpu_torch.kernels import intersect as kernels
 from pyrenderer_tpu_torch.scene.types import Camera, Scene
 
@@ -43,21 +52,25 @@ from pyrenderer_tpu_torch.scene.types import Camera, Scene
 # color in "reference" estimator mode (scene emission is ignored there).
 REF_LIGHT_COLOR = (0.9, 0.85, 0.7)
 
-# Largest triangle count the whole-table paths serve. Above it the JAX
-# package switches to an accelerator (cluster sweep / BVH), which is not
-# ported yet (ROADMAP A10). The value is the TPU's crossover; the H100's
-# has not been measured.
+# Largest triangle count the whole-table paths serve; above it "auto"
+# switches to the cluster sweep. The value is the TPU's crossover, kept for
+# parity; not measured on this card.
 AUTO_BRUTE_MAX_TRIS = 4096
 
-BACKENDS = ("cuda", "brute")
+# cluster_sort="auto" and cluster_watertight="auto" switch on for scenes of
+# at least this many 128-triangle clusters (~32k triangles), as in the JAX
+# package. For the sort it is the TPU's crossover, not measured on this
+# card; for the watertight leaves it is a policy that changes the image
+# and stays as the reference has it.
+AUTO_SORT_MIN_CLUSTERS = 256
+
+BACKENDS = ("cuda", "brute", "cluster", "watertight")
 
 # JAX backends and the ROADMAP item that ports each one.
 _NOT_PORTED = {
     "pallas": 'A4 (its port is backend "cuda")',
     "matmul": "A14",
-    "watertight": "A9",
     "bvh": "A10",
-    "cluster": "A10",
     "cluster_binned": "A10",
     "cluster_streamed": "A10",
     "cluster_chunked": "A10",
@@ -68,21 +81,58 @@ def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+def accel_backend() -> str:
+    """Backend "auto" takes past AUTO_BRUTE_MAX_TRIS: "cluster" on every
+    device. The JAX package takes "bvh" on the CPU; that backend is not
+    ported yet (ROADMAP A10), so the CPU runs the cluster twins."""
+    return "cluster"
+
+
 def resolve_backend(backend: str, n_tris: int, device) -> str:
-    """Turn "auto" into "cuda" (CUDA device) or "brute" (CPU); reject
-    what is not ported instead of silently taking another path."""
+    """Turn "auto" into "cuda" (CUDA device) or "brute" (CPU) up to
+    AUTO_BRUTE_MAX_TRIS faces and into accel_backend() above; reject what is
+    not ported instead of silently taking another path."""
     if backend in _NOT_PORTED:
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet (ROADMAP {_NOT_PORTED[backend]})")
     if backend not in ("auto",) + BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
-    if n_tris > AUTO_BRUTE_MAX_TRIS:
-        raise NotImplementedError(
-            f"{n_tris} triangles exceed AUTO_BRUTE_MAX_TRIS={AUTO_BRUTE_MAX_TRIS}: "
-            "the accelerated backends are not ported yet (ROADMAP A10)")
     if backend != "auto":
         return backend
+    if n_tris > AUTO_BRUTE_MAX_TRIS:
+        return accel_backend()
     return "cuda" if torch.device(device).type == "cuda" else "brute"
+
+
+def resolve_cluster_sort(cfg: RenderConfig, accel) -> bool:
+    """Concrete coherence-sort decision for a cluster query: "auto" sorts
+    scenes of at least AUTO_SORT_MIN_CLUSTERS clusters."""
+    if cfg.cluster_sort == "auto":
+        return accel.n_clusters >= AUTO_SORT_MIN_CLUSTERS
+    return bool(cfg.cluster_sort)
+
+
+def resolve_cluster_watertight(cfg: RenderConfig, accel) -> bool:
+    """Concrete leaf decision for a cluster query: "auto" takes the
+    watertight (leak-free) leaves for scenes of at least
+    AUTO_SORT_MIN_CLUSTERS clusters and Moeller-Trumbore below, as the JAX
+    package does."""
+    if cfg.cluster_watertight == "auto":
+        return accel.n_clusters >= AUTO_SORT_MIN_CLUSTERS
+    return bool(cfg.cluster_watertight)
+
+
+def maybe_build_accel(scene: Scene, backend: str, accel=None):
+    """The accelerator `backend` needs on the scene's device: a ClusterScene
+    for "cluster" (and for "auto" past AUTO_BRUTE_MAX_TRIS), built on the
+    host; None for the whole-table backends. A given `accel` is returned
+    as it is."""
+    if accel is not None:
+        return accel
+    device = scene.vertices.device
+    if resolve_backend(backend, scene.faces.shape[0], device) != "cluster":
+        return None
+    return build_clusters(scene.vertices, scene.faces).to(device)
 
 
 def check_supported(cfg: RenderConfig) -> None:
@@ -93,10 +143,14 @@ def check_supported(cfg: RenderConfig) -> None:
             "use estimator='reference'")
     if cfg.adaptive:
         raise NotImplementedError("adaptive sampling is not ported yet (ROADMAP A6)")
+    if cfg.cluster_rounds > 1:
+        raise NotImplementedError(
+            "suspend/resume cluster traversal (cluster_rounds > 1) is not "
+            "ported yet (ROADMAP A10)")
     if os.environ.get("PYRENDERER_WF_SORT", "0") == "1":
         raise NotImplementedError(
-            "the wavefront sort (PYRENDERER_WF_SORT=1) serves the cluster "
-            "backend, which is not ported yet (ROADMAP A10)")
+            "the wavefront sort (PYRENDERER_WF_SORT=1) is not ported yet "
+            "(ROADMAP A10)")
 
 
 def light_area_pdf(scene: Scene):
@@ -153,11 +207,14 @@ def pack_light_data(scene: Scene):
 
 class TraceTables:
     """Per-scene device tables shared by every sample and pass: the packed
-    face and light rows, for backend "cuda" the (9, T) kernel table, and
-    the light color (made once: a host-to-device copy per trace would make
-    the host wait for the device)."""
+    face and light rows, for backend "cuda" the (9, T) kernel table, for
+    "cluster" the ClusterScene (`accel`, built here unless given) with its
+    resolved sort and leaf choices, and the light color (made once: a
+    host-to-device copy per trace would make the host wait for the
+    device)."""
 
-    def __init__(self, scene: Scene, cfg: RenderConfig, backend: str = "auto"):
+    def __init__(self, scene: Scene, cfg: RenderConfig, backend: str = "auto",
+                 accel=None):
         check_supported(cfg)
         v = scene.vertices
         self.backend = resolve_backend(backend, scene.faces.shape[0], v.device)
@@ -165,8 +222,13 @@ class TraceTables:
         self.face_data = pack_face_data(scene)
         self.light_data = pack_light_data(scene)
         self.tri_table = None
+        self.accel = None
         if self.backend == "cuda":
             self.tri_table = kernels.pack_triangles(scene.vertices, scene.faces)
+        elif self.backend == "cluster":
+            self.accel = maybe_build_accel(scene, "cluster", accel)
+            self.cluster_sort = resolve_cluster_sort(cfg, self.accel)
+            self.cluster_watertight = resolve_cluster_watertight(cfg, self.accel)
 
     def fetch_face(self, tri):
         """Packed shading row per hit id (a gather: the TPU's one-hot MXU
@@ -175,14 +237,29 @@ class TraceTables:
 
 
 def _closest(scene, tables, cfg, ro, rd, t1):
-    if tables.backend == "cuda":
+    b = tables.backend
+    if b == "cuda":
         return kernels.closest_hit(tables.tri_table, ro, rd, cfg.t_min, t1)
+    if b == "cluster":
+        # exact_t=False: the trace re-derives the hit geometry from the face
+        return cluster_kernels.closest_hit(
+            tables.accel, ro, rd, cfg.t_min, t1, sort=tables.cluster_sort,
+            watertight=tables.cluster_watertight, exact_t=False)
+    if b == "watertight":
+        return wt.intersect_watertight(scene, ro, rd, cfg.t_min, t1)
     return isect.intersect_brute(scene, ro, rd, cfg.t_min, t1)
 
 
 def _any_hit(scene, tables, cfg, ro, rd, t1):
-    if tables.backend == "cuda":
+    b = tables.backend
+    if b == "cuda":
         return kernels.occluded(tables.tri_table, ro, rd, cfg.t_min, t1)
+    if b == "cluster":
+        return cluster_kernels.occluded(
+            tables.accel, ro, rd, cfg.t_min, t1, sort=tables.cluster_sort,
+            watertight=tables.cluster_watertight)
+    if b == "watertight":
+        return wt.occluded_watertight(scene, ro, rd, cfg.t_min, t1)
     return isect.occluded(scene, ro, rd, cfg.t_min, t1)
 
 
@@ -341,6 +418,7 @@ def render_sample(
     tables: TraceTables | None = None,
     backend: str = "auto",
     with_stats: bool = False,
+    accel=None,
 ):
     """Radiance for one sample of a block of pixels; pixel_x/y: (N,) ints.
     With with_stats, returns (radiance, rays_traced) as trace_reference."""
@@ -349,17 +427,17 @@ def render_sample(
     strata = int(math.ceil(math.sqrt(cfg.spp))) if cfg.stratified else 0
     ro, rd = generate_rays(camera, pixel_x, pixel_y, sample_id, seed, strata=strata)
     if tables is None:
-        tables = TraceTables(scene, cfg, backend)
+        tables = TraceTables(scene, cfg, backend, accel=accel)
     return trace_reference(scene, cfg, ro, rd, pixel_id, sample_id, seed,
                            tables=tables, with_stats=with_stats)
 
 
 def render_block(scene, camera, cfg: RenderConfig, seed: int, spp: int,
                  pixel_x, pixel_y, backend: str = "auto",
-                 tables: TraceTables | None = None):
+                 tables: TraceTables | None = None, accel=None):
     """Mean radiance over `spp` samples for a block of pixels."""
     if tables is None:
-        tables = TraceTables(scene, cfg, backend)
+        tables = TraceTables(scene, cfg, backend, accel=accel)
     total = torch.zeros((pixel_x.shape[0], 3), dtype=camera.iview.dtype,
                         device=pixel_x.device)
     for s in range(spp):
@@ -369,15 +447,17 @@ def render_block(scene, camera, cfg: RenderConfig, seed: int, spp: int,
 
 
 def render_image(scene: Scene, camera: Camera, cfg: RenderConfig,
-                 chunk: int = 1 << 16, backend: str = "auto"):
+                 chunk: int = 1 << 16, backend: str = "auto", accel=None):
     """Full-frame mean-radiance HDR image (H, W, 3) on the scene's device,
     row 0 at the top.
 
     `scene` and `camera` hold tensors on one device (scene.types.to_device).
     Pixels are traced in Morton order, `chunk` rays per block (the order is
-    invisible to the estimator: the RNG is keyed on pixel id)."""
+    invisible to the estimator: the RNG is keyed on pixel id). Scenes past
+    AUTO_BRUTE_MAX_TRIS build their ClusterScene here unless `accel` gives
+    one."""
     device = scene.vertices.device
-    tables = TraceTables(scene, cfg, backend)
+    tables = TraceTables(scene, cfg, backend, accel=accel)
     w, h = camera.resolution
     perm, inv_perm = morton_pixel_order(w, h)
     ys, xs = np.mgrid[0:h, 0:w]

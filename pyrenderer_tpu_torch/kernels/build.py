@@ -1,7 +1,8 @@
 """Build the CUDA kernels of csrc/ into a shared library and load it.
 
-nvcc compiles every ``csrc/*.cu`` into one library with a plain C interface
-(no PyTorch headers, so the build takes seconds), which ctypes loads. The
+nvcc compiles every ``csrc/*.cu`` (one nvcc process per source, all at
+once) and links them into one library with a plain C interface (no
+PyTorch headers, so the build takes seconds), which ctypes loads. The
 library's name carries a hash of the sources and flags: an edited ``.cu``
 builds a new library, an unchanged one is reused. The build happens at
 first use, never at import, so the package imports on machines without
@@ -22,6 +23,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 # -fmad=false: no a*b - c*d contracted into an FMA, and no fast-math flag
@@ -29,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # PyTorch twins, which never fuse, on which face a ray hits.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 )
 
@@ -72,6 +75,10 @@ def _declare(lib) -> None:
     lib.pr_closest_hit.restype = ctypes.c_int
     lib.pr_occluded.argtypes = [p, i32, p, p, p, f32, f32, i64, p, p]
     lib.pr_occluded.restype = ctypes.c_int
+    lib.pr_cluster_closest.argtypes = [p, p, p, p, i32, p, f32, i64, i32, p, p, p]
+    lib.pr_cluster_closest.restype = ctypes.c_int
+    lib.pr_cluster_occluded.argtypes = [p, p, p, p, i32, p, f32, i64, i32, p, p]
+    lib.pr_cluster_occluded.restype = ctypes.c_int
 
 
 def build() -> str:
@@ -85,21 +92,30 @@ def build() -> str:
     if out.exists():
         return str(out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
+    nvcc = find_nvcc()
+    # build in a private directory, then rename: a concurrent build never
     # sees (or loads) a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    try:
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        # one nvcc per source, all started together, then one link
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        _log = "".join(logs)
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        _log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{_log}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(lib, out)
     return str(out)
 
 
@@ -118,3 +134,16 @@ def library():
             _declare(lib)
             _lib = lib
     return _lib
+
+
+def launch_context(device):
+    """(the loaded library, the handle of PyTorch's current stream on
+    `device`): what every C entry point launches with."""
+    return library(), torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a C entry point returned a nonzero cudaError_t (a refused
+    launch never runs, and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")

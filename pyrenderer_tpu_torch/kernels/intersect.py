@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from pyrenderer_tpu_torch.core.intersect import intersect_brute_arrays, occluded_arrays
+from pyrenderer_tpu_torch.kernels import build
 
 
 def pack_triangles(vertices, faces):
@@ -84,17 +85,6 @@ def _check_cuda_args(tri_table, ro, rd, t1):
     return t1, 0.0
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-
-
-def _launch_context(ro):
-    from pyrenderer_tpu_torch.kernels.build import library
-
-    return library(), torch.cuda.current_stream(ro.device).cuda_stream
-
-
 def closest_hit(tri_table, ro, rd, t0, t1):
     """Closest hit of rays ro, rd (N, 3) against the (9, T) table within
     (t0, t1), t1 a scalar or (N,). Returns (hit bool, t f32, tri int32),
@@ -111,13 +101,13 @@ def closest_hit(tri_table, ro, rd, t0, t1):
     tri_out = torch.empty(n, dtype=torch.int32, device=ro.device)
     hit_out = torch.empty(n, dtype=torch.bool, device=ro.device)
     with torch.cuda.device(ro.device):
-        lib, stream = _launch_context(ro)
+        lib, stream = build.launch_context(ro.device)
         err = lib.pr_closest_hit(
             tri_table.data_ptr(), tri_table.shape[1], ro.data_ptr(),
             rd.data_ptr(), None if t1v is None else t1v.data_ptr(), t1s,
             float(t0), n, t_out.data_ptr(), tri_out.data_ptr(),
             hit_out.data_ptr(), stream)
-    _raise_on(err, "closest_hit")
+    build.check_launch(err, "closest_hit")
     closest_hit.launches += 1
     return hit_out, t_out, tri_out
 
@@ -134,12 +124,12 @@ def occluded(tri_table, ro, rd, t0, t1):
     n = ro.shape[0]
     hit_out = torch.empty(n, dtype=torch.bool, device=ro.device)
     with torch.cuda.device(ro.device):
-        lib, stream = _launch_context(ro)
+        lib, stream = build.launch_context(ro.device)
         err = lib.pr_occluded(
             tri_table.data_ptr(), tri_table.shape[1], ro.data_ptr(),
             rd.data_ptr(), None if t1v is None else t1v.data_ptr(), t1s,
             float(t0), n, hit_out.data_ptr(), stream)
-    _raise_on(err, "occluded")
+    build.check_launch(err, "occluded")
     occluded.launches += 1
     return hit_out
 

@@ -52,8 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
                  "cluster_binned", "cluster_streamed", "cluster_chunked",
                  "watertight"],
         default="auto",
-        help="intersection backend: auto = the CUDA kernels on a GPU, the "
-        "plain PyTorch test on the CPU",
+        help="intersection backend: auto = the whole-table CUDA kernels on a "
+        "GPU (the plain PyTorch test on the CPU) up to 4096 triangles, the "
+        "cluster sweep above; cluster, watertight and cuda/brute are ported, "
+        "the rest raises",
     )
     p.add_argument("--chunk", type=int, default=1 << 16,
                    help="rays per dispatch chunk (default 2^16)")

@@ -36,7 +36,9 @@ class ProgressiveRenderer:
     """Accumulates spp_step-sample passes into a Film until cfg.spp.
 
     `scene` and `camera` hold tensors on the device to render on
-    (scene.types.to_device); the film lives on the host."""
+    (scene.types.to_device); the film lives on the host. The backend is
+    resolved, and for scenes past AUTO_BRUTE_MAX_TRIS the ClusterScene
+    built (unless `accel` gives one), before the first pass."""
 
     def __init__(
         self,
@@ -46,14 +48,16 @@ class ProgressiveRenderer:
         backend: str = "auto",
         film: Optional[Film] = None,
         chunk: int = 1 << 16,
+        accel=None,
     ):
         if cfg.resolution is not None:
             camera = camera._replace(resolution=tuple(cfg.resolution))
         self.scene = scene
         self.camera = camera
         self.cfg = cfg
-        self.tables = TraceTables(scene, cfg, backend)
+        self.tables = TraceTables(scene, cfg, backend, accel=accel)
         self.backend = self.tables.backend
+        self.accel = self.tables.accel
         self.chunk = chunk
         w, h = camera.resolution
         self.film = film if film is not None else Film.blank(w, h, cfg.seed)

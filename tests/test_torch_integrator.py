@@ -127,16 +127,16 @@ def test_packed_tables_match_jax(cornell_path):
 
 
 def test_backend_resolution_and_unported_paths(cornell_path):
-    """"auto" is "brute" on CPU tensors and "cuda" on CUDA ones; what is not
-    ported raises NotImplementedError instead of taking another path."""
+    """"auto" is "brute" on CPU tensors and "cuda" on CUDA ones, and the
+    cluster sweep past AUTO_BRUTE_MAX_TRIS; what is not ported raises
+    NotImplementedError instead of taking another path."""
     assert integ.resolve_backend("auto", 36, "cpu") == "brute"
     assert integ.resolve_backend("auto", 36, "cuda:0") == "cuda"
     assert integ.resolve_backend("cuda", 36, "cpu") == "cuda"
-    for backend in ("pallas", "matmul", "bvh", "cluster", "watertight"):
+    for backend in ("pallas", "matmul", "bvh"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             integ.resolve_backend(backend, 36, "cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        integ.resolve_backend("auto", integ.AUTO_BRUTE_MAX_TRIS + 1, "cpu")
+    assert integ.resolve_backend("auto", integ.AUTO_BRUTE_MAX_TRIS + 1, "cpu") == "cluster"
     with pytest.raises(ValueError):
         integ.resolve_backend("nope", 36, "cpu")
 
