@@ -42,6 +42,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    JAX package's CPU value.
 9. Timings: each cluster kernel and its twin on the bounce-1 wavefront at
    terrain100k (median of CUDA-event timings).
+10. The four binned kernels against their twins on the card at terrain100k
+   (200 bins of 512 triangles, 224 box rows), on phase 6's ray sets, with
+   W at its default and at 1 (overflow and peel rounds), MT and watertight
+   leaves: prepass and peel bit for bit, each leaf's per-pair (t, slot) key
+   bit for bit; then the public binned closest_hit / occluded, resident and
+   streamed, against phase 6's sweep-twin results (equal hit masks and
+   occlusion, faces >= 0.999); the leak hunt through the binned watertight
+   path.
+11. The binned path through ProgressiveRenderer: phase 7's frame with
+   backend "cluster_binned" and with "cluster_streamed". Checks a finite
+   HDR, at least 4 passes x 4 chunks x 4 bounces x 2 queries launches of
+   the prepass and of the path's leaf kernel, at least one launch of its
+   overflow stage (the sweep, or the peel), no twin call and no
+   whole-table launch, and the HDR against phase 7's "cluster" frame (close
+   > 0.999 at rtol 1e-3, median |diff| 0); prints the three frames' Mrays/s.
+   Then one CLI render with --backend cluster_binned (Cornell, 64x64).
+12. Timings on the bounce-1 wavefront: each binned kernel alone and its
+   twin, and the binned wrappers (glue included) against the sweep's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. No result is printed when a
@@ -95,6 +113,14 @@ KERNELS = {
                             "pyrenderer_tpu/kernels/pallas_cluster.py:449"),
     "cluster_occluded": ("pyrenderer_tpu_torch/csrc/cluster.cu",
                          "pyrenderer_tpu/kernels/pallas_cluster.py:577"),
+    "binned_prepass": ("pyrenderer_tpu_torch/csrc/binned.cu",
+                       "pyrenderer_tpu/kernels/pallas_binned.py:167"),
+    "binned_peel": ("pyrenderer_tpu_torch/csrc/binned.cu",
+                    "pyrenderer_tpu/kernels/pallas_binned.py:216"),
+    "binned_leaf": ("pyrenderer_tpu_torch/csrc/binned.cu",
+                    "pyrenderer_tpu/kernels/pallas_binned.py:236"),
+    "binned_leaf_streamed": ("pyrenderer_tpu_torch/csrc/binned.cu",
+                             "pyrenderer_tpu/kernels/pallas_binned.py:439"),
 }
 
 
@@ -304,11 +330,13 @@ def main() -> int:
     print(f"frame: {rays} rays in {secs:.3f} s = {rays / secs / 1e6:.3f} Mrays/s "
           f"(1024x1024, 16 spp, 4 bounces, {card})", flush=True)
 
-    large = large_scene_phases(dev, card)
-    launches.update(large["launches"])
-    max_abs_err.update(large["max_abs_err"])
-    ms.update(large["ms"])
-    plain_ms.update(large["plain_ms"])
+    large, ctx = large_scene_phases(dev, card)
+    binned = binned_phases(dev, card, ctx)
+    for entries in (large, binned):
+        launches.update(entries["launches"])
+        max_abs_err.update(entries["max_abs_err"])
+        ms.update(entries["ms"])
+        plain_ms.update(entries["plain_ms"])
 
     print(card)
     print(json.dumps({"kernels": [
@@ -322,13 +350,16 @@ def main() -> int:
     return 0
 
 
-def compare_cluster(kc, cl, cs, ro, rd, t1, label):
+def compare_cluster(kc, cl, cs, ro, rd, t1, label, refs):
     """Both cluster kernels against their twins on one ray set, with MT and
     watertight leaves, sort off and on; returns the max absolute
-    differences (closest-hit t, occluded flag) over all of them."""
+    differences (closest-hit t, occluded flag) over all of them. The ray
+    set and the twin's results go into refs[label] for phase 10."""
     err = np.zeros(2)
+    refs[label] = {"rays": (ro, rd, t1)}
     for wt in (False, True):
         hit_r, t_r, slot_r = cl.closest_hit_ref(cs, ro, rd, T0, t1, watertight=wt)
+        refs[label][wt] = (hit_r, t_r, slot_r)
         face_r = cl.slot_to_face(cs, slot_r).to(torch.int32)
         occ_r = cl.occluded_ref(cs, ro, rd, T0, t1, watertight=wt)
         for sort in (False, True):
@@ -380,7 +411,9 @@ def integrator_wavefronts(scene, camera, tables, cfg, px, py):
 
 def large_scene_phases(dev, card):
     """Phases 6-9 (the terrain100k cluster path); returns the kernel-line
-    entries of the two cluster kernels."""
+    entries of the two cluster kernels, and what the binned phases reuse:
+    the scene, the ray sets with their sweep-twin results, and phase 7's
+    frame."""
     from pyrenderer_tpu_torch.accel import clusters as cl
     from pyrenderer_tpu_torch.config import RenderConfig
     from pyrenderer_tpu_torch.core.camera import generate_rays, morton_pixel_order
@@ -403,30 +436,34 @@ def large_scene_phases(dev, card):
 
     phase(f"6 cluster kernels against twins on the card ({N_RAYS} rays, terrain100k)")
     err = np.zeros(2)
+    refs = {}
     ro, rd = random_rays(N_RAYS, 0, dev)
-    err = np.maximum(err, compare_cluster(kc, cl, cs, ro, rd, T_MAX, "random, scalar t1"))
+    err = np.maximum(err, compare_cluster(kc, cl, cs, ro, rd, T_MAX, "random, scalar t1",
+                                          refs))
     perm, _ = morton_pixel_order(512, 512)
     ys, xs = np.mgrid[0:512, 0:512]
     px = torch.as_tensor(xs.reshape(-1)[perm][:N_RAYS], device=dev)
     py = torch.as_tensor(ys.reshape(-1)[perm][:N_RAYS], device=dev)
     cro, crd = generate_rays(camera, px, py, 0, 0)
     err = np.maximum(err, compare_cluster(kc, cl, cs, cro.contiguous(), crd.contiguous(),
-                                          T_MAX, "camera rays, scalar t1"))
+                                          T_MAX, "camera rays, scalar t1", refs))
     tables = TraceTables(scene, cfg, accel=cs)
     bounce1, shadow1 = integrator_wavefronts(scene, camera, tables, cfg, px, py)
-    err = np.maximum(err, compare_cluster(kc, cl, cs, *bounce1, "bounce-1 wavefront"))
-    err = np.maximum(err, compare_cluster(kc, cl, cs, *shadow1, "bounce-1 shadow rays"))
+    err = np.maximum(err, compare_cluster(kc, cl, cs, *bounce1, "bounce-1 wavefront", refs))
+    err = np.maximum(err, compare_cluster(kc, cl, cs, *shadow1, "bounce-1 shadow rays", refs))
     lanes = torch.arange(N_RAYS, device=dev)
     t1_dead = torch.where(lanes % 3 == 0, 0.0, T_MAX).float()
-    err = np.maximum(err, compare_cluster(kc, cl, cs, ro, rd, t1_dead, "random, dead lanes t1=0"))
+    err = np.maximum(err, compare_cluster(kc, cl, cs, ro, rd, t1_dead,
+                                          "random, dead lanes t1=0", refs))
     hit_dead, _, _ = kc.closest_hit(cs, ro, rd, T0, t1_dead, sort=True)
     occ_dead = kc.occluded(cs, ro, rd, T0, t1_dead, sort=True)
     check(not bool((hit_dead | occ_dead)[lanes % 3 == 0].any()), "a dead lane (t1=0) hit")
     t1_var = torch.as_tensor(np.random.RandomState(1).uniform(0.1, 3.0, N_RAYS),
                              dtype=torch.float32, device=dev)
-    err = np.maximum(err, compare_cluster(kc, cl, cs, ro, rd, t1_var, "random, per-ray t1"))
+    err = np.maximum(err, compare_cluster(kc, cl, cs, ro, rd, t1_var, "random, per-ray t1",
+                                          refs))
     rro, rrd = random_rays(100, 4, dev)
-    err = np.maximum(err, compare_cluster(kc, cl, cs, rro, rrd, T_MAX, "ragged N=100"))
+    err = np.maximum(err, compare_cluster(kc, cl, cs, rro, rrd, T_MAX, "ragged N=100", refs))
     max_abs_err = {"cluster_closest_hit": float(err[0]), "cluster_occluded": float(err[1])}
 
     # shared-edge leak hunt (tests/test_watertight.py:168-205) on the kernels
@@ -510,6 +547,229 @@ def large_scene_phases(dev, card):
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms "
               f"(bounce-1 wavefront of {N_RAYS} rays, terrain100k, watertight, sorted, "
               f"{card})", flush=True)
+    ctx = {"host": host, "cs": cs, "scene": scene, "camera": camera, "cfg": cfg,
+           "refs": refs, "quad": quad, "edge": (edge_ro, edge_rd), "hdr_cluster": hdr,
+           "mrays_cluster": rays / secs / 1e6}
+    return {"launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms}, ctx
+
+
+def compare_binned_kernels(kb, cs, rays, w, label):
+    """The four binned kernels against their twins on one ray set at one W:
+    prepass (with and without the words) and peel bit for bit, each leaf's
+    keys bit for bit, MT and watertight; returns the max absolute
+    differences (prepass, peel, leaf t, streamed leaf t)."""
+    ids, ovf, words = kb.prepass(cs, rays, T0, w, emit_words=True)
+    ids2, ovf2 = kb.prepass(cs, rays, T0, w)
+    ids_r, ovf_r, words_r = kb.prepass_ref(cs, rays, T0, w, emit_words=True)
+    check(torch.equal(ids, ids_r) and torch.equal(ovf, ovf_r) and torch.equal(words, words_r),
+          f"{label}, W={w}: prepass differs from its twin")
+    check(torch.equal(ids2, ids) and torch.equal(ovf2, ovf),
+          f"{label}, W={w}: prepass without words differs")
+    p_ids, p_ovf, p_words = kb.peel(words, w)
+    for a, b in zip((p_ids, p_ovf, p_words), kb.peel_ref(words, w)):
+        check(torch.equal(a, b), f"{label}, W={w}: peel differs from its twin")
+    n_real = int((ids != kb.SENTINEL).sum())
+    sortd, pair_ray = kb.sort_pairs(ids, n_real)
+    blocks = kb.blocks_for(sortd, cs.n_clusters // kb.BIN)
+    err = [0.0, 0.0, 0.0, 0.0]
+    for wt in (False, True):
+        keys = kb.leaf(cs, sortd, pair_ray, rays, T0, wt)
+        keys_s = kb.leaf_streamed(cs, blocks, pair_ray, rays, T0, wt)
+        keys_r = kb.leaf_ref(cs, sortd, pair_ray, rays, T0, wt)
+        keys_sr = kb.leaf_streamed_ref(cs, blocks, pair_ray, rays, T0, wt)
+        torch.cuda.synchronize()
+        t_r = kb.decode(keys_r)[1]
+        for i, (k, k_r) in enumerate(((keys, keys_r), (keys_s, keys_sr)), start=2):
+            hit = k_r != kb.MISS_KEY
+            dt = (kb.decode(k)[1] - t_r)[hit].abs()
+            err[i] = max(err[i], float(dt.max()) if dt.numel() else 0.0)
+        check(torch.equal(keys, keys_r), f"{label}, W={w}, wt={wt}: leaf keys differ")
+        check(torch.equal(keys_s, keys_sr), f"{label}, W={w}, wt={wt}: streamed leaf keys differ")
+    print(f"{label}, W={w}: prepass, peel bit-equal; {n_real} pairs "
+          f"({int(ovf.sum())} rays overflow), {int((blocks[:, 0] >= 0).sum())} streamed blocks; "
+          f"leaf and streamed leaf keys bit-equal (MT, watertight)", flush=True)
+    return np.array(err)
+
+
+def compare_binned_wrappers(kb, cl, cs, refs, label):
+    """The public binned closest_hit / occluded, resident and streamed, W at
+    its default and at 1, MT and watertight, against phase 6's sweep-twin
+    results; returns the largest number of peel launches of one query."""
+    ro, rd, t1 = refs["rays"]
+    most_peels = 0
+    for wt in (False, True):
+        hit_r, t_r, slot_r = refs[wt]
+        face_r = cl.slot_to_face(cs, slot_r).to(torch.int32)
+        for streamed in (False, True):
+            for w in (kb._W_DEFAULT, 1):
+                kb.W_SLOTS = w
+                peels = kb.peel.launches
+                hit, t, face = kb.closest_hit(cs, ro, rd, T0, t1, watertight=wt,
+                                              streamed=streamed, exact_t=False)
+                most_peels = max(most_peels, kb.peel.launches - peels)
+                occ = kb.occluded(cs, ro, rd, T0, t1, watertight=wt, streamed=streamed)
+                kb.W_SLOTS = kb._W_DEFAULT
+                shown = kb._w_slots(streamed) if w == kb._W_DEFAULT else w
+                tag = (f"{label}, {'watertight' if wt else 'MT'}, "
+                       f"{'streamed' if streamed else 'resident'}, W={shown}")
+                check(torch.equal(hit, hit_r), f"{tag}: hit masks differ from the sweep twin")
+                check(torch.equal(occ, hit_r), f"{tag}: occlusion differs from the sweep twin")
+                n_hit = int(hit.sum())
+                same = (face == face_r) & hit
+                n_same = int(same.sum())
+                check(n_same >= 0.999 * n_hit, f"{tag}: faces equal on {n_same}/{n_hit} hits")
+                torch.testing.assert_close(t[same], t_r[same], rtol=1e-5, atol=0.0)
+                err_t = float((t - t_r).abs().max()) if t.numel() else 0.0
+                print(f"{tag}: hits={n_hit} faces equal {n_same}/{n_hit} max|dt|={err_t:.3g}, "
+                      "occlusion equal", flush=True)
+    return most_peels
+
+
+def binned_phases(dev, card, ctx):
+    """Phases 10-12 (the binned traversal at terrain100k); returns the
+    kernel-line entries of the four binned kernels."""
+    from pyrenderer_tpu_torch.accel import clusters as cl
+    from pyrenderer_tpu_torch.kernels import binned as kb
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+    from pyrenderer_tpu_torch.kernels import intersect as ki
+    from pyrenderer_tpu_torch.render import cli
+    from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
+
+    cs, refs = ctx["cs"], ctx["refs"]
+    names = ("binned_prepass", "binned_peel", "binned_leaf", "binned_leaf_streamed")
+    phase(f"10 binned kernels against twins on the card (terrain100k, {cs.n_clusters // kb.BIN}"
+          f" bins, {cs.bin_box.shape[0]} box rows)")
+    err = np.zeros(4)
+    for label, ref in refs.items():
+        rays = kc._prepare(cs, *ref["rays"], sort=False)[0]
+        for w in (kb._W_DEFAULT, 1):
+            err = np.maximum(err, compare_binned_kernels(kb, cs, rays, w, label))
+    max_abs_err = dict(zip(names, (float(e) for e in err)))
+    peels = {label: compare_binned_wrappers(kb, cl, cs, ref, label)
+             for label, ref in refs.items()}
+    print(f"most peel rounds of one streamed query (W=1): {peels}", flush=True)
+    quad = ctx["quad"]
+    edge_ro, edge_rd = ctx["edge"]
+    for streamed in (False, True):
+        hit, t, _ = kb.closest_hit(quad, edge_ro, edge_rd, T0, 10.0, watertight=True,
+                                   streamed=streamed)
+        occ = kb.occluded(quad, edge_ro, edge_rd, T0, 10.0, watertight=True, streamed=streamed)
+        leaked, leaked_occ = int((~hit).sum()), int((~occ).sum())
+        print(f"leak hunt, binned {'streamed' if streamed else 'resident'}: leaked {leaked} "
+              f"(closest) and {leaked_occ} (occluded) of 4096 shared-edge rays", flush=True)
+        check(leaked == 0 and leaked_occ == 0, "the binned watertight path leaks")
+        torch.testing.assert_close(t, torch.ones_like(t), rtol=1e-4, atol=0.0)
+
+    phase("11 binned path: ProgressiveRenderer, terrain100k, 512x512, 4 spp, 4 bounces")
+    launches = dict.fromkeys(names, 0)
+    mrays = {"cluster": ctx["mrays_cluster"]}
+    expect = 4 * 4 * 4 * 2
+    for backend, leaf_name in (("cluster_binned", "binned_leaf"),
+                               ("cluster_streamed", "binned_leaf_streamed")):
+        renderer = ProgressiveRenderer(ctx["scene"], ctx["camera"], ctx["cfg"],
+                                       backend=backend, chunk=1 << 16, accel=cs)
+        check(renderer.backend == backend and renderer.tables.cluster_watertight
+              and not renderer.tables.cluster_sort,
+              f"{backend}: resolved {renderer.backend}, watertight/sort not on/off")
+        torch.cuda.synchronize()
+        kb.reset_counters()
+        kc.reset_counters()
+        ki.reset_counters()
+        film = renderer.run(quiet=True)
+        run = {name: getattr(kb, name[len("binned_"):]).launches for name in names}
+        twins = sum(fn.twin_calls for fn in (kb.prepass, kb.peel, kb.leaf, kb.leaf_streamed,
+                                             kc.closest_hit, kc.occluded, ki.closest_hit,
+                                             ki.occluded))
+        whole_table = ki.closest_hit.launches + ki.occluded.launches
+        residual = kc.closest_hit.launches + kc.occluded.launches
+        hdr = film.hdr
+        check(hdr.shape == (512, 512, 3) and bool(np.isfinite(hdr).all()), "HDR not finite")
+        ref = ctx["hdr_cluster"]
+        close = float(np.isclose(hdr, ref, rtol=1e-3, atol=0.0).mean())
+        med = float(np.median(np.abs(hdr - ref)))
+        print(f"{backend}: launches {run}, sweep residual launches {residual}, twin calls "
+              f"{twins}, whole-table launches {whole_table}; against the cluster frame: close "
+              f"fraction {close:.6f} (> 0.999), median |diff| {med:.3g} (0), HDR mean "
+              f"{float(hdr.mean()):.6f}", flush=True)
+        check(run["binned_prepass"] >= expect and run[leaf_name] >= expect,
+              f"{backend}: prepass or leaf launched fewer than {expect} times")
+        # at terrain100k some rays cross more than W bins on every bounce, so
+        # each path also runs its overflow stage: the sweep or the peel
+        overflow_stage = residual if backend == "cluster_binned" else run["binned_peel"]
+        check(overflow_stage > 0, f"{backend}: the overflow stage never ran")
+        check(twins == 0 and whole_table == 0, f"{backend}: the path left the kernels")
+        check(close > 0.999 and med == 0.0, f"{backend}: frame differs from the cluster frame")
+        for name in names:
+            launches[name] += run[name]
+        mrays[backend] = renderer.rays_traced / renderer.render_seconds / 1e6
+    print("frames (terrain100k, 512x512, 4 spp, 4 bounces, Mrays/s as bench.py counts): "
+          + ", ".join(f"{b} {m:.3f}" for b, m in mrays.items()) + f" ({card})", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "binned.png")
+        kb.reset_counters()
+        rc, log = run_cli(cli, [SCENE, "--estimator", "reference", "--backend",
+                                "cluster_binned", "--res", "64", "64", "--spp", "2",
+                                "--depth", "4", "--out", png,
+                                "--hdr-out", os.path.join(tmp, "binned.exr")])
+        check(rc == 0 and os.path.getsize(png) > 0, "the --backend cluster_binned CLI run failed")
+        check("(cluster_binned backend)" in log and kb.prepass.launches == 2 * 4 * 2
+              and kb.prepass.twin_calls == 0,
+              f"the CLI run did not route to the binned kernels ({kb.prepass.launches} prepass "
+              "launches)")
+        print(f"CLI --backend cluster_binned: {kb.prepass.launches} prepass and "
+              f"{kb.leaf.launches} leaf launches", flush=True)
+
+    phase(f"12 binned timings on {card}")
+    b_ro, b_rd, b_t1 = refs["bounce-1 wavefront"]["rays"]
+    s_ro, s_rd, s_t1 = refs["bounce-1 shadow rays"]["rays"]
+    rays = kc._prepare(cs, b_ro, b_rd, b_t1, sort=False)[0]
+    w = kb._w_slots()
+    ids, ovf, words = kb.prepass(cs, rays, T0, w, emit_words=True)
+    n_real = int((ids != kb.SENTINEL).sum())
+    sortd, pair_ray = kb.sort_pairs(ids, n_real)
+    blocks = kb.blocks_for(sortd, cs.n_clusters // kb.BIN)
+    print(f"bounce-1 wavefront: {int((b_t1 > 0).sum())} live rays, {n_real} pairs at W={w}, "
+          f"{int(ovf.sum())} overflow rays", flush=True)
+    ms, plain_ms = {}, {}
+    ms["binned_prepass"], plain_ms["binned_prepass"] = cuda_ms_pair(
+        lambda: kb.prepass(cs, rays, T0, w), lambda: kb.prepass_ref(cs, rays, T0, w))
+    ms["binned_peel"], plain_ms["binned_peel"] = cuda_ms_pair(
+        lambda: kb.peel(words, w), lambda: kb.peel_ref(words, w))
+    ms["binned_leaf"], plain_ms["binned_leaf"] = cuda_ms_pair(
+        lambda: kb.leaf(cs, sortd, pair_ray, rays, T0, True),
+        lambda: kb.leaf_ref(cs, sortd, pair_ray, rays, T0, True), twin_reps=2)
+    ms["binned_leaf_streamed"], plain_ms["binned_leaf_streamed"] = cuda_ms_pair(
+        lambda: kb.leaf_streamed(cs, blocks, pair_ray, rays, T0, True),
+        lambda: kb.leaf_streamed_ref(cs, blocks, pair_ray, rays, T0, True), twin_reps=2)
+    for name in names:
+        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms (bounce-1 "
+              f"wavefront of {N_RAYS} rays, terrain100k, watertight, {card})", flush=True)
+    wrappers = {
+        "closest, binned": lambda: kb.closest_hit(cs, b_ro, b_rd, T0, b_t1, watertight=True,
+                                                  exact_t=False),
+        "closest, streamed": lambda: kb.closest_hit(cs, b_ro, b_rd, T0, b_t1, watertight=True,
+                                                    streamed=True, exact_t=False),
+        "closest, sweep sorted": lambda: kc.closest_hit(cs, b_ro, b_rd, T0, b_t1, sort=True,
+                                                        watertight=True, exact_t=False),
+        "closest, sweep unsorted": lambda: kc.closest_hit(cs, b_ro, b_rd, T0, b_t1,
+                                                          watertight=True, exact_t=False),
+        "occluded, binned": lambda: kb.occluded(cs, s_ro, s_rd, T0, s_t1, watertight=True),
+        "occluded, streamed": lambda: kb.occluded(cs, s_ro, s_rd, T0, s_t1, watertight=True,
+                                                  streamed=True),
+        "occluded, sweep sorted": lambda: kc.occluded(cs, s_ro, s_rd, T0, s_t1, sort=True,
+                                                      watertight=True),
+        "occluded, sweep unsorted": lambda: kc.occluded(cs, s_ro, s_rd, T0, s_t1,
+                                                        watertight=True),
+    }
+    order = list(wrappers) + list(reversed(wrappers))
+    times = {name: [] for name in wrappers}
+    for name in order:
+        times[name].append(cuda_ms(wrappers[name]))
+    for name in wrappers:
+        print(f"wrapper {name}: {float(np.median(times[name])):.4f} ms (median of 2 x 20, "
+              f"bounce-1 {'shadow rays' if name.startswith('occluded') else 'wavefront'}, "
+              f"watertight, {card})", flush=True)
     return {"launches": launches, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms}
 

@@ -14,16 +14,20 @@ two CUDA kernels: clusters in ascending index, a strict ``<`` update, the
 first minimum inside a cluster -- so the result is the exact minimum t, ties
 to the lowest slot.
 
+The binned traversal (kernels/binned.py, csrc/binned.cu) groups BIN
+adjacent clusters into a bin of BIN_TRIS triangles; ``bin_box`` holds the
+bins' boxes.
+
 Not ported here (ROADMAP A10): ``ClusterChunks`` / ``build_chunked_clusters``
 (a TPU VMEM ceiling; one H100 holds the whole table), the native C++
 orderer (the Python median split below is bit-identical to it), and the
-``bin_box`` / ``bitw`` arrays of the binned traversal and the TPU's bit
-packing.
+``bitw`` array of the TPU's bit packing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -34,6 +38,12 @@ from pyrenderer_tpu_torch.core.watertight import watertight_terms
 LANE_TRIS = 128   # triangles per cluster
 GROUP = 16        # clusters per supercluster
 TRI_ROWS = 16     # rows per cluster in the packed (K*16, 128) table (9 used)
+# clusters per bin of the binned traversal: 4 x 128 = 512 adjacent
+# (median-split sibling) triangles. Read once at import, as the JAX package
+# does; a ClusterScene must be built and traversed under the same value, and
+# the CUDA kernels are compiled for 4 (csrc/binned.cu kBin).
+BIN = int(os.environ.get("PYRENDERER_BIN", "4"))
+BIN_TRIS = BIN * LANE_TRIS
 
 MISS_T = 3.0e38
 
@@ -60,6 +70,10 @@ class ClusterScene:
     tri: torch.Tensor         # (K * TRI_ROWS, 128) f32: rows v0|e1|e2 (9) + pad
     child_box: torch.Tensor   # (K, 128) f32: one row per cluster, lanes
     #                           bmin.xyz|bmax.xyz (6 used)
+    bin_box: torch.Tensor     # (KB_pad32, 128) f32: one row per bin of BIN
+    #                           clusters, lanes 0..5 = bmin|bmax; NaN rows for
+    #                           empty bins and for the padding to a multiple
+    #                           of 32 bins
     super_box: torch.Tensor   # (6, S) f32: bmin.xyz|bmax.xyz per supercluster
     super_cols: torch.Tensor  # (S_pad, 128) f32: the same boxes one row each,
     #                           lanes 0..5, NaN rows past S
@@ -155,6 +169,17 @@ def build_clusters(vertices, faces) -> ClusterScene:
     smax = cmax.reshape(s, GROUP, 3).max(axis=1)
     super_box = np.concatenate([smin.T, smax.T], axis=0).astype(np.float32)
 
+    # bin boxes the same way: padded clusters vanish, fully padded bins stay
+    # inverted (inf/-inf) and become NaN
+    kb = k // BIN
+    bmin = cmin.reshape(kb, BIN, 3).min(axis=1)
+    bmax = cmax.reshape(kb, BIN, 3).max(axis=1)
+    empty = ~np.isfinite(bmin).all(axis=1)
+    bin_box = np.zeros((-(-kb // 32) * 32, LANE_TRIS), np.float32)
+    bin_box[:, 0:6] = np.nan
+    bin_box[:kb, 0:3] = np.where(empty[:, None], np.nan, bmin)
+    bin_box[:kb, 3:6] = np.where(empty[:, None], np.nan, bmax)
+
     cmin[k_real:] = np.nan
     cmax[k_real:] = np.nan
     child = np.zeros((k, LANE_TRIS), np.float32)
@@ -175,6 +200,7 @@ def build_clusters(vertices, faces) -> ClusterScene:
     return ClusterScene(
         tri=torch.from_numpy(tri_rows.reshape(k * TRI_ROWS, LANE_TRIS)),
         child_box=torch.from_numpy(child),
+        bin_box=torch.from_numpy(bin_box),
         super_box=torch.from_numpy(super_box),
         super_cols=torch.from_numpy(super_cols),
         order=torch.from_numpy(order_full),
@@ -217,15 +243,18 @@ def sort_keys(cs: ClusterScene, ro, rd):
 
 def _slab(bmin, bmax, o, inv_d, t0, t1):
     """Slab test of one box, bmin/bmax (3,), against rays o, inv_d (N, 3)
-    with per-ray t1 (N,). min/max propagate NaN, so a NaN box never
-    crosses. The association is the kernel's (csrc/cluster.cu slab)."""
+    with per-ray t1 (N,); the trailing axis holds x, y, z, so (B, 3) boxes
+    against (N, 1, 3) rays and (N, 1) t1 give the (N, B) grid. min/max
+    propagate NaN, so a NaN box never crosses. The association is the
+    kernels' (csrc/leaf.cuh slab)."""
     lo = (bmin - o) * inv_d
     hi = (bmax - o) * inv_d
     mn = torch.minimum(lo, hi)
     mx = torch.maximum(lo, hi)
     # clamp(min=) is max(x, t0) and keeps a NaN x, as torch.maximum does
-    t_near = torch.maximum(torch.maximum(mn[:, 0], mn[:, 1]), mn[:, 2].clamp(min=t0))
-    t_far = torch.minimum(torch.minimum(mx[:, 0], mx[:, 1]), mx[:, 2]) * SLAB_WIDEN
+    t_near = torch.maximum(torch.maximum(mn[..., 0], mn[..., 1]),
+                           mn[..., 2].clamp(min=t0))
+    t_far = torch.minimum(torch.minimum(mx[..., 0], mx[..., 1]), mx[..., 2]) * SLAB_WIDEN
     return t_near <= torch.minimum(t_far, t1)
 
 

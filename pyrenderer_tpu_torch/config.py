@@ -77,6 +77,9 @@ class RenderConfig:
     cluster_budget: int = 8        # supercluster visit budget per ray tile
     #                                in pass 1; only read when
     #                                cluster_rounds > 1.
+    # The binned backends' candidate bins per ray and pass (kernels/binned.py
+    # W_SLOTS = 6, W_SLOTS_STREAMED = 10, env PYRENDERER_BINNED_W) are the
+    # JAX package's values, chosen on a TPU; not measured on this card.
     t_min: float = 1e-5            # reference tracing.py:125 hit epsilon
     t_max: float = 99999.9         # reference tracing.py:125
     output_file: str = "out.png"

@@ -16,6 +16,16 @@ Intersection backends:
                   plain twins on the CPU. "auto" picks it above
                   AUTO_BRUTE_MAX_TRIS on every device (the JAX package picks
                   "bvh" on the CPU, which is not ported yet, ROADMAP A10).
+  "cluster_binned", "cluster_streamed"
+               -- the binned (bin, ray) pair traversal over the same
+                  ClusterScene (kernels/binned.py), overflow rays finished
+                  by the sweep or by further peel rounds. No coherence sort.
+                  PYRENDERER_CLUSTER_IMPL=binned turns "cluster", and
+                  "auto" past AUTO_BRUTE_MAX_TRIS, into "cluster_binned", as
+                  in the JAX package. "cluster_streamed" is never chosen
+                  automatically: the JAX package routes there only for a
+                  scene that overflows the TPU's VMEM, a ceiling this card
+                  does not have (as in the JAX package off the TPU).
   "watertight" -- the plain broadcast watertight test (core/watertight.py).
 
 The "reference" estimator reproduces the reference renderer's
@@ -44,6 +54,7 @@ from pyrenderer_tpu_torch.core import sampling
 from pyrenderer_tpu_torch.core import watertight as wt
 from pyrenderer_tpu_torch.core.camera import generate_rays, morton_pixel_order
 from pyrenderer_tpu_torch.core.sampling import INV_PI
+from pyrenderer_tpu_torch.kernels import binned as binned_kernels
 from pyrenderer_tpu_torch.kernels import cluster as cluster_kernels
 from pyrenderer_tpu_torch.kernels import intersect as kernels
 from pyrenderer_tpu_torch.scene.types import Camera, Scene
@@ -64,15 +75,15 @@ AUTO_BRUTE_MAX_TRIS = 4096
 # and stays as the reference has it.
 AUTO_SORT_MIN_CLUSTERS = 256
 
-BACKENDS = ("cuda", "brute", "cluster", "watertight")
+# the backends that trace a ClusterScene
+CLUSTER_BACKENDS = ("cluster", "cluster_binned", "cluster_streamed")
+BACKENDS = ("cuda", "brute", "watertight") + CLUSTER_BACKENDS
 
 # JAX backends and the ROADMAP item that ports each one.
 _NOT_PORTED = {
     "pallas": 'A4 (its port is backend "cuda")',
     "matmul": "A14",
     "bvh": "A10",
-    "cluster_binned": "A10",
-    "cluster_streamed": "A10",
     "cluster_chunked": "A10",
 }
 
@@ -88,19 +99,29 @@ def accel_backend() -> str:
     return "cluster"
 
 
+def _cluster_impl_binned() -> bool:
+    """PYRENDERER_CLUSTER_IMPL=binned: trace "cluster" queries with the
+    binned traversal instead of the sweep (read at every resolve, as the
+    JAX package does)."""
+    return os.environ.get("PYRENDERER_CLUSTER_IMPL", "") == "binned"
+
+
 def resolve_backend(backend: str, n_tris: int, device) -> str:
     """Turn "auto" into "cuda" (CUDA device) or "brute" (CPU) up to
-    AUTO_BRUTE_MAX_TRIS faces and into accel_backend() above; reject what is
-    not ported instead of silently taking another path."""
+    AUTO_BRUTE_MAX_TRIS faces and into accel_backend() above, and "cluster"
+    into "cluster_binned" under PYRENDERER_CLUSTER_IMPL=binned; reject what
+    is not ported instead of silently taking another path."""
     if backend in _NOT_PORTED:
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet (ROADMAP {_NOT_PORTED[backend]})")
     if backend not in ("auto",) + BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
+    if backend == "auto" and n_tris > AUTO_BRUTE_MAX_TRIS:
+        backend = accel_backend()
+    if backend == "cluster" and _cluster_impl_binned():
+        return "cluster_binned"
     if backend != "auto":
         return backend
-    if n_tris > AUTO_BRUTE_MAX_TRIS:
-        return accel_backend()
     return "cuda" if torch.device(device).type == "cuda" else "brute"
 
 
@@ -124,13 +145,13 @@ def resolve_cluster_watertight(cfg: RenderConfig, accel) -> bool:
 
 def maybe_build_accel(scene: Scene, backend: str, accel=None):
     """The accelerator `backend` needs on the scene's device: a ClusterScene
-    for "cluster" (and for "auto" past AUTO_BRUTE_MAX_TRIS), built on the
-    host; None for the whole-table backends. A given `accel` is returned
-    as it is."""
+    for the CLUSTER_BACKENDS (and for "auto" past AUTO_BRUTE_MAX_TRIS),
+    built on the host; None for the whole-table backends. A given `accel`
+    is returned as it is."""
     if accel is not None:
         return accel
     device = scene.vertices.device
-    if resolve_backend(backend, scene.faces.shape[0], device) != "cluster":
+    if resolve_backend(backend, scene.faces.shape[0], device) not in CLUSTER_BACKENDS:
         return None
     return build_clusters(scene.vertices, scene.faces).to(device)
 
@@ -207,9 +228,10 @@ def pack_light_data(scene: Scene):
 
 class TraceTables:
     """Per-scene device tables shared by every sample and pass: the packed
-    face and light rows, for backend "cuda" the (9, T) kernel table, for
-    "cluster" the ClusterScene (`accel`, built here unless given) with its
-    resolved sort and leaf choices, and the light color (made once: a
+    face and light rows, for backend "cuda" the (9, T) kernel table, for the
+    CLUSTER_BACKENDS the ClusterScene (`accel`, built here unless given)
+    with its resolved leaf choice and, for "cluster", sort choice (the
+    binned backends need no sort), and the light color (made once: a
     host-to-device copy per trace would make the host wait for the
     device)."""
 
@@ -225,9 +247,10 @@ class TraceTables:
         self.accel = None
         if self.backend == "cuda":
             self.tri_table = kernels.pack_triangles(scene.vertices, scene.faces)
-        elif self.backend == "cluster":
-            self.accel = maybe_build_accel(scene, "cluster", accel)
-            self.cluster_sort = resolve_cluster_sort(cfg, self.accel)
+        elif self.backend in CLUSTER_BACKENDS:
+            self.accel = maybe_build_accel(scene, self.backend, accel)
+            self.cluster_sort = (self.backend == "cluster"
+                                 and resolve_cluster_sort(cfg, self.accel))
             self.cluster_watertight = resolve_cluster_watertight(cfg, self.accel)
 
     def fetch_face(self, tri):
@@ -245,6 +268,10 @@ def _closest(scene, tables, cfg, ro, rd, t1):
         return cluster_kernels.closest_hit(
             tables.accel, ro, rd, cfg.t_min, t1, sort=tables.cluster_sort,
             watertight=tables.cluster_watertight, exact_t=False)
+    if b in ("cluster_binned", "cluster_streamed"):
+        return binned_kernels.closest_hit(
+            tables.accel, ro, rd, cfg.t_min, t1, watertight=tables.cluster_watertight,
+            streamed=b == "cluster_streamed", exact_t=False)
     if b == "watertight":
         return wt.intersect_watertight(scene, ro, rd, cfg.t_min, t1)
     return isect.intersect_brute(scene, ro, rd, cfg.t_min, t1)
@@ -258,6 +285,10 @@ def _any_hit(scene, tables, cfg, ro, rd, t1):
         return cluster_kernels.occluded(
             tables.accel, ro, rd, cfg.t_min, t1, sort=tables.cluster_sort,
             watertight=tables.cluster_watertight)
+    if b in ("cluster_binned", "cluster_streamed"):
+        return binned_kernels.occluded(
+            tables.accel, ro, rd, cfg.t_min, t1, watertight=tables.cluster_watertight,
+            streamed=b == "cluster_streamed")
     if b == "watertight":
         return wt.occluded_watertight(scene, ro, rd, cfg.t_min, t1)
     return isect.occluded(scene, ro, rd, cfg.t_min, t1)

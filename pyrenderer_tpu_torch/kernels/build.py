@@ -79,6 +79,14 @@ def _declare(lib) -> None:
     lib.pr_cluster_closest.restype = ctypes.c_int
     lib.pr_cluster_occluded.argtypes = [p, p, p, p, i32, p, f32, i64, i32, p, p]
     lib.pr_cluster_occluded.restype = ctypes.c_int
+    lib.pr_binned_prepass.argtypes = [p, i32, p, f32, i64, i32, p, p, p, p]
+    lib.pr_binned_prepass.restype = ctypes.c_int
+    lib.pr_binned_peel.argtypes = [p, i32, i64, i32, p, p, p, p]
+    lib.pr_binned_peel.restype = ctypes.c_int
+    lib.pr_binned_leaf.argtypes = [p, p, p, i64, p, f32, i32, p, p]
+    lib.pr_binned_leaf.restype = ctypes.c_int
+    lib.pr_binned_leaf_streamed.argtypes = [p, p, i64, p, p, f32, i32, p, p]
+    lib.pr_binned_leaf_streamed.restype = ctypes.c_int
 
 
 def build() -> str:

@@ -54,8 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
         default="auto",
         help="intersection backend: auto = the whole-table CUDA kernels on a "
         "GPU (the plain PyTorch test on the CPU) up to 4096 triangles, the "
-        "cluster sweep above; cluster, watertight and cuda/brute are ported, "
-        "the rest raises",
+        "cluster sweep above (the binned traversal under "
+        "PYRENDERER_CLUSTER_IMPL=binned); cluster, cluster_binned, "
+        "cluster_streamed, watertight and cuda/brute are ported, the rest "
+        "raises",
     )
     p.add_argument("--chunk", type=int, default=1 << 16,
                    help="rays per dispatch chunk (default 2^16)")

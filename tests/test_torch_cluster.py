@@ -26,6 +26,7 @@ from pyrenderer_tpu.scene.tungsten import load_tungsten
 from pyrenderer_tpu_torch.accel import clusters as cl
 from pyrenderer_tpu_torch.config import RenderConfig
 from pyrenderer_tpu_torch.core import integrator as integ
+from pyrenderer_tpu_torch.kernels import binned as kb
 from pyrenderer_tpu_torch.kernels import cluster as kc
 from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
 from pyrenderer_tpu_torch.scene import procgen, to_device
@@ -82,13 +83,16 @@ def test_procgen_matches_jax(kind, kw):
     assert np.array_equal(cam.iview, cam_j.iview) and cam.resolution == cam_j.resolution
 
 
-@pytest.mark.parametrize("which", ["terrain64", "quad", "cornell"])
+@pytest.mark.parametrize("which", ["terrain64", "terrain96", "quad", "cornell"])
 def test_cluster_scene_matches_jax(which, terrain, cornell_path):
     """Every array of the port's ClusterScene equals the JAX build's (NaN
-    padding included); child_box lacks only JAX's trailing rows for the TPU's
-    pair-peeled sweep."""
+    padding included), the binned traversal's bin_box too; child_box lacks
+    only JAX's trailing rows for the TPU's pair-peeled sweep."""
     if which == "terrain64":
         verts, faces = terrain[0].vertices, terrain[0].faces
+    elif which == "terrain96":
+        host, _, _ = build_scene(procgen.big_scene_data("terrain", res=96))
+        verts, faces = host.vertices, host.faces
     elif which == "quad":
         verts, faces = QUAD
     else:
@@ -98,7 +102,8 @@ def test_cluster_scene_matches_jax(which, terrain, cornell_path):
     cs_j = clj.build_clusters(np.asarray(verts), np.asarray(faces))
     k = cs.n_clusters
     assert k == cs_j.n_clusters and cs.n_superclusters == cs_j.n_superclusters
-    for name in ("tri", "super_box", "super_cols", "order", "world_lo", "world_inv_span"):
+    for name in ("tri", "bin_box", "super_box", "super_cols", "order", "world_lo",
+                 "world_inv_span"):
         ours, theirs = getattr(cs, name).numpy(), np.asarray(getattr(cs_j, name))
         assert ours.dtype == theirs.dtype, name
         np.testing.assert_array_equal(ours, theirs, err_msg=name)
@@ -110,6 +115,12 @@ def test_cluster_scene_matches_jax(which, terrain, cornell_path):
     assert np.isfinite(cs.child_box[:k_real, :6].numpy()).all()
     assert np.isnan(cs.super_cols[cs.n_superclusters:, :6].numpy()).all()
     assert cs.super_cols.shape[0] % 32 == 0 and k % cl.GROUP == 0
+    # bins past the last real cluster, and the rows padding the bins to a
+    # multiple of 32, are NaN; the others are finite
+    kb_real = -(-k_real // cl.BIN)
+    assert cs.bin_box.shape[0] % 32 == 0 and cs.bin_box.shape[0] >= k // cl.BIN
+    assert np.isnan(cs.bin_box[kb_real:, :6].numpy()).all()
+    assert np.isfinite(cs.bin_box[:kb_real, :6].numpy()).all()
 
 
 def test_slab_rejects_nan_boxes(clusters):
@@ -230,10 +241,13 @@ def test_cpu_wrappers_use_twins_and_count(clusters):
 
 
 def test_kernel_source_matches_twin_constants():
-    """The constants written into csrc/cluster.cu are the twin's."""
-    path = os.path.join(os.path.dirname(kc.__file__), "..", "csrc", "cluster.cu")
-    with open(path) as fh:
-        src = fh.read()
+    """The constants written into csrc/leaf.cuh (shared by the sweep and the
+    binned kernels) and csrc/binned.cu are the twins'."""
+    csrc = os.path.join(os.path.dirname(kc.__file__), "..", "csrc")
+    src = ""
+    for name in ("leaf.cuh", "binned.cu"):
+        with open(os.path.join(csrc, name)) as fh:
+            src += fh.read()
 
     def const(name):
         return re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1).split()[0]
@@ -243,6 +257,11 @@ def test_kernel_source_matches_twin_constants():
     assert float(const("kMissT").rstrip("f")) == cl.MISS_T
     assert int(const("kLane")) == cl.LANE_TRIS and int(const("kGroup")) == cl.GROUP
     assert int(const("kTriRows")) == cl.TRI_ROWS
+    assert int(const("kSentinel"), 16) == kb.SENTINEL
+    assert int(const("kBin")) == cl.BIN and cl.BIN_TRIS == cl.BIN * cl.LANE_TRIS
+    assert int(const("kThreads")) == kb._THREADS
+    with open(os.path.join(csrc, "cluster.cu")) as fh:
+        assert '#include "leaf.cuh"' in fh.read()
 
 
 def test_routing_and_auto_policies(terrain):
@@ -256,7 +275,7 @@ def test_routing_and_auto_policies(terrain):
     assert integ.resolve_backend("auto", limit, "cuda:0") == "cuda"
     assert integ.resolve_backend("cluster", 36, "cpu") == "cluster"
     assert integ.resolve_backend("watertight", 10 ** 6, "cpu") == "watertight"
-    for backend in ("bvh", "cluster_binned", "cluster_streamed", "cluster_chunked"):
+    for backend in ("bvh", "cluster_chunked"):
         with pytest.raises(NotImplementedError, match="A10"):
             integ.resolve_backend(backend, 10 ** 5, "cpu")
 
@@ -381,12 +400,12 @@ def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in c]
     assert sorted(c.split(" -c ")[1].split()[0].rsplit("/", 1)[1] for c in compiles) \
-        == ["cluster.cu", "intersect.cu"]
+        == ["binned.cu", "cluster.cu", "intersect.cu"]
     assert all(c.startswith(" ".join(build.NVCC_FLAGS)) for c in compiles)
     (link,) = [c for c in calls if " -c " not in c]
-    assert "-shared" in link and link.count(".o") == 2
+    assert "-shared" in link and link.count(".o") == 3
     assert os.path.exists(lib) and build.build() == lib   # reused by digest
-    assert len(log.read_text().splitlines()) == 3
+    assert len(log.read_text().splitlines()) == 4
 
 
 @pytest.mark.cuda
