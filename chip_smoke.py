@@ -20,9 +20,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. GPU against CPU: render_image at 64x64 (2 spp, 4 bounces, seed 3) on the
    card and with the CPU twins; then the mean radiance at 160x160
    (32 spp, 8 bounces, seed 1) against the JAX package's CPU value.
-5. Timings: each whole-table kernel and its twin on the card (median of
-   CUDA-event timings), and the phase-3 frame in Mrays/s, counted as
-   bench.py counts.
+5. Timings: each whole-table kernel and its twin on the card (medians of
+   CUDA-event timings, in turns; every kernel time in this script is the
+   replay of a CUDA graph of 20 calls, the device's time without the
+   host's launch cost; perf/kernelbench.graph_ms and cuda_ms), and the
+   phase-3 frame in Mrays/s, counted as bench.py counts.
 6. Each cluster-sweep kernel against its twin on the card, at the
    terrain100k tables (100,364 triangles, 785 clusters padded to 800):
    65,536 random rays, camera rays, the integrator's real bounce-1
@@ -41,7 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    terrain100k mean radiance (32x32, 2 spp, 4 bounces, seed 0) against the
    JAX package's CPU value.
 9. Timings: each cluster kernel and its twin on the bounce-1 wavefront at
-   terrain100k (median of CUDA-event timings).
+   terrain100k (median of CUDA-event timings); their bounds from the tests
+   the kernels' front-to-back walk needs at the least (walk_tests), the
+   any-hit walk's occlusion checked against the twin's.
 10. The four binned kernels against their twins on the card at terrain100k
    (200 bins of 512 triangles, 224 box rows), on phase 6's ray sets, with
    W at its default and at 1 (overflow and peel rounds), MT and watertight
@@ -60,14 +64,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    Then one CLI render with --backend cluster_binned (Cornell, 64x64).
 12. Timings on the bounce-1 wavefront: each binned kernel alone and its
    twin, and the binned wrappers (glue included) against the sweep's.
+13. The four probe kernels of perf/kernelbench.py (csrc/kernelbench.cu:
+   leaf, extract, cond, ctz) against their twins at the harness's shape
+   (256 tiles of 128 rays), on every parameter of its lists, bit for bit;
+   each timed beside its twin, both replayed from CUDA graphs.
+14. The pbrt path: the CLI with its default estimator (pbrt), Cornell,
+   1024x1024, 4 bounces, 16 spp, with exactly 16 x 16 x 4 launches of each
+   whole-table kernel and no twin call; GPU against CPU images at 64x64
+   (2 spp) for the Cornell box with a metal tall box and a glass short box
+   and for scenes/spheres.json; the whole-table kernels against their
+   twins at T = 3,852 (spheres) on its bounce-1 wavefront and shadow rays,
+   timed; the Cornell pbrt mean radiance at 160x160 (32 spp, 8 bounces,
+   seed 1) against the JAX package's CPU value.
+15. The entry points: ``python -m pyrenderer_tpu_torch.bench`` as a
+   subprocess for cornell (reference, pbrt), spheres (pbrt) and
+   terrain100k (reference), each JSON line checked (metric, finite value,
+   calib_ns_per_leaf, the card's name, and the launches it reports: exactly
+   spp x chunks x 4 bounces of each query's kernel, whole-table or
+   cluster, and the calibration's leaf-probe launches, no other kernel and
+   no twin call); then the microbenchmark harness (``perf/kernelbench.py``,
+   all seven benchmarks) in this process, with exactly 1 + 2 x 20 launches
+   of each probe per parameter (graph_ms counts replays) and no twin call.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. No result is printed when a
-phase fails or when no CUDA device is present.
+Every main-path run above (the frames of phases 3, 7, 11 and 14, the CLI
+runs, the bench rows and the harness) is a counting window: every
+wrapper's counts are zeroed just before it and read just after. The line
+before the last is a JSON object with one entry per kernel: its launches
+summed over those windows, its largest difference from the twin, its time
+and the twin's, and its bound (the larger of its fp32 operations over the
+card's 67 TFLOP/s and its bytes, each input read once and each output
+written once, over 3.35 TB/s), counted from this run's inputs; the last
+line is {"ok": true, "device": {...}}. No result is printed when a phase
+fails or when no CUDA device is present.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -103,6 +136,31 @@ MEAN_TOL = 1e-3
 #                             estimator="reference"), backend="cluster").mean()
 JAX_MEAN_RADIANCE_TERRAIN100K = 0.044580455869436264
 
+# Mean radiance of the Cornell box at 160x160, 32 spp, 8 bounces, seed 1,
+# "pbrt" estimator (russian_roulette_start 4), float32:
+# pyrenderer_tpu.core.integrator.render_image on the CPU (JAX 0.9.0), i.e.
+#   scene, camera, _ = load_tungsten("scenes/cornell_box.json")
+#   render_image(jax.tree.map(jnp.asarray, scene),
+#                camera._replace(resolution=(160, 160)),
+#                RenderConfig(max_bounces=8, spp=32, seed=1,
+#                             estimator="pbrt")).mean()
+JAX_MEAN_RADIANCE_160_PBRT = 0.11940412223339081
+
+# The bound of each kernel: the larger of its fp32 operations over the
+# card's peak and its bytes over the memory rate (NVIDIA's H100 SXM data
+# sheet: fp32 outside the tensor cores, HBM3; the rates assume 700 W).
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations per test, counted in the CUDA sources (each add,
+# multiply, compare, min, max, abs and select one operation, an IEEE
+# division one): a Moeller-Trumbore test (csrc/leaf.cuh, intersect.cu,
+# kernelbench.cu mt order), a watertight test without its rare compensated
+# fallback, a slab test, and one lane of kernelbench.cu's conditional leaf.
+MT_OPS = 60
+WT_OPS = 75
+SLAB_OPS = 26
+COND_OPS = 6
+
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
     "closest_hit": ("pyrenderer_tpu_torch/csrc/intersect.cu",
@@ -121,12 +179,40 @@ KERNELS = {
                     "pyrenderer_tpu/kernels/pallas_binned.py:236"),
     "binned_leaf_streamed": ("pyrenderer_tpu_torch/csrc/binned.cu",
                              "pyrenderer_tpu/kernels/pallas_binned.py:439"),
+    "kb_leaf": ("pyrenderer_tpu_torch/csrc/kernelbench.cu", "perf/kernelbench.py:70"),
+    "kb_extract": ("pyrenderer_tpu_torch/csrc/kernelbench.cu", "perf/kernelbench.py:129"),
+    "kb_cond": ("pyrenderer_tpu_torch/csrc/kernelbench.cu", "perf/kernelbench.py:162"),
+    "kb_ctz": ("pyrenderer_tpu_torch/csrc/kernelbench.cu", "perf/kernelbench.py:206"),
 }
 
 
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+# launches of each kernel, summed over the counting windows of the main paths
+TALLY = collections.Counter()
+
+
+def counted(fn, label, expect=None):
+    """fn() as one counting window of a main path: every kernel wrapper's
+    counts zeroed just before it and read just after. Checks that no twin
+    ran (and, given `expect`, exactly those launches), adds the launches to
+    TALLY; returns (fn()'s result, the launches)."""
+    from pyrenderer_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    launches, twins = kernels.counts()
+    print(f"{label}: launches {launches}, twin calls {twins}", flush=True)
+    check(not twins, f"{label}: twin calls {twins}")
+    if expect is not None:
+        check(launches == expect, f"{label}: launches {launches}, expected {expect}")
+    TALLY.update(launches)
+    return out, launches
 
 
 def phase(name: str) -> None:
@@ -141,30 +227,97 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() over `reps` CUDA-event-timed calls."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+def bound(ops, nbytes):
+    """(bound ms, "operations" or "bytes"): the least time of `ops` fp32
+    operations and `nbytes` bytes of device memory traffic on the card."""
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def cuda_ms_pair(kernel_fn, twin_fn, reps=20, twin_reps=3):
-    """(kernel ms, twin ms): medians of CUDA-event timings, in turns
-    twin, kernel, kernel, twin so that drift of the card shows in neither
-    alone."""
-    twin_a = cuda_ms(twin_fn, reps=twin_reps, warmup=1)
-    kern_a = cuda_ms(kernel_fn, reps=reps)
-    kern_b = cuda_ms(kernel_fn, reps=reps)
-    twin_b = cuda_ms(twin_fn, reps=twin_reps, warmup=1)
+def nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def whole_table_bounds(ki, table, ro, rd, t1):
+    """Bounds of the two whole-table kernels on one ray set: closest hit
+    tests every triangle for every live ray (t1 > T0); any hit stops at a
+    ray's first accepted triangle, in table order."""
+    from pyrenderer_tpu_torch.core.intersect import _accept, _mt_terms
+
+    n, n_tris = ro.shape[0], table.shape[1]
+    t1v = torch.as_tensor(t1, dtype=torch.float32, device=ro.device).expand(n)
+    live = t1v > T0
+    ok = _accept(*_mt_terms(*ki._table_arrays(table, ro.dtype), ro, rd), T0, t1v)
+    first = torch.where(ok.any(dim=1), ok.int().argmax(dim=1) + 1, n_tris)
+    ins = nbytes(ro, rd, table) + (4 * n if torch.is_tensor(t1) else 0)
+    return {"closest_hit": bound(int(live.sum()) * n_tris * MT_OPS, ins + 9 * n),
+            "occluded": bound(int(first[live].sum()) * MT_OPS, ins + n)}
+
+
+def walk_tests(cs, ro, rd, t1, t_final=None, watertight=True):
+    """The tests that the cluster kernels' front-to-back walk
+    (csrc/cluster.cu sweep, superclusters in kernels/cluster._sc_order's
+    rank) needs at the least on one ray set: for each live ray (t1 > T0) a
+    slab test of each supercluster, of the 16 children of each one it
+    crosses, and a 128-triangle leaf for each child it crosses. Closest hit
+    (t_final given): the walk culls with each ray's final t from the start
+    (t_final: the twin's t on a hit, t1 on a miss), which culls no less than
+    the kernel's running bound. Any hit (t_final None): the walk culls with
+    t1 and a ray stops at its first occluder, counting the leaf's lanes up
+    to it. Returns (slab tests, triangle tests, the rays the walk found
+    occluded)."""
+    from pyrenderer_tpu_torch.accel import clusters as cl
+    from pyrenderer_tpu_torch.kernels.cluster import _sc_order
+
+    n = ro.shape[0]
+    t1v = torch.as_tensor(t1, dtype=torch.float32, device=ro.device).expand(n)
+    bound_t = t1v if t_final is None else t_final
+    inv_d = 1.0 / torch.where(rd == 0, 1e-20, rd)
+    going = t1v > T0
+    order, super_sorted = _sc_order(cs, ro)
+    tri = cs.tri.reshape(cs.n_clusters, cl.TRI_ROWS, cl.LANE_TRIS)
+    slabs = leaves = torch.zeros((), dtype=torch.int64, device=ro.device)
+    for rank, s in enumerate(order[:cs.n_superclusters].tolist()):
+        slabs = slabs + going.sum()
+        inside = going & cl._slab(super_sorted[rank, 0:3], super_sorted[rank, 3:6], ro,
+                                  inv_d, T0, bound_t)
+        for j in range(s * cl.GROUP, (s + 1) * cl.GROUP):
+            slabs = slabs + inside.sum()
+            cross = inside & cl._slab(cs.child_box[j, 0:3], cs.child_box[j, 3:6], ro, inv_d,
+                                      T0, bound_t)
+            if t_final is not None:
+                leaves = leaves + cross.sum() * cl.LANE_TRIS
+                continue
+            idx = cross.nonzero()[:, 0]
+            if idx.numel() == 0:
+                continue
+            occ = cl._leaf(tri[j], ro[idx], rd[idx], T0, t1v[idx], watertight) < cl.MISS_T
+            stop = occ.any(dim=1)
+            leaves = leaves + torch.where(stop, occ.int().argmax(dim=1) + 1, cl.LANE_TRIS).sum()
+            going[idx[stop]] = False
+            inside[idx[stop]] = False
+    return int(slabs), int(leaves), (t1v > T0) & ~going
+
+
+def cuda_ms_pair(kernel_fn, twin_fn, reps=20, twin_reps=3, twin_graph=False):
+    """(kernel ms, twin ms): medians of CUDA-event timings, in turns twin,
+    kernel, kernel, twin so that drift of the card shows in neither alone.
+    The kernel side replays `reps` calls from a CUDA graph
+    (perf/kernelbench.graph_ms: the device's time, without the host's
+    launch cost, which is as long as many of these kernels); the twin runs
+    eagerly, `twin_reps` calls (perf/kernelbench.cuda_ms), unless
+    twin_graph (then as the kernel)."""
+    from pyrenderer_tpu_torch.perf.kernelbench import cuda_ms, graph_ms
+
+    def twin():
+        if twin_graph:
+            return graph_ms(twin_fn, reps)
+        return cuda_ms(twin_fn, reps=twin_reps, warmup=1)
+
+    twin_a = twin()
+    kern_a = graph_ms(kernel_fn, reps)
+    kern_b = graph_ms(kernel_fn, reps)
+    twin_b = twin()
     return float(np.median([kern_a, kern_b])), float(np.median([twin_a, twin_b]))
 
 
@@ -216,7 +369,6 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     from pyrenderer_tpu_torch.kernels import build
-    from pyrenderer_tpu_torch.kernels import cluster as kc
     from pyrenderer_tpu_torch.kernels import intersect as ki
 
     phase("1 build")
@@ -266,33 +418,21 @@ def main() -> int:
 
     phase("3 main path: CLI, cornell_box.json, reference, 1024x1024, 4 bounces, 16 spp")
     spp, depth, res, chunk = 16, 4, 1024, 1 << 16
+    expect = spp * ((res * res + chunk - 1) // chunk) * depth
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "cornell.png")
         exr = os.path.join(tmp, "cornell.exr")
         argv = [SCENE, "--estimator", "reference", "--depth", str(depth),
                 "--spp", str(spp), "--res", str(res), str(res),
                 "--out", png, "--hdr-out", exr]
-        torch.cuda.synchronize()
-        ki.reset_counters()
-        kc.reset_counters()
-        rc, log = run_cli(cli, argv)
-        launches = {"closest_hit": ki.closest_hit.launches,
-                    "occluded": ki.occluded.launches}
-        twins = ki.closest_hit.twin_calls + ki.occluded.twin_calls
-        cluster_calls = (kc.closest_hit.launches + kc.occluded.launches
-                         + kc.closest_hit.twin_calls + kc.occluded.twin_calls)
+        (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI reference frame",
+                               {"closest_hit": expect, "occluded": expect})
         check(rc == 0, f"cli.main returned {rc}")
         check(os.path.getsize(png) > 0 and os.path.getsize(exr) > 0, "outputs missing")
         hdr = read_exr(exr)
     check(hdr.shape == (res, res, 3), f"HDR shape {hdr.shape}")
     check(bool(np.isfinite(hdr).all()), "HDR has non-finite values")
-    expect = spp * ((res * res + chunk - 1) // chunk) * depth
-    print(f"launches {launches} (expected {expect} each), twin calls {twins}, "
-          f"HDR mean {float(hdr.mean()):.6f}", flush=True)
-    for name, n in launches.items():
-        check(n == expect, f"{name} launched {n} times, expected {expect}")
-    check(twins == 0, f"{twins} twin calls during the GPU render")
-    check(cluster_calls == 0, "the Cornell path reached the cluster sweep")
+    print(f"HDR mean {float(hdr.mean()):.6f}", flush=True)
     m = re.search(r"(\d+) rays in ([0-9.]+) s = ([0-9.]+) Mrays/s", log)
     check(m is not None, "the CLI printed no ray count")
     rays, secs = int(m.group(1)), float(m.group(2))
@@ -316,33 +456,39 @@ def main() -> int:
     check(abs(mean - JAX_MEAN_RADIANCE_160) <= MEAN_TOL, "mean radiance off")
 
     phase(f"5 timings on {card}")
-    ms = {
-        "closest_hit": cuda_ms(lambda: ki.closest_hit(table, ro, rd, T0, t1_dead)),
-        "occluded": cuda_ms(lambda: ki.occluded(table, ro, rd, T0, t1_dead)),
-    }
-    plain_ms = {
-        "closest_hit": cuda_ms(lambda: ki.closest_hit_ref(table, ro, rd, T0, t1_dead)),
-        "occluded": cuda_ms(lambda: ki.occluded_ref(table, ro, rd, T0, t1_dead)),
-    }
+    ms, plain_ms = {}, {}
+    for name, fn, ref in (("closest_hit", ki.closest_hit, ki.closest_hit_ref),
+                          ("occluded", ki.occluded, ki.occluded_ref)):
+        ms[name], plain_ms[name] = cuda_ms_pair(lambda: fn(table, ro, rd, T0, t1_dead),
+                                                lambda: ref(table, ro, rd, T0, t1_dead))
+    bounds = whole_table_bounds(ki, table, ro, rd, t1_dead)
     for name in ms:
-        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms "
-              f"({N_RAYS} rays x {n_tris} tris, {card})")
+        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, bound "
+              f"{bounds[name][0]:.6f} ms ({bounds[name][1]}) ({N_RAYS} rays x {n_tris} tris, "
+              f"{card})")
     print(f"frame: {rays} rays in {secs:.3f} s = {rays / secs / 1e6:.3f} Mrays/s "
           f"(1024x1024, 16 spp, 4 bounces, {card})", flush=True)
 
     large, ctx = large_scene_phases(dev, card)
     binned = binned_phases(dev, card, ctx)
-    for entries in (large, binned):
-        launches.update(entries["launches"])
+    probes = probe_phases(dev, card)
+    pbrt_phases(dev, card, rays / secs / 1e6)
+    entry_point_phases(dev, card)
+    for entries in (large, binned, probes):
         max_abs_err.update(entries["max_abs_err"])
         ms.update(entries["ms"])
         plain_ms.update(entries["plain_ms"])
+        bounds.update(entries["bounds"])
+    print(f"launches over the main paths' counting windows: {dict(TALLY)}", flush=True)
+    check(all(TALLY[name] > 0 for name in KERNELS),
+          f"a kernel was never launched on a main path: {dict(TALLY)}")
 
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": max_abs_err[name],
-         "ms": ms[name], "plain_ms": plain_ms[name]}
+         "launches": TALLY[name], "max_abs_err": max_abs_err[name],
+         "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
         for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -382,30 +528,31 @@ def compare_cluster(kc, cl, cs, ro, rd, t1, label, refs):
     return err
 
 
-def integrator_wavefronts(scene, camera, tables, cfg, px, py):
+def integrator_wavefronts(scene, camera, tables, cfg, px, py, module="cluster_kernels"):
     """The integrator's real bounce-1 wavefront: the (ro, rd, t1) of the
     second closest-hit query and of the second shadow query that
-    render_sample makes, recorded on their way to the kernel wrappers."""
+    render_sample makes, recorded on their way to the kernel wrappers of
+    `module` (the integrator's name for kernels/cluster.py, or "kernels"
+    for the whole-table kernels)."""
     import types
 
     from pyrenderer_tpu_torch.core import integrator
 
-    kc = integrator.cluster_kernels
+    wrappers = getattr(integrator, module)
     calls = {"closest_hit": [], "occluded": []}
 
     def recorder(name):
-        def record(cs, ro, rd, t0, t1, **kw):
-            calls[name].append((ro, rd, t1))
-            return getattr(kc, name)(cs, ro, rd, t0, t1, **kw)
+        def record(table, ro, rd, t0, t1, **kw):
+            calls[name].append((ro.contiguous(), rd.contiguous(), t1.contiguous()))
+            return getattr(wrappers, name)(table, ro, rd, t0, t1, **kw)
         return record
 
-    integrator.cluster_kernels = types.SimpleNamespace(
-        **{name: recorder(name) for name in calls})
+    setattr(integrator, module, types.SimpleNamespace(**{name: recorder(name) for name in calls}))
     try:
         integrator.render_sample(scene, camera, cfg.replace(max_bounces=2),
                                  cfg.seed, 0, px, py, tables=tables)
     finally:
-        integrator.cluster_kernels = kc
+        setattr(integrator, module, wrappers)
     return calls["closest_hit"][1], calls["occluded"][1]
 
 
@@ -419,7 +566,6 @@ def large_scene_phases(dev, card):
     from pyrenderer_tpu_torch.core.camera import generate_rays, morton_pixel_order
     from pyrenderer_tpu_torch.core.integrator import TraceTables, render_image
     from pyrenderer_tpu_torch.kernels import cluster as kc
-    from pyrenderer_tpu_torch.kernels import intersect as ki
     from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
     from pyrenderer_tpu_torch.scene import procgen, to_device
     from pyrenderer_tpu_torch.scene.tungsten import build_scene
@@ -488,23 +634,12 @@ def large_scene_phases(dev, card):
     check(renderer.backend == "cluster" and renderer.tables.cluster_sort
           and renderer.tables.cluster_watertight,
           f"auto resolved to {renderer.backend}, sort/watertight not both on")
-    torch.cuda.synchronize()
-    kc.reset_counters()
-    ki.reset_counters()
-    film = renderer.run(quiet=True)
-    launches = {"cluster_closest_hit": kc.closest_hit.launches,
-                "cluster_occluded": kc.occluded.launches}
-    twins = (kc.closest_hit.twin_calls + kc.occluded.twin_calls
-             + ki.closest_hit.twin_calls + ki.occluded.twin_calls)
-    whole_table = ki.closest_hit.launches + ki.occluded.launches
+    expect = 4 * 4 * 4
+    film, _ = counted(lambda: renderer.run(quiet=True), "terrain100k cluster frame",
+                      {"cluster_closest_hit": expect, "cluster_occluded": expect})
     hdr = film.hdr
     check(hdr.shape == (512, 512, 3) and bool(np.isfinite(hdr).all()), "HDR not finite")
-    expect = 4 * 4 * 4
-    print(f"launches {launches} (expected {expect} each), twin calls {twins}, "
-          f"whole-table launches {whole_table}, HDR mean {float(hdr.mean()):.6f}", flush=True)
-    for name, n in launches.items():
-        check(n == expect, f"{name} launched {n} times, expected {expect}")
-    check(twins == 0 and whole_table == 0, "the large-scene path left the cluster kernels")
+    print(f"HDR mean {float(hdr.mean()):.6f}", flush=True)
     rays, secs = renderer.rays_traced, renderer.render_seconds
     print(f"frame: {rays:.0f} rays in {secs:.3f} s = {rays / secs / 1e6:.3f} Mrays/s "
           f"(terrain100k, 512x512, 4 spp, 4 bounces, {card})", flush=True)
@@ -543,15 +678,27 @@ def large_scene_phases(dev, card):
     ms["cluster_occluded"], plain_ms["cluster_occluded"] = cuda_ms_pair(
         lambda: kc.occluded(cs, s_ro, s_rd, T0, s_t1, sort=True, watertight=True),
         lambda: cl.occluded_ref(cs, s_ro, s_rd, T0, s_t1, watertight=True))
+    hit_r, t_r, _ = refs["bounce-1 wavefront"][True]
+    b_t1v = torch.as_tensor(b_t1, dtype=torch.float32, device=dev).expand(N_RAYS)
+    work = {"cluster_closest_hit": walk_tests(cs, b_ro, b_rd, b_t1,
+                                              torch.where(hit_r, t_r, b_t1v))[:2]}
+    *work["cluster_occluded"], walk_occ = walk_tests(cs, s_ro, s_rd, s_t1)
+    check(torch.equal(walk_occ, refs["bounce-1 shadow rays"][True][0]),
+          "the any-hit walk's occlusion differs from the twin's")
+    tables_bytes = nbytes(cs.tri, cs.child_box, cs.super_cols, cs.order)
+    bounds = {name: bound(slabs * SLAB_OPS + leaves * WT_OPS,
+                          28 * N_RAYS + tables_bytes + (9 if "closest" in name else 1) * N_RAYS)
+              for name, (slabs, leaves) in work.items()}
     for name in ms:
-        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms "
-              f"(bounce-1 wavefront of {N_RAYS} rays, terrain100k, watertight, sorted, "
-              f"{card})", flush=True)
+        slabs, leaves = work[name]
+        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, bound "
+              f"{bounds[name][0]:.6f} ms ({bounds[name][1]}; {slabs} slab tests, {leaves} "
+              f"triangle tests) (bounce-1 {'wavefront' if 'closest' in name else 'shadow rays'}"
+              f" of {N_RAYS} rays, terrain100k, watertight, sorted, {card})", flush=True)
     ctx = {"host": host, "cs": cs, "scene": scene, "camera": camera, "cfg": cfg,
            "refs": refs, "quad": quad, "edge": (edge_ro, edge_rd), "hdr_cluster": hdr,
            "mrays_cluster": rays / secs / 1e6}
-    return {"launches": launches, "max_abs_err": max_abs_err, "ms": ms,
-            "plain_ms": plain_ms}, ctx
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bounds": bounds}, ctx
 
 
 def compare_binned_kernels(kb, cs, rays, w, label):
@@ -632,7 +779,7 @@ def binned_phases(dev, card, ctx):
     from pyrenderer_tpu_torch.accel import clusters as cl
     from pyrenderer_tpu_torch.kernels import binned as kb
     from pyrenderer_tpu_torch.kernels import cluster as kc
-    from pyrenderer_tpu_torch.kernels import intersect as ki
+    from pyrenderer_tpu_torch.perf.kernelbench import cuda_ms
     from pyrenderer_tpu_torch.render import cli
     from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
 
@@ -662,7 +809,6 @@ def binned_phases(dev, card, ctx):
         torch.testing.assert_close(t, torch.ones_like(t), rtol=1e-4, atol=0.0)
 
     phase("11 binned path: ProgressiveRenderer, terrain100k, 512x512, 4 spp, 4 bounces")
-    launches = dict.fromkeys(names, 0)
     mrays = {"cluster": ctx["mrays_cluster"]}
     expect = 4 * 4 * 4 * 2
     for backend, leaf_name in (("cluster_binned", "binned_leaf"),
@@ -672,53 +818,37 @@ def binned_phases(dev, card, ctx):
         check(renderer.backend == backend and renderer.tables.cluster_watertight
               and not renderer.tables.cluster_sort,
               f"{backend}: resolved {renderer.backend}, watertight/sort not on/off")
-        torch.cuda.synchronize()
-        kb.reset_counters()
-        kc.reset_counters()
-        ki.reset_counters()
-        film = renderer.run(quiet=True)
-        run = {name: getattr(kb, name[len("binned_"):]).launches for name in names}
-        twins = sum(fn.twin_calls for fn in (kb.prepass, kb.peel, kb.leaf, kb.leaf_streamed,
-                                             kc.closest_hit, kc.occluded, ki.closest_hit,
-                                             ki.occluded))
-        whole_table = ki.closest_hit.launches + ki.occluded.launches
-        residual = kc.closest_hit.launches + kc.occluded.launches
+        film, run = counted(lambda: renderer.run(quiet=True), f"terrain100k {backend} frame")
         hdr = film.hdr
         check(hdr.shape == (512, 512, 3) and bool(np.isfinite(hdr).all()), "HDR not finite")
         ref = ctx["hdr_cluster"]
         close = float(np.isclose(hdr, ref, rtol=1e-3, atol=0.0).mean())
         med = float(np.median(np.abs(hdr - ref)))
-        print(f"{backend}: launches {run}, sweep residual launches {residual}, twin calls "
-              f"{twins}, whole-table launches {whole_table}; against the cluster frame: close "
-              f"fraction {close:.6f} (> 0.999), median |diff| {med:.3g} (0), HDR mean "
-              f"{float(hdr.mean()):.6f}", flush=True)
-        check(run["binned_prepass"] >= expect and run[leaf_name] >= expect,
+        print(f"{backend}: against the cluster frame: close fraction {close:.6f} (> 0.999), "
+              f"median |diff| {med:.3g} (0), HDR mean {float(hdr.mean()):.6f}", flush=True)
+        check(run.get("binned_prepass", 0) >= expect and run.get(leaf_name, 0) >= expect,
               f"{backend}: prepass or leaf launched fewer than {expect} times")
         # at terrain100k some rays cross more than W bins on every bounce, so
         # each path also runs its overflow stage: the sweep or the peel
-        overflow_stage = residual if backend == "cluster_binned" else run["binned_peel"]
-        check(overflow_stage > 0, f"{backend}: the overflow stage never ran")
-        check(twins == 0 and whole_table == 0, f"{backend}: the path left the kernels")
+        overflow = (("cluster_closest_hit", "cluster_occluded") if backend == "cluster_binned"
+                    else ("binned_peel",))
+        check(sum(run.get(name, 0) for name in overflow) > 0,
+              f"{backend}: the overflow stage never ran")
+        check("closest_hit" not in run and "occluded" not in run,
+              f"{backend}: the path reached the whole-table kernels")
         check(close > 0.999 and med == 0.0, f"{backend}: frame differs from the cluster frame")
-        for name in names:
-            launches[name] += run[name]
         mrays[backend] = renderer.rays_traced / renderer.render_seconds / 1e6
     print("frames (terrain100k, 512x512, 4 spp, 4 bounces, Mrays/s as bench.py counts): "
           + ", ".join(f"{b} {m:.3f}" for b, m in mrays.items()) + f" ({card})", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "binned.png")
-        kb.reset_counters()
-        rc, log = run_cli(cli, [SCENE, "--estimator", "reference", "--backend",
-                                "cluster_binned", "--res", "64", "64", "--spp", "2",
-                                "--depth", "4", "--out", png,
-                                "--hdr-out", os.path.join(tmp, "binned.exr")])
+        argv = [SCENE, "--estimator", "reference", "--backend", "cluster_binned", "--res",
+                "64", "64", "--spp", "2", "--depth", "4", "--out", png,
+                "--hdr-out", os.path.join(tmp, "binned.exr")]
+        (rc, log), run = counted(lambda: run_cli(cli, argv), "CLI --backend cluster_binned")
         check(rc == 0 and os.path.getsize(png) > 0, "the --backend cluster_binned CLI run failed")
-        check("(cluster_binned backend)" in log and kb.prepass.launches == 2 * 4 * 2
-              and kb.prepass.twin_calls == 0,
-              f"the CLI run did not route to the binned kernels ({kb.prepass.launches} prepass "
-              "launches)")
-        print(f"CLI --backend cluster_binned: {kb.prepass.launches} prepass and "
-              f"{kb.leaf.launches} leaf launches", flush=True)
+        check("(cluster_binned backend)" in log and run.get("binned_prepass") == 2 * 4 * 2,
+              "the CLI run did not route to the binned kernels")
 
     phase(f"12 binned timings on {card}")
     b_ro, b_rd, b_t1 = refs["bounce-1 wavefront"]["rays"]
@@ -742,9 +872,22 @@ def binned_phases(dev, card, ctx):
     ms["binned_leaf_streamed"], plain_ms["binned_leaf_streamed"] = cuda_ms_pair(
         lambda: kb.leaf_streamed(cs, blocks, pair_ray, rays, T0, True),
         lambda: kb.leaf_streamed_ref(cs, blocks, pair_ray, rays, T0, True), twin_reps=2)
+    n_live = int((rays[:, 6] > T0).sum())
+    n_bins = cs.n_clusters // kb.BIN
+    leaf_ops = n_real * kb.BIN * 128 * WT_OPS
+    leaf_bytes = nbytes(pair_ray, rays, cs.tri) + 8 * n_real
+    bounds = {
+        "binned_prepass": bound(n_live * n_bins * SLAB_OPS,
+                                nbytes(rays, cs.bin_box, ids, ovf)),
+        "binned_peel": bound(N_RAYS * (words.shape[1] + w), 2 * nbytes(words) + nbytes(ids, ovf)),
+        "binned_leaf": bound(leaf_ops, leaf_bytes + nbytes(sortd)),
+        "binned_leaf_streamed": bound(leaf_ops, leaf_bytes + nbytes(blocks)),
+    }
     for name in names:
-        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms (bounce-1 "
-              f"wavefront of {N_RAYS} rays, terrain100k, watertight, {card})", flush=True)
+        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, bound "
+              f"{bounds[name][0]:.6f} ms ({bounds[name][1]}) (bounce-1 wavefront of {N_RAYS} "
+              f"rays, {n_live} live, {n_real} pairs, terrain100k, watertight, {card})",
+              flush=True)
     wrappers = {
         "closest, binned": lambda: kb.closest_hit(cs, b_ro, b_rd, T0, b_t1, watertight=True,
                                                   exact_t=False),
@@ -767,11 +910,205 @@ def binned_phases(dev, card, ctx):
     for name in order:
         times[name].append(cuda_ms(wrappers[name]))
     for name in wrappers:
-        print(f"wrapper {name}: {float(np.median(times[name])):.4f} ms (median of 2 x 20, "
-              f"bounce-1 {'shadow rays' if name.startswith('occluded') else 'wavefront'}, "
+        print(f"wrapper {name}: {float(np.median(times[name])):.4f} ms (median of two means "
+              f"of 20 calls, bounce-1 "
+              f"{'shadow rays' if name.startswith('occluded') else 'wavefront'}, "
               f"watertight, {card})", flush=True)
-    return {"launches": launches, "max_abs_err": max_abs_err, "ms": ms,
-            "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bounds": bounds}
+
+
+def probe_phases(dev, card):
+    """Phase 13 (the four probe kernels of csrc/kernelbench.cu); returns
+    their kernel-line entries (phase 15 counts their launches)."""
+    from pyrenderer_tpu_torch.perf import kernelbench as kb
+
+    phase(f"13 probe kernels against twins on the card ({kb.N_TILES} tiles x "
+          f"{kb.RAY_TILE} rays)")
+    rcol, tri = kb.inputs(kb.N_TILES, dev)
+    n = rcol.shape[0]
+    cases = {
+        "kb_leaf": [(f"L={x}", (lambda x=x: kb.leaf(rcol, tri, x)),
+                     (lambda x=x: kb.leaf_ref(rcol, tri, x)), n * x * 128 * MT_OPS)
+                    for x in kb.LEAF_L],
+        "kb_extract": [(f"K={x}", (lambda x=x: kb.extract(rcol, x)),
+                        (lambda x=x: kb.extract_ref(rcol, x)), n * 8 * 2 * x)
+                       for x in kb.EXTRACT_K],
+        "kb_cond": [(f"N={x} taken={t}", (lambda x=x, t=t: kb.cond(rcol, tri, x, t)),
+                     (lambda x=x, t=t: kb.cond_ref(rcol, tri, x, t)),
+                     n * (x if t else 0) * 128 * COND_OPS)
+                    for t in (False, True) for x in kb.COND_N],
+        "kb_ctz": [(f"word={x & 0xFFFFFFFF:#x}", (lambda x=x: kb.ctz(rcol, tri, x)),
+                    (lambda x=x: kb.ctz_ref(rcol, tri, x)),
+                    n * len(kb.set_bits(x)) * 128 * COND_OPS)
+                   for x, _ in kb.CTZ_WORDS],
+    }
+    io_bytes = {"kb_extract": nbytes(rcol) + 4 * n}
+    err, ms, plain_ms, bounds = {}, {}, {}, {}
+    for name, params in cases.items():
+        err[name] = 0.0
+        for label, kernel_fn, twin_fn, ops in params:
+            out, ref = kernel_fn(), twin_fn()
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"{name} {label}: kernel differs from its twin")
+            err[name] = max(err[name], float((out - ref).abs().max()))
+            k_ms, t_ms = cuda_ms_pair(kernel_fn, twin_fn, twin_graph=True)
+            b = bound(ops, io_bytes.get(name, nbytes(rcol, tri) + 4 * n))
+            # the kernel line keeps the last, heaviest parameter of each list
+            ms[name], plain_ms[name], bounds[name] = k_ms, t_ms, b
+            print(f"{name} {label}: bit-equal to its twin; kernel {k_ms:.4f} ms, plain "
+                  f"{t_ms:.4f} ms, bound {b[0]:.6f} ms ({b[1]}) ({n} rays, {card})",
+                  flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bounds": bounds}
+
+
+def metal_glass_cornell():
+    """The Cornell box with a metal tall box (roughness 0.1) and a glass
+    short box (ior 1.5), as tests/test_pbrt.py:21-30 makes it."""
+    from pyrenderer_tpu_torch.scene.tungsten import build_scene
+
+    with open(SCENE) as fh:
+        data = json.load(fh)
+    for b in data["bsdfs"]:
+        if b["name"] == "TallBox":
+            b.update(type="metal", roughness=0.1)
+        if b["name"] == "ShortBox":
+            b.update(type="dielectric", ior=1.5)
+    return build_scene(data)[:2]
+
+
+def pbrt_phases(dev, card, mrays_reference):
+    """Phase 14 (the pbrt estimator on the card)."""
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.core.camera import morton_pixel_order
+    from pyrenderer_tpu_torch.core.integrator import TraceTables, render_image
+    from pyrenderer_tpu_torch.kernels import intersect as ki
+    from pyrenderer_tpu_torch.render import cli
+    from pyrenderer_tpu_torch.scene import load_tungsten, to_device
+    from pyrenderer_tpu_torch.utils.exr import read_exr
+
+    phase("14 pbrt path: CLI with its default estimator, cornell_box.json, 1024x1024, "
+          "4 bounces, 16 spp")
+    spp, depth, res, chunk = 16, 4, 1024, 1 << 16
+    expect = spp * ((res * res + chunk - 1) // chunk) * depth
+    with tempfile.TemporaryDirectory() as tmp:
+        exr = os.path.join(tmp, "pbrt.exr")
+        argv = [SCENE, "--depth", str(depth), "--spp", str(spp), "--res", str(res), str(res),
+                "--out", os.path.join(tmp, "pbrt.png"), "--hdr-out", exr]
+        (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI pbrt frame",
+                               {"closest_hit": expect, "occluded": expect})
+        check(rc == 0, f"cli.main returned {rc}")
+        hdr = read_exr(exr)
+    check(hdr.shape == (res, res, 3) and bool(np.isfinite(hdr).all()), "pbrt HDR not finite")
+    print(f"HDR mean {float(hdr.mean()):.6f}", flush=True)
+    m = re.search(r"(\d+) rays in ([0-9.]+) s = ([0-9.]+) Mrays/s", log)
+    check(m is not None, "the CLI printed no ray count")
+    mrays = int(m.group(1)) / float(m.group(2)) / 1e6
+    print(f"frame: pbrt {mrays:.3f} Mrays/s against reference {mrays_reference:.3f} "
+          f"(phase 3), 1024x1024, 16 spp, 4 bounces, {card}", flush=True)
+
+    cfg = RenderConfig(max_bounces=4, spp=2, seed=3, estimator="pbrt")
+    spheres, spheres_cam, _ = load_tungsten(os.path.join(ROOT, "scenes", "spheres.json"))
+    for label, (host, cam) in (("cornell metal/glass", metal_glass_cornell()),
+                               ("spheres", (spheres, spheres_cam))):
+        cam64 = cam._replace(resolution=(64, 64))
+        img_gpu = render_image(*to_device(host, cam64, dev), cfg).cpu().numpy()
+        img_cpu = render_image(*to_device(host, cam64, "cpu"), cfg).numpy()
+        close = float(np.isclose(img_gpu, img_cpu, rtol=1e-3, atol=1e-4).mean())
+        med = float(np.median(np.abs(img_gpu - img_cpu)))
+        print(f"{label} ({host.faces.shape[0]} tris) 64x64 pbrt: close fraction {close:.6f} "
+              f"(> 0.95), median |diff| {med:.3g} (< 1e-5), mean {float(img_gpu.mean()):.6f}",
+              flush=True)
+        check(close > 0.95 and med < 1e-5 and bool(np.isfinite(img_gpu).all()),
+              f"{label}: GPU and CPU pbrt images disagree")
+
+    scene, camera = to_device(spheres, spheres_cam._replace(resolution=(1024, 1024)), dev)
+    cfg_s = RenderConfig(max_bounces=4, spp=1, seed=0, estimator="pbrt")
+    tables = TraceTables(scene, cfg_s)
+    perm, _ = morton_pixel_order(1024, 1024)
+    ys, xs = np.mgrid[0:1024, 0:1024]
+    px = torch.as_tensor(xs.reshape(-1)[perm][:N_RAYS], device=dev)
+    py = torch.as_tensor(ys.reshape(-1)[perm][:N_RAYS], device=dev)
+    bounce1, shadow1 = integrator_wavefronts(scene, camera, tables, cfg_s, px, py,
+                                             module="kernels")
+    table = tables.tri_table
+    for label, rays in (("spheres bounce-1 wavefront", bounce1),
+                        ("spheres bounce-1 shadow rays", shadow1)):
+        compare_kernels(ki, table, *rays, label)
+    bounds = whole_table_bounds(ki, table, *bounce1)
+    for name, fn, ref in (("closest_hit", ki.closest_hit, ki.closest_hit_ref),
+                          ("occluded", ki.occluded, ki.occluded_ref)):
+        k_ms, t_ms = cuda_ms_pair(lambda: fn(table, *bounce1[:2], T0, bounce1[2]),
+                                  lambda: ref(table, *bounce1[:2], T0, bounce1[2]))
+        print(f"{name} at T={table.shape[1]}: kernel {k_ms:.4f} ms, plain {t_ms:.4f} ms, bound "
+              f"{bounds[name][0]:.6f} ms ({bounds[name][1]}) (spheres bounce-1 wavefront of "
+              f"{N_RAYS} rays, {card})", flush=True)
+
+    host, host_cam, _ = load_tungsten(SCENE)
+    s160, c160 = to_device(host, host_cam._replace(resolution=(160, 160)), dev)
+    mean = float(render_image(s160, c160, RenderConfig(max_bounces=8, spp=32, seed=1,
+                                                       estimator="pbrt")).mean())
+    ref = JAX_MEAN_RADIANCE_160_PBRT
+    print(f"160x160 pbrt mean radiance {mean!r}, JAX CPU {ref!r}, |diff| {abs(mean - ref):.3g} "
+          f"(<= {MEAN_TOL})", flush=True)
+    check(abs(mean - ref) <= MEAN_TOL, "pbrt mean radiance off")
+
+
+WHOLE_TABLE = ("closest_hit", "occluded")
+CLUSTER = ("cluster_closest_hit", "cluster_occluded")
+# (scene, estimator, the kernels of its queries)
+BENCH_ROWS = (("cornell", "reference", WHOLE_TABLE), ("cornell", "pbrt", WHOLE_TABLE),
+              ("spheres", "pbrt", WHOLE_TABLE), ("terrain100k", "reference", CLUSTER))
+
+
+def entry_point_phases(dev, card):
+    """Phase 15: bench.py's counterpart as a subprocess for each of
+    BENCH_ROWS, with the launches it reports checked (spp x chunks x 4
+    bounces of each query's kernel in the timed pass, the leaf probe's of
+    the calibration, nothing else, no twin call) and added to TALLY; then
+    the harness in this process as one counting window."""
+    from pyrenderer_tpu_torch import bench
+    from pyrenderer_tpu_torch.perf import kernelbench as kb
+
+    phase("15 entry points: python -m pyrenderer_tpu_torch.bench, then the harness")
+    kind = torch.cuda.get_device_name(dev)
+    base_env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    for scene, estimator, queries in BENCH_ROWS:
+        _, res, spp, _ = bench.SCENES[scene]
+        per_query = spp * -(-res * res // (1 << 16)) * 4
+        expect = dict.fromkeys(queries, per_query)
+        expect["kb_leaf"] = bench.CALIB_WARMUP + bench.CALIB_REPS
+        env = dict(base_env, BENCH_SCENE=scene, BENCH_ESTIMATOR=estimator)
+        proc = subprocess.run([sys.executable, "-m", "pyrenderer_tpu_torch.bench"], cwd=ROOT,
+                              env=env, capture_output=True, text=True, timeout=600)
+        sys.stderr.write(proc.stderr)
+        check(proc.returncode == 0, f"bench {scene}/{estimator} exited {proc.returncode}")
+        lines = proc.stdout.strip().splitlines()
+        check(len(lines) == 1, f"bench {scene}/{estimator} printed {len(lines)} lines")
+        row = json.loads(lines[0])
+        metric = bench.SCENES[scene][3] + ("" if estimator == "reference" else "_" + estimator)
+        calib = row.get("calib_ns_per_leaf")
+        check(row.get("metric") == metric and row.get("unit") == "Mrays/s",
+              f"bench {scene}/{estimator}: metric {row.get('metric')!r}")
+        check(isinstance(row.get("value"), float) and np.isfinite(row["value"])
+              and row["value"] > 0, f"bench {scene}/{estimator}: value {row.get('value')!r}")
+        check(isinstance(calib, float) and np.isfinite(calib) and calib > 0,
+              f"bench {scene}/{estimator}: calib_ns_per_leaf {calib!r}")
+        check(row.get("device") == kind, f"bench {scene}/{estimator}: device {row.get('device')!r}")
+        print(f"bench {scene}/{estimator}: {lines[0]} ({card})", flush=True)
+        check(row.get("launches") == expect and row.get("twin_calls") == {},
+              f"bench {scene}/{estimator}: launches {row.get('launches')}, twin calls "
+              f"{row.get('twin_calls')}; expected {expect} and none")
+        TALLY.update(row["launches"])
+
+    # graph_ms: a warm-up launch, then a graph of REPS launches replayed twice
+    per_graph = 1 + 2 * kb.REPS
+    rc, launches = counted(lambda: kb.main(list(kb.BENCHES)), f"harness ({card})")
+    check(rc == 0, f"the harness returned {rc}")
+    probes = {"kb_leaf": len(kb.LEAF_L), "kb_extract": len(kb.EXTRACT_K),
+              "kb_cond": 2 * len(kb.COND_N), "kb_ctz": len(kb.CTZ_WORDS)}
+    for name, n in probes.items():
+        check(launches.get(name) == n * per_graph,
+              f"harness: {name} launched {launches.get(name)} times, expected {n * per_graph}")
 
 
 def run_cli(cli, argv):

@@ -1,9 +1,12 @@
-"""Wavefront path-tracing integrator, "reference" estimator (PyTorch).
+"""Wavefront path-tracing integrator (PyTorch): the tables, the backends,
+the "reference" estimator and the frame loop.
 
 Counterpart of pyrenderer_tpu/core/integrator.py. Every bounce is one
 batched closest-hit query and one shading step over the whole wavefront,
 with terminated lanes masked instead of diverging; the bounce loop is a
-Python loop (the JAX package's ``lax.scan``).
+Python loop (the JAX package's ``lax.scan``). The "pbrt" estimator's
+bounce loop is core/integrator_pbrt.py; render_sample dispatches on
+cfg.estimator.
 
 Intersection backends:
   "cuda"       -- the hand-written whole-table kernels (kernels/intersect.py);
@@ -158,10 +161,8 @@ def maybe_build_accel(scene: Scene, backend: str, accel=None):
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise for configuration options this port does not implement yet."""
-    if cfg.estimator != "reference":
-        raise NotImplementedError(
-            f"estimator {cfg.estimator!r} is not ported yet (ROADMAP A8); "
-            "use estimator='reference'")
+    if cfg.estimator not in ("reference", "pbrt"):
+        raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if cfg.adaptive:
         raise NotImplementedError("adaptive sampling is not ported yet (ROADMAP A6)")
     if cfg.cluster_rounds > 1:
@@ -193,33 +194,47 @@ def light_area_pdf(scene: Scene):
     return pdf
 
 
-def pack_face_data(scene: Scene):
-    """(T, 16) per-face shading table, one row fetch per hit:
-    v0|e1|e2|albedo|sign|emissive|sided|pad. (The pbrt estimator's extended
-    (T, 24) table comes with ROADMAP A8.)"""
+def pack_face_data(scene: Scene, extended: bool = False):
+    """Per-face shading table, one row fetch per hit.
+
+    Base (T, 16): v0|e1|e2|albedo|sign|emissive|sided|pad.
+    Extended, for the pbrt estimator, (T, 24): ...|sided|mat_type|
+    emission(3)|ior|roughness|light_pdf_A|pad(2)."""
     v = scene.vertices
     f = scene.faces
     v0 = v[f[:, 0]]
     mat = scene.face_material
-    return torch.cat([
+    cols = [
         v0, v[f[:, 1]] - v0, v[f[:, 2]] - v0, scene.albedo[mat],
         scene.normal_sign[:, None].to(v.dtype),
         (scene.emissive[mat] > 0)[:, None].to(v.dtype),
         (scene.sided[mat] > 0)[:, None].to(v.dtype),
-        v.new_zeros((f.shape[0], 1)),
-    ], dim=1)
+    ]
+    if not extended:
+        cols.append(v.new_zeros((f.shape[0], 1)))
+    else:
+        cols += [
+            scene.mat_type[mat][:, None].to(v.dtype),
+            scene.emission[mat],
+            scene.ior[mat][:, None].to(v.dtype),
+            scene.roughness[mat][:, None].to(v.dtype),
+            light_area_pdf(scene)[:, None],
+            v.new_zeros((f.shape[0], 2)),
+        ]
+    return torch.cat(cols, dim=1)
 
 
-def pack_light_data(scene: Scene):
-    """(L * F_max, 16) per-light-face table: v0|v1|v2|em|sign|pdf_A|pad,
-    em = the emitter's albedo ("reference" estimator; pbrt's scene emission
-    comes with ROADMAP A8)."""
+def pack_light_data(scene: Scene, use_emission: bool = False):
+    """(L * F_max, 16) per-light-face table: v0|v1|v2|em|sign|pdf_A|pad.
+    em is the emitter's albedo ("reference" estimator, reference
+    core/bsdf.py:54) or its scene emission radiance (pbrt)."""
     v = scene.vertices
     lf = scene.light_faces.reshape(-1)
     f = scene.faces[lf]
     mat = scene.face_material[lf]
+    em = scene.emission[mat] if use_emission else scene.albedo[mat]
     return torch.cat([
-        v[f[:, 0]], v[f[:, 1]], v[f[:, 2]], scene.albedo[mat],
+        v[f[:, 0]], v[f[:, 1]], v[f[:, 2]], em,
         scene.normal_sign[lf][:, None].to(v.dtype),
         light_area_pdf(scene)[lf][:, None],
         v.new_zeros((lf.shape[0], 2)),
@@ -228,7 +243,8 @@ def pack_light_data(scene: Scene):
 
 class TraceTables:
     """Per-scene device tables shared by every sample and pass: the packed
-    face and light rows, for backend "cuda" the (9, T) kernel table, for the
+    face and light rows (extended for the pbrt estimator), for backend
+    "cuda" the (9, T) kernel table, for the
     CLUSTER_BACKENDS the ClusterScene (`accel`, built here unless given)
     with its resolved leaf choice and, for "cluster", sort choice (the
     binned backends need no sort), and the light color (made once: a
@@ -241,8 +257,9 @@ class TraceTables:
         v = scene.vertices
         self.backend = resolve_backend(backend, scene.faces.shape[0], v.device)
         self.light_color = torch.tensor(REF_LIGHT_COLOR, dtype=v.dtype, device=v.device)
-        self.face_data = pack_face_data(scene)
-        self.light_data = pack_light_data(scene)
+        extended = cfg.estimator != "reference"
+        self.face_data = pack_face_data(scene, extended=extended)
+        self.light_data = pack_light_data(scene, use_emission=extended)
         self.tri_table = None
         self.accel = None
         if self.backend == "cuda":
@@ -452,15 +469,19 @@ def render_sample(
     accel=None,
 ):
     """Radiance for one sample of a block of pixels; pixel_x/y: (N,) ints.
-    With with_stats, returns (radiance, rays_traced) as trace_reference."""
+    Traces with trace_reference or trace_pbrt, as cfg.estimator says. With
+    with_stats, returns (radiance, rays_traced) as trace_reference."""
     w, _h = camera.resolution
     pixel_id = pixel_y.to(torch.int64) * w + pixel_x.to(torch.int64)
     strata = int(math.ceil(math.sqrt(cfg.spp))) if cfg.stratified else 0
     ro, rd = generate_rays(camera, pixel_x, pixel_y, sample_id, seed, strata=strata)
     if tables is None:
         tables = TraceTables(scene, cfg, backend, accel=accel)
-    return trace_reference(scene, cfg, ro, rd, pixel_id, sample_id, seed,
-                           tables=tables, with_stats=with_stats)
+    trace = trace_reference
+    if cfg.estimator == "pbrt":
+        from pyrenderer_tpu_torch.core.integrator_pbrt import trace_pbrt as trace
+    return trace(scene, cfg, ro, rd, pixel_id, sample_id, seed, tables=tables,
+                 with_stats=with_stats)
 
 
 def render_block(scene, camera, cfg: RenderConfig, seed: int, spp: int,

@@ -207,21 +207,6 @@ def leaf_streamed_ref(cs: ClusterScene, blocks, pair_ray, rays, t0, watertight=F
 # kernel wrappers: a CUDA tensor launches, a CPU tensor runs the twin
 # ---------------------------------------------------------------------------
 
-def _on_cuda(x, name) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: no kernel for device {x.device}")
-
-
-def _launch(fn_name, device, *args):
-    with torch.cuda.device(device):
-        lib, stream = build.launch_context(device)
-        err = getattr(lib, fn_name)(*args, stream)
-    build.check_launch(err, fn_name)
-
-
 def _check_table(x, dtype, name, device):
     if x.device != device or x.dtype != dtype or not x.is_contiguous():
         raise ValueError(f"{name} must be a contiguous {dtype} tensor on {device}, "
@@ -231,7 +216,7 @@ def _check_table(x, dtype, name, device):
 def prepass(cs: ClusterScene, rays, t0, w, emit_words=False):
     """The first w crossing bins of each ray: (ids (N, w) int32, overflow
     (N,) bool[, words (N, n_words) int32]), as prepass_ref."""
-    if not _on_cuda(rays, "prepass"):
+    if not build.on_cuda(rays, "prepass"):
         prepass.twin_calls += 1
         return prepass_ref(cs, rays, t0, w, emit_words)
     dev = rays.device
@@ -241,16 +226,16 @@ def prepass(cs: ClusterScene, rays, t0, w, emit_words=False):
     ids = torch.empty((n, w), dtype=torch.int32, device=dev)
     ovf = torch.empty(n, dtype=torch.bool, device=dev)
     words = torch.empty((n, n_words), dtype=torch.int32, device=dev) if emit_words else None
-    _launch("pr_binned_prepass", dev, cs.bin_box.data_ptr(), n_words, rays.data_ptr(),
-            float(t0), n, w, ids.data_ptr(), ovf.data_ptr(),
-            words.data_ptr() if emit_words else None)
+    build.launch("pr_binned_prepass", dev, cs.bin_box.data_ptr(), n_words, rays.data_ptr(),
+                 float(t0), n, w, ids.data_ptr(), ovf.data_ptr(),
+                 words.data_ptr() if emit_words else None)
     prepass.launches += 1
     return (ids, ovf, words) if emit_words else (ids, ovf)
 
 
 def peel(words, w):
     """The next w bins from carried words: (ids, overflow, words left)."""
-    if not _on_cuda(words, "peel"):
+    if not build.on_cuda(words, "peel"):
         peel.twin_calls += 1
         return peel_ref(words, w)
     dev = words.device
@@ -259,8 +244,8 @@ def peel(words, w):
     ids = torch.empty((n, w), dtype=torch.int32, device=dev)
     ovf = torch.empty(n, dtype=torch.bool, device=dev)
     left = torch.empty_like(words)
-    _launch("pr_binned_peel", dev, words.data_ptr(), n_words, n, w, ids.data_ptr(),
-            ovf.data_ptr(), left.data_ptr())
+    build.launch("pr_binned_peel", dev, words.data_ptr(), n_words, n, w, ids.data_ptr(),
+                 ovf.data_ptr(), left.data_ptr())
     peel.launches += 1
     return ids, ovf, left
 
@@ -276,15 +261,15 @@ def _check_leaf_args(cs, pair_ray, rays):
 
 def leaf(cs: ClusterScene, sortd, pair_ray, rays, t0, watertight=False):
     """Resident leaf over the sorted pairs: keys (P,) int64, as leaf_ref."""
-    if not _on_cuda(rays, "leaf"):
+    if not build.on_cuda(rays, "leaf"):
         leaf.twin_calls += 1
         return leaf_ref(cs, sortd, pair_ray, rays, t0, watertight)
     _check_leaf_args(cs, pair_ray, rays)
     _check_table(sortd, torch.int32, "sortd", rays.device)
     keys = torch.empty(sortd.shape[0], dtype=torch.int64, device=rays.device)
-    _launch("pr_binned_leaf", rays.device, cs.tri.data_ptr(), sortd.data_ptr(),
-            pair_ray.data_ptr(), sortd.shape[0], rays.data_ptr(), float(t0),
-            int(bool(watertight)), keys.data_ptr())
+    build.launch("pr_binned_leaf", rays.device, cs.tri.data_ptr(), sortd.data_ptr(),
+                 pair_ray.data_ptr(), sortd.shape[0], rays.data_ptr(), float(t0),
+                 int(bool(watertight)), keys.data_ptr())
     leaf.launches += 1
     return keys
 
@@ -292,15 +277,15 @@ def leaf(cs: ClusterScene, sortd, pair_ray, rays, t0, watertight=False):
 def leaf_streamed(cs: ClusterScene, blocks, pair_ray, rays, t0, watertight=False):
     """Streamed leaf, one CUDA block per row of `blocks`: keys (P,) int64,
     as leaf_streamed_ref."""
-    if not _on_cuda(rays, "leaf_streamed"):
+    if not build.on_cuda(rays, "leaf_streamed"):
         leaf_streamed.twin_calls += 1
         return leaf_streamed_ref(cs, blocks, pair_ray, rays, t0, watertight)
     _check_leaf_args(cs, pair_ray, rays)
     _check_table(blocks, torch.int32, "blocks", rays.device)
     keys = torch.empty(pair_ray.shape[0], dtype=torch.int64, device=rays.device)
-    _launch("pr_binned_leaf_streamed", rays.device, cs.tri.data_ptr(), blocks.data_ptr(),
-            blocks.shape[0], pair_ray.data_ptr(), rays.data_ptr(), float(t0),
-            int(bool(watertight)), keys.data_ptr())
+    build.launch("pr_binned_leaf_streamed", rays.device, cs.tri.data_ptr(), blocks.data_ptr(),
+                 blocks.shape[0], pair_ray.data_ptr(), rays.data_ptr(), float(t0),
+                 int(bool(watertight)), keys.data_ptr())
     leaf_streamed.launches += 1
     return keys
 

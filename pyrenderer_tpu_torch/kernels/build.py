@@ -87,6 +87,14 @@ def _declare(lib) -> None:
     lib.pr_binned_leaf.restype = ctypes.c_int
     lib.pr_binned_leaf_streamed.argtypes = [p, p, i64, p, p, f32, i32, p, p]
     lib.pr_binned_leaf_streamed.restype = ctypes.c_int
+    lib.pr_kb_leaf.argtypes = [p, p, i64, i32, p, p]
+    lib.pr_kb_leaf.restype = ctypes.c_int
+    lib.pr_kb_extract.argtypes = [p, i64, i32, p, p]
+    lib.pr_kb_extract.restype = ctypes.c_int
+    lib.pr_kb_cond.argtypes = [p, p, i64, i32, i32, p, p]
+    lib.pr_kb_cond.restype = ctypes.c_int
+    lib.pr_kb_ctz.argtypes = [p, p, i64, ctypes.c_uint32, p, p]
+    lib.pr_kb_ctz.restype = ctypes.c_int
 
 
 def build() -> str:
@@ -144,14 +152,23 @@ def library():
     return _lib
 
 
-def launch_context(device):
-    """(the loaded library, the handle of PyTorch's current stream on
-    `device`): what every C entry point launches with."""
-    return library(), torch.cuda.current_stream(device).cuda_stream
+def on_cuda(x, name) -> bool:
+    """True for a CUDA tensor (its wrapper launches the kernel), False for a
+    CPU tensor (its wrapper runs the plain twin); raise for any other."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
-def check_launch(err: int, name: str) -> None:
-    """Raise if a C entry point returned a nonzero cudaError_t (a refused
-    launch never runs, and a later synchronize would not report it)."""
+def launch(fn_name, device, *args) -> None:
+    """Call the C entry point `fn_name` with `args` and PyTorch's current
+    stream on `device`; raise if it returned a nonzero cudaError_t (a
+    refused launch never runs, and a later synchronize would not report
+    it)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(library(), fn_name)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+        raise RuntimeError(f"{fn_name}: CUDA launch failed with cudaError_t {err}")

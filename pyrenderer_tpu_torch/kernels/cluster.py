@@ -96,14 +96,10 @@ def _launch(fn_name, cs, ro, rd, t0, t1, sort, watertight, outs):
     _check_cuda_args(cs, ro, rd)
     rays, perm = _prepare(cs, ro, rd, t1, sort)
     order, super_sorted = _sc_order(cs, ro)
-    with torch.cuda.device(ro.device):
-        lib, stream = build.launch_context(ro.device)
-        err = getattr(lib, fn_name)(
-            cs.tri.data_ptr(), cs.child_box.data_ptr(), super_sorted.data_ptr(),
-            order.data_ptr(), order.shape[0], rays.data_ptr(), float(t0),
-            ro.shape[0], int(bool(watertight)), *[o.data_ptr() for o in outs],
-            stream)
-    build.check_launch(err, fn_name)
+    build.launch(fn_name, ro.device, cs.tri.data_ptr(), cs.child_box.data_ptr(),
+                 super_sorted.data_ptr(), order.data_ptr(), order.shape[0], rays.data_ptr(),
+                 float(t0), ro.shape[0], int(bool(watertight)),
+                 *[o.data_ptr() for o in outs])
     return perm
 
 
@@ -125,10 +121,10 @@ def closest_hit(cs: ClusterScene, ro, rd, t0, t1, sort=False, watertight=False,
     the hit selection is discrete."""
     ro, rd = ro.detach(), rd.detach()
     t1 = t1.detach() if torch.is_tensor(t1) else t1
-    if ro.device.type == "cpu":
+    if not build.on_cuda(ro, "closest_hit"):
         closest_hit.twin_calls += 1
         hit, t, slot = closest_hit_ref(cs, ro, rd, t0, t1, watertight=watertight)
-    elif ro.device.type == "cuda":
+    else:
         n = ro.shape[0]
         t_k = torch.empty(n, dtype=torch.float32, device=ro.device)
         slot = torch.empty(n, dtype=torch.int32, device=ro.device)
@@ -137,8 +133,6 @@ def closest_hit(cs: ClusterScene, ro, rd, t0, t1, sort=False, watertight=False,
         closest_hit.launches += 1
         t, slot = _unsort(t_k, perm), _unsort(slot, perm)
         hit = slot >= 0
-    else:
-        raise ValueError(f"closest_hit: no kernel for device {ro.device}")
     if exact_t:
         t = exact_t_for_slot(cs, slot, ro, rd, t)
     return hit, torch.where(hit, t, 0.0), slot_to_face(cs, slot).to(torch.int32)
@@ -150,11 +144,9 @@ def occluded(cs: ClusterScene, ro, rd, t0, t1, sort=False, watertight=False):
     occluder."""
     ro, rd = ro.detach(), rd.detach()
     t1 = t1.detach() if torch.is_tensor(t1) else t1
-    if ro.device.type == "cpu":
+    if not build.on_cuda(ro, "occluded"):
         occluded.twin_calls += 1
         return occluded_ref(cs, ro, rd, t0, t1, watertight=watertight)
-    if ro.device.type != "cuda":
-        raise ValueError(f"occluded: no kernel for device {ro.device}")
     occ = torch.empty(ro.shape[0], dtype=torch.bool, device=ro.device)
     perm = _launch("pr_cluster_occluded", cs, ro, rd, t0, t1, sort, watertight,
                    (occ,))

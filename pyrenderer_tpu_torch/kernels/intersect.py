@@ -89,47 +89,34 @@ def closest_hit(tri_table, ro, rd, t0, t1):
     """Closest hit of rays ro, rd (N, 3) against the (9, T) table within
     (t0, t1), t1 a scalar or (N,). Returns (hit bool, t f32, tri int32),
     each (N,); tri = -1 and t = 0 on a miss."""
-    if ro.device.type == "cpu":
+    if not build.on_cuda(ro, "closest_hit"):
         closest_hit.twin_calls += 1
         return closest_hit_ref(tri_table, ro, rd, t0, t1)
-    if ro.device.type != "cuda":
-        raise ValueError(f"closest_hit: no kernel for device {ro.device}")
     ro, rd, t1 = _detach(ro, rd, t1)
     t1v, t1s = _check_cuda_args(tri_table, ro, rd, t1)
     n = ro.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=ro.device)
     tri_out = torch.empty(n, dtype=torch.int32, device=ro.device)
     hit_out = torch.empty(n, dtype=torch.bool, device=ro.device)
-    with torch.cuda.device(ro.device):
-        lib, stream = build.launch_context(ro.device)
-        err = lib.pr_closest_hit(
-            tri_table.data_ptr(), tri_table.shape[1], ro.data_ptr(),
-            rd.data_ptr(), None if t1v is None else t1v.data_ptr(), t1s,
-            float(t0), n, t_out.data_ptr(), tri_out.data_ptr(),
-            hit_out.data_ptr(), stream)
-    build.check_launch(err, "closest_hit")
+    build.launch("pr_closest_hit", ro.device, tri_table.data_ptr(), tri_table.shape[1],
+                 ro.data_ptr(), rd.data_ptr(), None if t1v is None else t1v.data_ptr(), t1s,
+                 float(t0), n, t_out.data_ptr(), tri_out.data_ptr(), hit_out.data_ptr())
     closest_hit.launches += 1
     return hit_out, t_out, tri_out
 
 
 def occluded(tri_table, ro, rd, t0, t1):
     """Any-hit shadow query (same operands as closest_hit): (N,) bool."""
-    if ro.device.type == "cpu":
+    if not build.on_cuda(ro, "occluded"):
         occluded.twin_calls += 1
         return occluded_ref(tri_table, ro, rd, t0, t1)
-    if ro.device.type != "cuda":
-        raise ValueError(f"occluded: no kernel for device {ro.device}")
     ro, rd, t1 = _detach(ro, rd, t1)
     t1v, t1s = _check_cuda_args(tri_table, ro, rd, t1)
     n = ro.shape[0]
     hit_out = torch.empty(n, dtype=torch.bool, device=ro.device)
-    with torch.cuda.device(ro.device):
-        lib, stream = build.launch_context(ro.device)
-        err = lib.pr_occluded(
-            tri_table.data_ptr(), tri_table.shape[1], ro.data_ptr(),
-            rd.data_ptr(), None if t1v is None else t1v.data_ptr(), t1s,
-            float(t0), n, hit_out.data_ptr(), stream)
-    build.check_launch(err, "occluded")
+    build.launch("pr_occluded", ro.device, tri_table.data_ptr(), tri_table.shape[1],
+                 ro.data_ptr(), rd.data_ptr(), None if t1v is None else t1v.data_ptr(), t1s,
+                 float(t0), n, hit_out.data_ptr())
     occluded.launches += 1
     return hit_out
 

@@ -4,8 +4,8 @@ Counterpart of pyrenderer_tpu/render/cli.py, scene-file mode, with the same
 flags and defaults. It renders on ``cuda:0`` unless ``--cpu`` is given; with
 no GPU and no ``--cpu`` it exits non-zero, it never falls back to the CPU.
 
-Like the JAX CLI it defaults to ``--estimator pbrt``, which is not ported
-yet (ROADMAP A8): run the ported path with ``--estimator reference``.
+Like the JAX CLI it defaults to ``--estimator pbrt`` (core/integrator_pbrt.py);
+``--estimator reference`` reproduces the reference renderer's tracer.
 What is not ported raises NotImplementedError naming its ROADMAP item; the
 JAX CLI's ``--resilient``, ``--live`` and ``--debug-paths`` flags do not
 exist yet (ROADMAP A6, A12).
@@ -37,8 +37,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--estimator", choices=["reference", "pbrt"], default="pbrt",
-        help="radiance estimator (default: physically based, not ported yet; "
-        "use 'reference')",
+        help="radiance estimator (default: pbrt, physically based with MIS, "
+        "Russian roulette, metal and glass; reference: the reference "
+        "renderer's tracer)",
     )
     p.add_argument(
         "--tonemap", choices=["sqrt", "reinhard", "filmic", "none"],

@@ -128,8 +128,9 @@ def test_packed_tables_match_jax(cornell_path):
 
 def test_backend_resolution_and_unported_paths(cornell_path):
     """"auto" is "brute" on CPU tensors and "cuda" on CUDA ones, and the
-    cluster sweep past AUTO_BRUTE_MAX_TRIS; what is not ported raises
-    NotImplementedError instead of taking another path."""
+    cluster sweep past AUTO_BRUTE_MAX_TRIS; both estimators render, an
+    unknown one is refused; what is not ported raises NotImplementedError
+    instead of taking another path."""
     assert integ.resolve_backend("auto", 36, "cpu") == "brute"
     assert integ.resolve_backend("auto", 36, "cuda:0") == "cuda"
     assert integ.resolve_backend("cuda", 36, "cpu") == "cuda"
@@ -142,8 +143,9 @@ def test_backend_resolution_and_unported_paths(cornell_path):
 
     host, camera, _ = load_tungsten(cornell_path, dtype=np.float32)
     scene_t, cam_t = to_device(host, camera._replace(resolution=(4, 4)), "cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        integ.render_image(scene_t, cam_t, CFG.replace(estimator="pbrt"))
+    assert integ.render_image(scene_t, cam_t, CFG.replace(estimator="pbrt")).shape == (4, 4, 3)
+    with pytest.raises(ValueError, match="estimator"):
+        integ.render_image(scene_t, cam_t, CFG.replace(estimator="nope"))
     with pytest.raises(NotImplementedError, match="A6"):
         integ.render_image(scene_t, cam_t, CFG.replace(adaptive=True))
     ro = torch.zeros((2, 3))

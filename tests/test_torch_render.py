@@ -108,8 +108,6 @@ def test_cli_cpu_end_to_end(cornell_path, tmp_path):
 def test_cli_unported_options_raise(cornell_path, tmp_path):
     base = [cornell_path, "--cpu", "--res", "4", "4", "--spp", "1",
             "--out", str(tmp_path / "o.png")]
-    with pytest.raises(NotImplementedError, match="A8"):
-        cli.main(base)  # the default estimator is pbrt, as in the JAX CLI
     with pytest.raises(NotImplementedError, match="A10"):
         cli.main(base + ["--estimator", "reference", "--backend", "bvh"])
     with pytest.raises(NotImplementedError, match="A11"):
