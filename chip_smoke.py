@@ -30,8 +30,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    65,536 random rays, camera rays, the integrator's real bounce-1
    wavefront and its NEE shadow rays, dead lanes, per-ray t1 and a ragged
    N = 100, each with Moeller-Trumbore and watertight leaves, sort off and
-   on; then the shared-edge leak hunt (4,096 rays) through the watertight
-   kernels.
+   on: equal hit masks and occlusion, and the closest hit's t and face
+   equal to the twin's on every ray; then the shared-edge leak hunt (4,096
+   rays) through the watertight kernels.
 7. The large-scene path through ProgressiveRenderer: terrain100k,
    reference estimator, 512x512, 4 spp, 4 bounces, chunks of 2^16,
    cluster_sort and cluster_watertight on "auto" (both resolve to on).
@@ -42,10 +43,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    and with the CPU twins, with MT and with watertight leaves; the
    terrain100k mean radiance (32x32, 2 spp, 4 bounces, seed 0) against the
    JAX package's CPU value.
-9. Timings: each cluster kernel and its twin on the bounce-1 wavefront at
-   terrain100k (median of CUDA-event timings); their bounds from the tests
-   the kernels' front-to-back walk needs at the least (walk_tests), the
-   any-hit walk's occlusion checked against the twin's.
+9. Timings on the bounce-1 wavefront at terrain100k (the closest hit) and
+   its shadow rays (the any hit), watertight: each cluster kernel alone
+   (one launch on operands prepared beforehand, kernels/cluster.py
+   _operands and _launch), sorted and unsorted, and its wrapper with the
+   sort, rank and scatter glue, sorted and unsorted, beside its twin; the
+   kernel line's time is the kernel alone on sorted operands, as the frame
+   runs it. Their bounds from the tests the kernels' front-to-back walk
+   needs at the least (perf/clusterbench.walk), the any-hit walk's
+   occlusion checked against the twin's.
 10. The four binned kernels against their twins on the card at terrain100k
    (200 bins of 512 triangles, 224 box rows), on phase 6's ray sets, with
    W at its default and at 1 (overflow and peel rounds), MT and watertight
@@ -254,51 +260,6 @@ def whole_table_bounds(ki, table, ro, rd, t1):
             "occluded": bound(int(first[live].sum()) * MT_OPS, ins + n)}
 
 
-def walk_tests(cs, ro, rd, t1, t_final=None, watertight=True):
-    """The tests that the cluster kernels' front-to-back walk
-    (csrc/cluster.cu sweep, superclusters in kernels/cluster._sc_order's
-    rank) needs at the least on one ray set: for each live ray (t1 > T0) a
-    slab test of each supercluster, of the 16 children of each one it
-    crosses, and a 128-triangle leaf for each child it crosses. Closest hit
-    (t_final given): the walk culls with each ray's final t from the start
-    (t_final: the twin's t on a hit, t1 on a miss), which culls no less than
-    the kernel's running bound. Any hit (t_final None): the walk culls with
-    t1 and a ray stops at its first occluder, counting the leaf's lanes up
-    to it. Returns (slab tests, triangle tests, the rays the walk found
-    occluded)."""
-    from pyrenderer_tpu_torch.accel import clusters as cl
-    from pyrenderer_tpu_torch.kernels.cluster import _sc_order
-
-    n = ro.shape[0]
-    t1v = torch.as_tensor(t1, dtype=torch.float32, device=ro.device).expand(n)
-    bound_t = t1v if t_final is None else t_final
-    inv_d = 1.0 / torch.where(rd == 0, 1e-20, rd)
-    going = t1v > T0
-    order, super_sorted = _sc_order(cs, ro)
-    tri = cs.tri.reshape(cs.n_clusters, cl.TRI_ROWS, cl.LANE_TRIS)
-    slabs = leaves = torch.zeros((), dtype=torch.int64, device=ro.device)
-    for rank, s in enumerate(order[:cs.n_superclusters].tolist()):
-        slabs = slabs + going.sum()
-        inside = going & cl._slab(super_sorted[rank, 0:3], super_sorted[rank, 3:6], ro,
-                                  inv_d, T0, bound_t)
-        for j in range(s * cl.GROUP, (s + 1) * cl.GROUP):
-            slabs = slabs + inside.sum()
-            cross = inside & cl._slab(cs.child_box[j, 0:3], cs.child_box[j, 3:6], ro, inv_d,
-                                      T0, bound_t)
-            if t_final is not None:
-                leaves = leaves + cross.sum() * cl.LANE_TRIS
-                continue
-            idx = cross.nonzero()[:, 0]
-            if idx.numel() == 0:
-                continue
-            occ = cl._leaf(tri[j], ro[idx], rd[idx], T0, t1v[idx], watertight) < cl.MISS_T
-            stop = occ.any(dim=1)
-            leaves = leaves + torch.where(stop, occ.int().argmax(dim=1) + 1, cl.LANE_TRIS).sum()
-            going[idx[stop]] = False
-            inside[idx[stop]] = False
-    return int(slabs), int(leaves), (t1v > T0) & ~going
-
-
 def cuda_ms_pair(kernel_fn, twin_fn, reps=20, twin_reps=3, twin_graph=False):
     """(kernel ms, twin ms): medians of CUDA-event timings, in turns twin,
     kernel, kernel, twin so that drift of the card shows in neither alone.
@@ -319,16 +280,6 @@ def cuda_ms_pair(kernel_fn, twin_fn, reps=20, twin_reps=3, twin_graph=False):
     kern_b = graph_ms(kernel_fn, reps)
     twin_b = twin()
     return float(np.median([kern_a, kern_b])), float(np.median([twin_a, twin_b]))
-
-
-def random_rays(n, seed, dev):
-    """Rays inside the Cornell box, as tests/test_pallas.py makes them."""
-    rs = np.random.RandomState(seed)
-    ro = rs.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
-    ro[:, 1] += 1.0
-    rd = rs.normal(size=(n, 3)).astype(np.float32)
-    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
-    return torch.as_tensor(ro, device=dev), torch.as_tensor(rd, device=dev)
 
 
 def compare_kernels(ki, table, ro, rd, t1, label):
@@ -370,6 +321,7 @@ def main() -> int:
 
     from pyrenderer_tpu_torch.kernels import build
     from pyrenderer_tpu_torch.kernels import intersect as ki
+    from pyrenderer_tpu_torch.perf.clusterbench import random_rays
 
     phase("1 build")
     t = time.perf_counter()
@@ -523,37 +475,12 @@ def compare_cluster(kc, cl, cs, ro, rd, t1, label, refs):
             check(torch.equal(occ, occ_r), f"{tag}: occluded differs")
             err_t = float((t - t_r).abs().max()) if t.numel() else 0.0
             err = np.maximum(err, [err_t, float((occ != occ_r).any())])
+            n_equal = int(((t == t_r) & (face == face_r)).sum())
             print(f"{tag}: n={ro.shape[0]} hits={n_hit} faces equal {n_same}/{n_hit} "
-                  f"max|dt|={err_t:.3g} occluded={int(occ.sum())} (equal)", flush=True)
+                  f"max|dt|={err_t:.3g} (t, face) equal on {n_equal}/{ro.shape[0]} rays "
+                  f"occluded={int(occ.sum())} (equal)", flush=True)
+            check(n_equal == ro.shape[0], f"{tag}: t or face differ from the twin's")
     return err
-
-
-def integrator_wavefronts(scene, camera, tables, cfg, px, py, module="cluster_kernels"):
-    """The integrator's real bounce-1 wavefront: the (ro, rd, t1) of the
-    second closest-hit query and of the second shadow query that
-    render_sample makes, recorded on their way to the kernel wrappers of
-    `module` (the integrator's name for kernels/cluster.py, or "kernels"
-    for the whole-table kernels)."""
-    import types
-
-    from pyrenderer_tpu_torch.core import integrator
-
-    wrappers = getattr(integrator, module)
-    calls = {"closest_hit": [], "occluded": []}
-
-    def recorder(name):
-        def record(table, ro, rd, t0, t1, **kw):
-            calls[name].append((ro.contiguous(), rd.contiguous(), t1.contiguous()))
-            return getattr(wrappers, name)(table, ro, rd, t0, t1, **kw)
-        return record
-
-    setattr(integrator, module, types.SimpleNamespace(**{name: recorder(name) for name in calls}))
-    try:
-        integrator.render_sample(scene, camera, cfg.replace(max_bounces=2),
-                                 cfg.seed, 0, px, py, tables=tables)
-    finally:
-        setattr(integrator, module, wrappers)
-    return calls["closest_hit"][1], calls["occluded"][1]
 
 
 def large_scene_phases(dev, card):
@@ -566,6 +493,7 @@ def large_scene_phases(dev, card):
     from pyrenderer_tpu_torch.core.camera import generate_rays, morton_pixel_order
     from pyrenderer_tpu_torch.core.integrator import TraceTables, render_image
     from pyrenderer_tpu_torch.kernels import cluster as kc
+    from pyrenderer_tpu_torch.perf.clusterbench import random_rays, walk, wavefronts
     from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
     from pyrenderer_tpu_torch.scene import procgen, to_device
     from pyrenderer_tpu_torch.scene.tungsten import build_scene
@@ -594,7 +522,7 @@ def large_scene_phases(dev, card):
     err = np.maximum(err, compare_cluster(kc, cl, cs, cro.contiguous(), crd.contiguous(),
                                           T_MAX, "camera rays, scalar t1", refs))
     tables = TraceTables(scene, cfg, accel=cs)
-    bounce1, shadow1 = integrator_wavefronts(scene, camera, tables, cfg, px, py)
+    bounce1, shadow1 = wavefronts(scene, camera, tables, cfg, px, py)
     err = np.maximum(err, compare_cluster(kc, cl, cs, *bounce1, "bounce-1 wavefront", refs))
     err = np.maximum(err, compare_cluster(kc, cl, cs, *shadow1, "bounce-1 shadow rays", refs))
     lanes = torch.arange(N_RAYS, device=dev)
@@ -668,30 +596,54 @@ def large_scene_phases(dev, card):
     check(abs(mean - ref) <= MEAN_TOL, "terrain100k mean radiance off")
 
     phase(f"9 cluster timings on {card}")
+    from pyrenderer_tpu_torch.perf.kernelbench import graph_ms
+
     b_ro, b_rd, b_t1 = bounce1
     s_ro, s_rd, s_t1 = shadow1
     ms, plain_ms = {}, {}
-    ms["cluster_closest_hit"], plain_ms["cluster_closest_hit"] = cuda_ms_pair(
-        lambda: kc.closest_hit(cs, b_ro, b_rd, T0, b_t1, sort=True, watertight=True,
-                               exact_t=False),
-        lambda: cl.closest_hit_ref(cs, b_ro, b_rd, T0, b_t1, watertight=True))
-    ms["cluster_occluded"], plain_ms["cluster_occluded"] = cuda_ms_pair(
-        lambda: kc.occluded(cs, s_ro, s_rd, T0, s_t1, sort=True, watertight=True),
-        lambda: cl.occluded_ref(cs, s_ro, s_rd, T0, s_t1, watertight=True))
+    queries = {
+        "cluster_closest_hit": (kc.closest_hit, bounce1, "wavefront", cl.closest_hit_ref,
+                                (torch.empty(N_RAYS, device=dev),
+                                 torch.empty(N_RAYS, dtype=torch.int32, device=dev))),
+        "cluster_occluded": (kc.occluded, shadow1, "shadow rays", cl.occluded_ref,
+                             (torch.empty(N_RAYS, dtype=torch.bool, device=dev),)),
+    }
+    for name, (wrapper, (ro, rd, t1), what, twin, outs) in queries.items():
+        # the kernel alone: one launch on operands prepared beforehand
+        ops = {sort: kc._operands(cs, ro, rd, t1, sort) for sort in (False, True)}
+        alone = {sort: (lambda o=ops[sort]: kc._launch(wrapper, cs, o, T0, True, outs))
+                 for sort in (False, True)}
+        ms[name], plain_ms[name] = cuda_ms_pair(
+            alone[True], lambda: twin(cs, ro, rd, T0, t1, watertight=True))
+        extra = {"kernel alone, unsorted": alone[False]}
+        for sort in (False, True):
+            kw = {"exact_t": False} if wrapper is kc.closest_hit else {}
+            extra[f"wrapper, {'sorted' if sort else 'unsorted'}"] = (
+                lambda sort=sort, kw=kw: wrapper(cs, ro, rd, T0, t1, sort=sort,
+                                                 watertight=True, **kw))
+        times = {label: [] for label in extra}
+        for label in list(extra) + list(reversed(extra)):
+            times[label].append(graph_ms(extra[label]))
+        print(f"{name}: kernel alone, sorted {ms[name]:.4f} ms, "
+              + ", ".join(f"{label} {float(np.median(t)):.4f} ms" for label, t in times.items())
+              + f" (CUDA-graph replays, bounce-1 {what}, terrain100k, watertight, {card})",
+              flush=True)
     hit_r, t_r, _ = refs["bounce-1 wavefront"][True]
     b_t1v = torch.as_tensor(b_t1, dtype=torch.float32, device=dev).expand(N_RAYS)
-    work = {"cluster_closest_hit": walk_tests(cs, b_ro, b_rd, b_t1,
-                                              torch.where(hit_r, t_r, b_t1v))[:2]}
-    *work["cluster_occluded"], walk_occ = walk_tests(cs, s_ro, s_rd, s_t1)
-    check(torch.equal(walk_occ, refs["bounce-1 shadow rays"][True][0]),
+    walks = {"cluster_closest_hit": walk(cs, b_ro, b_rd, b_t1, torch.where(hit_r, t_r, b_t1v)),
+             "cluster_occluded": walk(cs, s_ro, s_rd, s_t1)}
+    work = {name: (int(slabs.sum()), int(tests.sum())) for name, (slabs, tests, _) in walks.items()}
+    check(torch.equal(walks["cluster_occluded"][2], refs["bounce-1 shadow rays"][True][0]),
           "the any-hit walk's occlusion differs from the twin's")
-    tables_bytes = nbytes(cs.tri, cs.child_box, cs.super_cols, cs.order)
+    # the kernels' scene operands: the triangle rows, the compact box
+    # copies and the supercluster rank
+    tables_bytes = nbytes(cs.tri, cs.child_box8, cs.super_cols8) + 4 * cs.super_cols8.shape[0]
     bounds = {name: bound(slabs * SLAB_OPS + leaves * WT_OPS,
                           28 * N_RAYS + tables_bytes + (9 if "closest" in name else 1) * N_RAYS)
               for name, (slabs, leaves) in work.items()}
     for name in ms:
         slabs, leaves = work[name]
-        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, bound "
+        print(f"{name}: kernel alone {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, bound "
               f"{bounds[name][0]:.6f} ms ({bounds[name][1]}; {slabs} slab tests, {leaves} "
               f"triangle tests) (bounce-1 {'wavefront' if 'closest' in name else 'shadow rays'}"
               f" of {N_RAYS} rays, terrain100k, watertight, sorted, {card})", flush=True)
@@ -982,6 +934,7 @@ def pbrt_phases(dev, card, mrays_reference):
     from pyrenderer_tpu_torch.core.camera import morton_pixel_order
     from pyrenderer_tpu_torch.core.integrator import TraceTables, render_image
     from pyrenderer_tpu_torch.kernels import intersect as ki
+    from pyrenderer_tpu_torch.perf.clusterbench import wavefronts
     from pyrenderer_tpu_torch.render import cli
     from pyrenderer_tpu_torch.scene import load_tungsten, to_device
     from pyrenderer_tpu_torch.utils.exr import read_exr
@@ -1028,8 +981,7 @@ def pbrt_phases(dev, card, mrays_reference):
     ys, xs = np.mgrid[0:1024, 0:1024]
     px = torch.as_tensor(xs.reshape(-1)[perm][:N_RAYS], device=dev)
     py = torch.as_tensor(ys.reshape(-1)[perm][:N_RAYS], device=dev)
-    bounce1, shadow1 = integrator_wavefronts(scene, camera, tables, cfg_s, px, py,
-                                             module="kernels")
+    bounce1, shadow1 = wavefronts(scene, camera, tables, cfg_s, px, py, module="kernels")
     table = tables.tri_table
     for label, rays in (("spheres bounce-1 wavefront", bounce1),
                         ("spheres bounce-1 shadow rays", shadow1)):

@@ -6,7 +6,9 @@ cut into CLUSTERS of 128; 16 clusters form a SUPERCLUSTER; both levels carry
 axis-aligned boxes. The sweep (kernels/cluster.py, csrc/cluster.cu) walks
 superclusters front to back, slab-tests their boxes and those of their 16
 children against each ray's running closest t, and tests the 128 triangles
-of every child it crosses.
+of every child it crosses. The kernels read compact copies of the two box
+tables (32 bytes a box instead of a 512-byte row), so that the 16 children
+of a supercluster are one 512-byte read.
 
 The build runs in NumPy on the host (scene-load time) and returns tensors.
 ``closest_hit_ref`` and ``occluded_ref`` are the plain PyTorch twins of the
@@ -46,6 +48,9 @@ BIN = int(os.environ.get("PYRENDERER_BIN", "4"))
 BIN_TRIS = BIN * LANE_TRIS
 
 MISS_T = 3.0e38
+# floats per row of the compact box copies the cluster-sweep kernels read
+# (csrc/cluster.cu kBoxRow): bmin.xyz | bmax.xyz | 0 | 0, 32 bytes
+BOX_ROW = 8
 
 # float32 machine-epsilon-based conservative bound, PBRT gamma(3)
 # (pyrenderer_tpu/accel/bvh.py:32-35; reference mathematics/constants.py)
@@ -77,6 +82,10 @@ class ClusterScene:
     super_box: torch.Tensor   # (6, S) f32: bmin.xyz|bmax.xyz per supercluster
     super_cols: torch.Tensor  # (S_pad, 128) f32: the same boxes one row each,
     #                           lanes 0..5, NaN rows past S
+    child_box8: torch.Tensor  # (K, BOX_ROW) f32: child_box's first 8 lanes,
+    #                           the copy the sweep kernels read
+    super_cols8: torch.Tensor  # (S_pad, BOX_ROW) f32: super_cols' first 8
+    #                            lanes, likewise
     order: torch.Tensor       # (K * 128,) i32: packed slot -> original face id
     world_lo: torch.Tensor    # (3,) f32 scene box corner (sort quantization)
     world_inv_span: torch.Tensor  # (3,) f32
@@ -203,6 +212,8 @@ def build_clusters(vertices, faces) -> ClusterScene:
         bin_box=torch.from_numpy(bin_box),
         super_box=torch.from_numpy(super_box),
         super_cols=torch.from_numpy(super_cols),
+        child_box8=torch.from_numpy(np.ascontiguousarray(child[:, :BOX_ROW])),
+        super_cols8=torch.from_numpy(np.ascontiguousarray(super_cols[:, :BOX_ROW])),
         order=torch.from_numpy(order_full),
         world_lo=torch.from_numpy(wlo.astype(np.float32)),
         world_inv_span=torch.from_numpy((1.0 / wspan).astype(np.float32)),

@@ -52,10 +52,6 @@ constexpr int kStageBoxes = 512;           // bin boxes staged in shared memory 
 constexpr int kBoxFloats = 6;              // bmin.xyz | bmax.xyz
 constexpr int kBinFloats = kBin * 9 * kLane;  // one bin's triangle rows v0|e1|e2
 
-__device__ __forceinline__ int64_t pack_key(float t, int32_t slot) {
-  return (int64_t)(((uint64_t)__float_as_uint(t) << 32) | (uint32_t)slot);
-}
-
 // Moves the lowest set bits of `bits` (word w of a ray's crossing bits)
 // into ids[*filled .. w_slots) as bin ids, ascending; returns the bits left.
 __device__ __forceinline__ uint32_t peel_word(uint32_t bits, int w,

@@ -1,5 +1,5 @@
 // Cluster-sweep ray traversal for Hopper (sm_90a): closest hit and any hit
-// over the two-level ClusterScene of accel/clusters.py, one thread per ray,
+// over the two-level ClusterScene of accel/clusters.py, one warp per ray,
 // with Moeller-Trumbore or watertight leaves (a template parameter).
 //
 // Replaces the two TPU kernels of pyrenderer_tpu/kernels/pallas_cluster.py:
@@ -7,25 +7,56 @@
 //   pr_cluster_occluded -> _anyhit_kernel (:577, via _sweep_any)
 //
 // The TPU kernels sweep 128-ray tiles in lockstep, pack per-box decisions
-// into bitmasks and iterate them with ctz loops, and pack (t | lane) into
-// one int32 key: all of that avoids the TPU's vector->scalar syncs, which a
-// GPU does not have. Here each thread owns one ray and walks the
-// superclusters in the wavefront's front-to-back rank (kernels/cluster.py
-// _sc_order): slab test of the supercluster box against min(t_best, t1),
-// then of its 16 child boxes against the same running bound, then the
-// 128-triangle leaf of every child it crosses, read straight from the SoA
-// (K*16, 128) table at tri[(j*16 + row)*128 + lane]. The closest-hit t is
-// the exact float32 t of the leaf test; no key packing.
+// into bitmasks iterated with ctz loops, and pack (t | lane) into one int32
+// key: all of that avoids the TPU's vector->scalar syncs, which a GPU does
+// not have. None of it is carried over.
 //
-// What bounds it on this card: per ray, ~(visited leaves x 128) triangle
-// tests of ~30 flops (MT) or ~100 (watertight) each, and the table reads
-// behind them (36 bytes per triangle from a 6.25 MiB table at terrain100k,
-// which stays in the 50 MB L2). The rays arrive coherence-sorted when the
-// caller sorts, so the threads of a warp mostly visit the same clusters and
-// read the same triangles (one broadcast transaction per warp). Shared-
-// memory staging and warp-cooperative traversal are later work.
+// What bounds the walk on this card: too little parallel work per query.
+// At terrain100k a bounce-1 wavefront of 65,536 rays has 15,596 live rays;
+// each needs ~124 slab tests and ~3.55 leaves of 128 triangle tests on its
+// front-to-back walk (perf/clusterbench.py walk), a long chain of
+// dependent table loads. One thread per ray gave the card ~122 busy
+// blocks, every warp a serial loop over the union of its 32 rays' leaves,
+// 128 tests at a time: 1.93 ms for the closest hit, 1.31 ms for the any hit
+// on that wavefront and its shadow rays, ~220x the operation bound of the
+// walk (NVIDIA H100 80GB HBM3, 700.00 W power limit).
 //
-// Arithmetic, constants and the slab and triangle tests are leaf.cuh's.
+// The design: one warp per ray, so the walk of each ray is spread over 32
+// lanes and the card holds 32x the threads in flight. Lane l of the warp
+// - slab-tests supercluster ranks l, l + 32, ... (in the wavefront's
+//   front-to-back rank, kernels/cluster.py _sc_order) against the running
+//   bound; __ballot_sync gives one word per 32 ranks, whose set bits the
+//   warp visits in ascending order (__ffs). Before each visit the warp
+//   re-checks the box against the current bound with its t_near, shuffled
+//   from its lane: the visits and the culling are those of a serial walk;
+// - lanes 0..15 do the same for the 16 child boxes of a visited
+//   supercluster;
+// - in a leaf, tests triangles l, l + 32, l + 64 and l + 96 of the cluster,
+//   so each row of the SoA (K*16, 128) table is one coalesced 128-byte read
+//   per warp. The warp reduces its best hit as one int64 key (leaf.cuh
+//   pack_key) with __shfl_xor_sync; the result is in every lane, so the
+//   best t and the bound stay warp-uniform.
+// The boxes come from compact copies, 8 floats a box (ClusterScene
+// child_box8, super_cols8): the 16 children of a supercluster are one
+// 512-byte read, and the whole child table (25.6 KB at terrain100k) fits in
+// L1. A triangle is accepted against the ray's t1, not against the running
+// best: the key minimum then keeps the lowest slot among equal t whatever
+// the visit order. The closest hit is the exact float32 t of the leaf test,
+// ties to the lowest slot, as the plain twin gives it. The any hit stops
+// after the first 32-triangle step in which some lane hit (__any_sync). A
+// warp whose ray is dead (t1 <= t0, or NaN) writes a miss and returns.
+//
+// On the same card and wavefront this takes 0.082 ms (closest hit) and
+// 0.045 ms (any hit), 48 registers, no spill: ~9x and ~7x the walk's
+// operation bound, of which 0.0115 ms is the launch of 65,536 warps itself
+// (every ray dead). What remains is latency: each ray's walk is a chain of
+// dependent loads and warp reductions, and the longest walks (8 leaves at
+// the 99th percentile, 19 and 370 slab tests for the longest ray) finish
+// last. The compact boxes took 20-26% off the 128-float rows; capping the
+// registers at 32 (16 blocks an SM) made it 36% slower.
+//
+// Arithmetic, constants, the slab and triangle tests and the key are
+// leaf.cuh's.
 //
 // Each C entry point launches on the caller's stream, returns the
 // cudaError_t of the launch and never synchronises.
@@ -37,21 +68,50 @@
 
 namespace {
 
-// The sweep shared by both kernels. Visit(j) runs the leaf of cluster j and
-// returns true to stop; bound() is the ray's current cull distance.
+constexpr int kWarp = 32;
+constexpr int kBoxRow = 8;   // floats per box row: bmin.xyz | bmax.xyz | 0 | 0
+constexpr int kRaysPerBlock = kThreads / kWarp;
+constexpr int kLeafSteps = kLane / kWarp;   // triangles per lane in a leaf
+constexpr unsigned kAll = 0xFFFFFFFFu;
+
+__device__ __forceinline__ int64_t warp_min(int64_t key) {
+#pragma unroll
+  for (int d = kWarp / 2; d > 0; d /= 2) {
+    const int64_t other = __shfl_xor_sync(kAll, key, d);
+    key = other < key ? other : key;
+  }
+  return key;
+}
+
+// The walk of one ray by its warp. Visit(j) runs the leaf of cluster j
+// (every lane calls it, with the same j) and returns true to stop; bound()
+// is the ray's current cull distance, the same in every lane and never
+// NaN. s_pad is a multiple of 32.
 template <typename Bound, typename Visit>
 __device__ __forceinline__ void sweep(const float* __restrict__ child_box,
                                       const float* __restrict__ super_sorted,
                                       const int32_t* __restrict__ order,
                                       int s_pad, const Ray& r, float t0,
-                                      Bound bound, Visit visit) {
-  for (int rank = 0; rank < s_pad; ++rank) {
-    if (!slab(super_sorted + (int64_t)rank * kLane, r, t0, bound())) continue;
-    const int base = order[rank] * kGroup;
-    for (int c = 0; c < kGroup; ++c) {
-      const int j = base + c;
-      if (!slab(child_box + (int64_t)j * kLane, r, t0, bound())) continue;
-      if (visit(j)) return;
+                                      int lane, Bound bound, Visit visit) {
+  for (int base = 0; base < s_pad; base += kWarp) {
+    float s_near;
+    const bool s_cross = slab_near(super_sorted + (int64_t)(base + lane) * kBoxRow,
+                                   r, t0, bound(), &s_near);
+    const int s_id = order[base + lane];
+    for (uint32_t sm = __ballot_sync(kAll, s_cross); sm != 0u; sm &= sm - 1u) {
+      const int b = __ffs(sm) - 1;
+      // culled by a hit found since the ballot
+      if (!(__shfl_sync(kAll, s_near, b) <= bound())) continue;
+      const int first = __shfl_sync(kAll, s_id, b) * kGroup;
+      float c_near = 0.0f;
+      const bool c_cross =
+          lane < kGroup && slab_near(child_box + (int64_t)(first + lane) * kBoxRow,
+                                     r, t0, bound(), &c_near);
+      for (uint32_t cm = __ballot_sync(kAll, c_cross); cm != 0u; cm &= cm - 1u) {
+        const int c = __ffs(cm) - 1;
+        if (!(__shfl_sync(kAll, c_near, c) <= bound())) continue;
+        if (visit(first + c)) return;
+      }
     }
   }
 }
@@ -65,31 +125,39 @@ cluster_closest_kernel(const float* __restrict__ tri,
                        const float* __restrict__ rays, float t0, int64_t n,
                        float* __restrict__ t_out,
                        int32_t* __restrict__ slot_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
   if (i >= n) return;
   const Ray r = load_ray(rays, i);
-  const Shear s = Watertight ? make_shear(r) : Shear{};
-  float best_t = kMissT;
-  int32_t best = -1;
-  sweep(child_box, super_sorted, order, s_pad, r, t0,
-        [&] { return fminf(best_t, r.t1); },
-        [&](int j) {
-          const float* cl = tri + (int64_t)j * kTriRows * kLane;
-          for (int lane = 0; lane < kLane; ++lane) {
-            float t;
-            if (!tri_test<Watertight>(cl + lane, r, s, t0, r.t1, &t)) continue;
-            const int32_t slot = j * kLane + lane;
-            // the exact minimum t; a tie goes to the lowest slot, as the
-            // twin's ascending scan with a strict < gives it
-            if (t < best_t || (t == best_t && slot < best)) {
-              best_t = t;
-              best = slot;
+  int64_t best = pack_key(kMissT, -1);
+  if (r.t1 > t0) {
+    const Shear s = Watertight ? make_shear(r) : Shear{};
+    float best_t = kMissT;
+    sweep(child_box, super_sorted, order, s_pad, r, t0, lane,
+          [&] { return fminf(best_t, r.t1); },
+          [&](int j) {
+            const float* cl = tri + (int64_t)j * kTriRows * kLane + lane;
+            int64_t key = pack_key(kMissT, -1);
+#pragma unroll
+            for (int k = 0; k < kLeafSteps; ++k) {
+              float t;
+              if (tri_test<Watertight>(cl + k * kWarp, r, s, t0, r.t1, &t)) {
+                const int64_t hit = pack_key(t, j * kLane + k * kWarp + lane);
+                key = hit < key ? hit : key;
+              }
             }
-          }
-          return false;
-        });
-  t_out[i] = best_t;
-  slot_out[i] = best;
+            key = warp_min(key);
+            if (key < best) {
+              best = key;
+              best_t = __uint_as_float((uint32_t)(key >> 32));
+            }
+            return false;
+          });
+  }
+  if (lane == 0) {
+    t_out[i] = __uint_as_float((uint32_t)(best >> 32));
+    slot_out[i] = (int32_t)(uint32_t)best;
+  }
 }
 
 template <bool Watertight>
@@ -100,34 +168,47 @@ cluster_anyhit_kernel(const float* __restrict__ tri,
                       const int32_t* __restrict__ order, int s_pad,
                       const float* __restrict__ rays, float t0, int64_t n,
                       bool* __restrict__ occ_out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
+  const int lane = threadIdx.x % kWarp;
   if (i >= n) return;
   const Ray r = load_ray(rays, i);
-  const Shear s = Watertight ? make_shear(r) : Shear{};
   bool occ = false;
-  sweep(child_box, super_sorted, order, s_pad, r, t0, [&] { return r.t1; },
-        [&](int j) {
-          const float* cl = tri + (int64_t)j * kTriRows * kLane;
-          for (int lane = 0; lane < kLane; ++lane) {
-            float t;
-            // a ray retires at its first occluder
-            if (tri_test<Watertight>(cl + lane, r, s, t0, r.t1, &t)) {
-              occ = true;
-              return true;
+  if (r.t1 > t0) {
+    const Shear s = Watertight ? make_shear(r) : Shear{};
+    sweep(child_box, super_sorted, order, s_pad, r, t0, lane,
+          [&] { return r.t1; },
+          [&](int j) {
+            const float* cl = tri + (int64_t)j * kTriRows * kLane + lane;
+#pragma unroll
+            for (int k = 0; k < kLeafSteps; ++k) {
+              float t;
+              const bool hit =
+                  tri_test<Watertight>(cl + k * kWarp, r, s, t0, r.t1, &t);
+              // the ray retires at its first occluding step
+              if (__any_sync(kAll, hit)) {
+                occ = true;
+                return true;
+              }
             }
-          }
-          return false;
-        });
-  occ_out[i] = occ;
+            return false;
+          });
+  }
+  if (lane == 0) occ_out[i] = occ;
+}
+
+inline unsigned int warp_blocks(int64_t n) {
+  return (unsigned int)((n + kRaysPerBlock - 1) / kRaysPerBlock);
 }
 
 }  // namespace
 
 extern "C" {
 
-// tri: (K*16, 128) f32; child_box: (K, 128) f32; super_sorted: (s_pad, 128)
-// f32, the supercluster rows in visit order, and order: (s_pad,) i32, rank
-// -> supercluster id; rays: (n, 8) f32 [o | d | t1 | pad], 16-byte aligned.
+// tri: (K*16, 128) f32; child_box: (K, 8) f32, one box per row (bmin |
+// bmax | pad); super_sorted: (s_pad, 8) f32, the supercluster boxes in visit
+// order, and order: (s_pad,) i32, rank -> supercluster id, s_pad a multiple
+// of 32; rays: (n, 8) f32
+// [o | d | t1 | pad], 16-byte aligned; t0 > 0.
 // Writes t (n,) f32 (3e38 on a miss) and slot (n,) i32 (-1 on a miss).
 int pr_cluster_closest(const void* tri, const void* child_box,
                        const void* super_sorted, const void* order, int s_pad,
@@ -136,7 +217,7 @@ int pr_cluster_closest(const void* tri, const void* child_box,
   if (n <= 0) return (int)cudaSuccess;
   auto kernel = watertight ? cluster_closest_kernel<true>
                            : cluster_closest_kernel<false>;
-  kernel<<<n_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+  kernel<<<warp_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)tri, (const float*)child_box, (const float*)super_sorted,
       (const int32_t*)order, s_pad, (const float*)rays, t0, n,
       (float*)t_out, (int32_t*)slot_out);
@@ -152,7 +233,7 @@ int pr_cluster_occluded(const void* tri, const void* child_box,
   if (n <= 0) return (int)cudaSuccess;
   auto kernel = watertight ? cluster_anyhit_kernel<true>
                            : cluster_anyhit_kernel<false>;
-  kernel<<<n_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+  kernel<<<warp_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)tri, (const float*)child_box, (const float*)super_sorted,
       (const int32_t*)order, s_pad, (const float*)rays, t0, n,
       (bool*)occ_out);

@@ -1,7 +1,7 @@
 // Device helpers shared by the cluster-sweep (cluster.cu) and binned
 // (binned.cu) kernels: the constants of the ClusterScene layout, the ray
-// row, the slab test of a box, and the Moeller-Trumbore and watertight
-// triangle tests.
+// row, the slab test of a box, the Moeller-Trumbore and watertight
+// triangle tests, and the int64 (t, slot) key of a hit.
 //
 // Arithmetic follows the plain twins operation for operation
 // (accel/clusters.py _slab and _leaf, core/intersect.py _mt_terms,
@@ -56,9 +56,12 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
 
 // Slab test of the box b[0..5] = bmin|bmax (lanes 0..5 of a table row):
 // accel/clusters.py _slab (the TPU's _box_slab) with NaN-propagating
-// min/max.
-__device__ __forceinline__ bool slab(const float* __restrict__ b,
-                                     const Ray& r, float t0, float bound) {
+// min/max. Also gives the box's entry distance t_near: once the box
+// crossed, it still crosses under a smaller non-NaN bound b exactly when
+// t_near <= b.
+__device__ __forceinline__ bool slab_near(const float* __restrict__ b,
+                                          const Ray& r, float t0, float bound,
+                                          float* t_near_out) {
   const float lox = (b[0] - r.ox) * r.ix;
   const float loy = (b[1] - r.oy) * r.iy;
   const float loz = (b[2] - r.oz) * r.iz;
@@ -69,7 +72,21 @@ __device__ __forceinline__ bool slab(const float* __restrict__ b,
                             nmax(nmin(loz, hiz), t0));
   const float t_far =
       nmin(nmin(nmax(lox, hix), nmax(loy, hiy)), nmax(loz, hiz)) * kSlabWiden;
+  *t_near_out = t_near;
   return t_near <= nmin(t_far, bound);
+}
+
+__device__ __forceinline__ bool slab(const float* __restrict__ b,
+                                     const Ray& r, float t0, float bound) {
+  float t_near;
+  return slab_near(b, r, t0, bound, &t_near);
+}
+
+// One int64 key per hit: float bits << 32 | slot. t > t0 > 0, so the float
+// bits order like the floats, and the minimum key is the minimum t with a
+// tie to the lowest slot; a miss is pack_key(kMissT, -1).
+__device__ __forceinline__ int64_t pack_key(float t, int32_t slot) {
+  return (int64_t)(((uint64_t)__float_as_uint(t) << 32) | (uint32_t)slot);
 }
 
 // Moeller-Trumbore in the order of core/intersect.py _mt_terms; true when

@@ -2,19 +2,24 @@
 
 Counterpart of the host side of pyrenderer_tpu/kernels/pallas_cluster.py.
 The kernels (csrc/cluster.cu) replace the TPU's ``_closest_kernel`` and
-``_anyhit_kernel``: one GPU thread per ray walks the superclusters of an
-accel/clusters.ClusterScene front to back and runs the 128-triangle leaf
-(Moeller-Trumbore, or the watertight test) of every cluster it crosses.
+``_anyhit_kernel``: one GPU warp per ray walks the superclusters of an
+accel/clusters.ClusterScene front to back, its lanes slab-testing 32
+supercluster or 16 child boxes at once, and runs the 128-triangle leaf
+(Moeller-Trumbore, or the watertight test) of every cluster it crosses,
+four triangles per lane.
 
 ``closest_hit`` and ``occluded`` take the device from their rays. For a
-CUDA tensor they sort the wavefront if asked (``_prepare``), rank the
-superclusters (``_sc_order``), launch the kernel (or raise) and scatter the
-results back; for a CPU tensor they run the plain twins
+CUDA tensor they prepare the operands (``_operands``: the checks, the
+wavefront sorted if asked by ``_prepare``, the superclusters ranked by
+``_sc_order``), launch the kernel on them (``_launch``, or raise) and
+scatter the results back; for a CPU tensor they run the plain twins
 accel/clusters.closest_hit_ref / occluded_ref, as the JAX package does off
-the TPU. There is no fallback from one to the other.
+the TPU. There is no fallback from one to the other. ``_launch`` alone is
+the kernel without its glue, which is how chip_smoke.py times it.
 
-Each wrapper counts its kernel launches (``closest_hit.launches``) and,
-apart from them, the calls it served with the twin (``twin_calls``).
+Each wrapper counts its kernel launches (``closest_hit.launches``, counted
+in ``_launch``) and, apart from them, the calls it served with the twin
+(``twin_calls``).
 
 Not ported: suspend/resume rounds (``rounds > 1``, ROADMAP A10) and the
 TPU's tile tuning (SUB_TILES, pair peeling, the lane-bound refresh, the
@@ -26,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from pyrenderer_tpu_torch.accel.clusters import (
+    BOX_ROW,
     ClusterScene,
     closest_hit_ref,
     exact_t_for_slot,
@@ -36,21 +42,25 @@ from pyrenderer_tpu_torch.accel.clusters import (
 from pyrenderer_tpu_torch.kernels import build
 
 _DEAD_KEY = 0xFFFFFFFF  # sorts after every real key (24 bits)
+# lanes of a warp (csrc/cluster.cu kWarp): the kernels slab-test 32
+# supercluster rows per ballot, so S_pad must be a multiple of it
+WARP = 32
 
 
 def _sc_order(cs: ClusterScene, ro):
     """Front-to-back supercluster rank for this wavefront: boxes sorted by
     the distance of their centres from the mean ray origin; padded ranks map
     to the NaN-boxed padding rows. Returns (order (S_pad,) int32, the
-    supercluster rows in that order (S_pad, 128))."""
+    supercluster rows in that order (S_pad, BOX_ROW), the kernels' compact
+    copy)."""
     s = cs.n_superclusters
-    s_pad = cs.super_cols.shape[0]
+    s_pad = cs.super_cols8.shape[0]
     centers = 0.5 * (cs.super_box[0:3] + cs.super_box[3:6])     # (3, S)
     diff = centers - ro.mean(dim=0)[:, None]
     d2 = diff[0] * diff[0] + diff[1] * diff[1] + diff[2] * diff[2]
     order = torch.cat([torch.argsort(d2, stable=True),
                        torch.arange(s, s_pad, device=ro.device)])
-    return order.to(torch.int32), cs.super_cols[order]
+    return order.to(torch.int32), cs.super_cols8[order]
 
 
 def _prepare(cs: ClusterScene, ro, rd, t1, sort: bool):
@@ -84,23 +94,37 @@ def _check_cuda_args(cs: ClusterScene, ro, rd):
     if ro.dim() != 2 or ro.shape[1] != 3 or rd.shape != ro.shape:
         raise ValueError(f"ro and rd must both be (N, 3), got {tuple(ro.shape)}"
                          f" and {tuple(rd.shape)}")
-    for name in ("tri", "child_box", "super_cols"):
+    for name in ("tri", "child_box8", "super_cols8"):
         x = getattr(cs, name)
         if x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(f"ClusterScene.{name} must be contiguous float32")
+    if cs.child_box8.shape[1] != BOX_ROW or cs.super_cols8.shape[1] != BOX_ROW:
+        raise ValueError(f"ClusterScene.child_box8 and super_cols8 must have {BOX_ROW} columns")
+    if cs.super_cols8.shape[0] % WARP:
+        raise ValueError(f"ClusterScene.super_cols8 must have a multiple of {WARP} rows, "
+                         f"got {cs.super_cols8.shape[0]}")
 
 
-def _launch(fn_name, cs, ro, rd, t0, t1, sort, watertight, outs):
-    """Sort, rank, launch `fn_name` with the scene operands and `outs`
-    (tensors the kernel fills, in sorted order); returns the permutation."""
+def _operands(cs: ClusterScene, ro, rd, t1, sort: bool):
+    """Check the arguments and prepare what the kernels take besides the
+    scene: (rays (N, 8) in launch order, the sort's permutation or None,
+    order (S_pad,) int32, the supercluster rows in that order)."""
     _check_cuda_args(cs, ro, rd)
     rays, perm = _prepare(cs, ro, rd, t1, sort)
-    order, super_sorted = _sc_order(cs, ro)
-    build.launch(fn_name, ro.device, cs.tri.data_ptr(), cs.child_box.data_ptr(),
-                 super_sorted.data_ptr(), order.data_ptr(), order.shape[0], rays.data_ptr(),
-                 float(t0), ro.shape[0], int(bool(watertight)),
+    return (rays, perm, *_sc_order(cs, ro))
+
+
+def _launch(wrapper, cs: ClusterScene, ops, t0, watertight, outs):
+    """Launch the kernel of `wrapper` (closest_hit or occluded) on operands
+    from _operands, filling `outs` (tensors in launch order), and count the
+    launch."""
+    rays, _, order, super_sorted = ops
+    name = "pr_cluster_closest" if wrapper is closest_hit else "pr_cluster_occluded"
+    build.launch(name, rays.device, cs.tri.data_ptr(), cs.child_box8.data_ptr(),
+                 super_sorted.data_ptr(), order.data_ptr(), order.shape[0],
+                 rays.data_ptr(), float(t0), rays.shape[0], int(bool(watertight)),
                  *[o.data_ptr() for o in outs])
-    return perm
+    wrapper.launches += 1
 
 
 def closest_hit(cs: ClusterScene, ro, rd, t0, t1, sort=False, watertight=False,
@@ -117,8 +141,8 @@ def closest_hit(cs: ClusterScene, ro, rd, t0, t1, sort=False, watertight=False,
 
     sort=True applies the coherence sort (accel/clusters.sort_keys, dead
     t1 = 0 lanes last) before the launch and scatters the results back; it
-    changes which rays share a warp, never the result. Inputs are detached:
-    the hit selection is discrete."""
+    changes which rays run side by side (and share the caches), never the
+    result. Inputs are detached: the hit selection is discrete."""
     ro, rd = ro.detach(), rd.detach()
     t1 = t1.detach() if torch.is_tensor(t1) else t1
     if not build.on_cuda(ro, "closest_hit"):
@@ -128,10 +152,9 @@ def closest_hit(cs: ClusterScene, ro, rd, t0, t1, sort=False, watertight=False,
         n = ro.shape[0]
         t_k = torch.empty(n, dtype=torch.float32, device=ro.device)
         slot = torch.empty(n, dtype=torch.int32, device=ro.device)
-        perm = _launch("pr_cluster_closest", cs, ro, rd, t0, t1, sort, watertight,
-                       (t_k, slot))
-        closest_hit.launches += 1
-        t, slot = _unsort(t_k, perm), _unsort(slot, perm)
+        ops = _operands(cs, ro, rd, t1, sort)
+        _launch(closest_hit, cs, ops, t0, watertight, (t_k, slot))
+        t, slot = _unsort(t_k, ops[1]), _unsort(slot, ops[1])
         hit = slot >= 0
     if exact_t:
         t = exact_t_for_slot(cs, slot, ro, rd, t)
@@ -148,10 +171,9 @@ def occluded(cs: ClusterScene, ro, rd, t0, t1, sort=False, watertight=False):
         occluded.twin_calls += 1
         return occluded_ref(cs, ro, rd, t0, t1, watertight=watertight)
     occ = torch.empty(ro.shape[0], dtype=torch.bool, device=ro.device)
-    perm = _launch("pr_cluster_occluded", cs, ro, rd, t0, t1, sort, watertight,
-                   (occ,))
-    occluded.launches += 1
-    return _unsort(occ, perm)
+    ops = _operands(cs, ro, rd, t1, sort)
+    _launch(occluded, cs, ops, t0, watertight, (occ,))
+    return _unsort(occ, ops[1])
 
 
 def reset_counters() -> None:

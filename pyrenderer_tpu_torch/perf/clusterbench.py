@@ -1,0 +1,513 @@
+"""The cluster-sweep kernels on the GPU at terrain100k: each kernel timed
+alone and with its wrapper's glue, checked ray by ray, and the frame's
+device profile.
+
+    python -m pyrenderer_tpu_torch.perf.clusterbench kernels [--parity] [--out DIR]
+    python -m pyrenderer_tpu_torch.perf.clusterbench compare DIR_A DIR_B
+    python -m pyrenderer_tpu_torch.perf.clusterbench profile [--backend B]
+
+``kernels`` builds terrain100k (scene/procgen.py terrain res=224, 100,364
+triangles) and records the integrator's bounce-1 wavefront and its NEE
+shadow rays (65,536 rays: the first Morton chunk of 512x512, seed 0,
+watertight leaves), then times, for sort off and on, the closest-hit
+kernel on the wavefront and the any-hit kernel on the shadow rays:
+"alone" is one launch of the C entry point on operands prepared
+beforehand, "wrapper" the public closest_hit / occluded with their sort,
+rank and scatter glue, "dead" the kernel alone on the same rays with t1
+= 0 (the cost of launching a warp per ray); all replayed from CUDA graphs
+of REPS calls (perf/kernelbench.graph_ms), in turns. It prints the ptxas
+report of the cluster kernels (when this process built them), how the
+walk's leaves spread over the live rays (walk), and one JSON line. With
+--parity it also runs both kernels, MT and watertight, sort off and on, on
+PARITY_SETS, holds (t, slot) and occlusion against the plain twins, and
+saves the ray sets and every result to DIR for ``compare``.
+
+The kernels are driven only through names an older checkout of the port
+has too (kernels/cluster.py _check_cuda_args, _prepare, _sc_order,
+_unsort; kernels/build.launch; perf/kernelbench.graph_ms), and never through the
+wrappers' launch counts, so this file times and checks an older
+checkout's kernels when that checkout comes first on the path:
+
+    PYTHONPATH=OLD python pyrenderer_tpu_torch/perf/clusterbench.py kernels --parity --out A
+    PYTHONPATH=. python pyrenderer_tpu_torch/perf/clusterbench.py kernels --parity --out B
+    PYTHONPATH=. python pyrenderer_tpu_torch/perf/clusterbench.py compare A B
+
+``compare`` counts, per ray set and configuration, the rays on which the
+two runs' kernels differ and on how many of them each run agrees with the
+twin.
+
+``profile`` runs chunk-samples of the terrain100k frame (512x512, 4
+bounces, reference estimator, the first 2^16-pixel chunk) through backend
+"cluster" or "cluster_binned": the wall time per chunk-sample (host clock,
+median of 3 windows), then one window under torch.profiler: device busy
+time (the union of the kernels' intervals), the idle share against the
+unprofiled wall, device ms by kernel name for the kernels defined in an
+anonymous namespace (the port's, and a few of PyTorch's) and for all the
+others together, and the host's kernel launches and stream syncs.
+
+Runs on a GPU only; every time names the card (nvidia-smi's name and
+power limit).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+import types
+
+import numpy as np
+import torch
+
+T0 = 1e-5
+T_MAX = 99999.9
+N_RAYS = 1 << 16
+REPS = 20
+SAMPLES = 4       # chunk-samples per profiled window
+# the ray sets of phase 6 of chip_smoke.py at terrain100k, the edges of a
+# launch there (one ray, a count that fills no whole block, a dead
+# wavefront), and the card-only test's sets at terrain8k
+# (tests/test_torch_cluster.py test_cluster_kernels_match_twins_on_gpu)
+PARITY_SETS = ("random", "camera", "bounce1", "shadow1", "dead", "per_ray_t1", "ragged",
+               "one", "five", "all_dead", "test_random", "test_one", "test_five",
+               "test_dead")
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+def random_rays(n, seed, dev):
+    """Rays inside the box, as tests/test_pallas.py makes them."""
+    rs = np.random.RandomState(seed)
+    ro = rs.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
+    ro[:, 1] += 1.0
+    rd = rs.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    return torch.as_tensor(ro, device=dev), torch.as_tensor(rd, device=dev)
+
+
+def wavefronts(scene, camera, tables, cfg, px, py, module="cluster_kernels"):
+    """The integrator's real bounce-1 wavefront: the (ro, rd, t1) of the
+    second closest-hit query and of the second shadow query that
+    render_sample makes, recorded on their way to the kernel wrappers of
+    `module` (the integrator's name for kernels/cluster.py, or "kernels"
+    for the whole-table kernels)."""
+    from pyrenderer_tpu_torch.core import integrator
+
+    wrappers = getattr(integrator, module)
+    calls = {"closest_hit": [], "occluded": []}
+
+    def recorder(name):
+        def record(table, ro, rd, t0, t1, **kw):
+            calls[name].append((ro.contiguous(), rd.contiguous(), t1.contiguous()))
+            return getattr(wrappers, name)(table, ro, rd, t0, t1, **kw)
+        return record
+
+    setattr(integrator, module,
+            types.SimpleNamespace(**{name: recorder(name) for name in calls}))
+    try:
+        integrator.render_sample(scene, camera, cfg.replace(max_bounces=2),
+                                 cfg.seed, 0, px, py, tables=tables)
+    finally:
+        setattr(integrator, module, wrappers)
+    return calls["closest_hit"][1], calls["occluded"][1]
+
+
+def walk(cs, ro, rd, t1, t_final=None, watertight=True):
+    """The tests that the cluster kernels' front-to-back walk
+    (csrc/cluster.cu sweep, superclusters in kernels/cluster._sc_order's
+    rank) needs at the least, per ray: for each live ray (t1 > T0) a slab
+    test of each supercluster, of the 16 children of each one it crosses,
+    and a 128-triangle leaf for each child it crosses. Closest hit (t_final
+    given): the walk culls with each ray's final t from the start (t_final:
+    the twin's t on a hit, t1 on a miss), which culls no less than the
+    kernel's running bound. Any hit (t_final None): the walk culls with t1
+    and a ray stops at its first occluder, counting the leaf's lanes up to
+    it. Returns (slab tests (N,), triangle tests (N,), the rays the walk
+    found occluded)."""
+    from pyrenderer_tpu_torch.accel import clusters as cl
+    from pyrenderer_tpu_torch.kernels.cluster import _sc_order
+
+    n = ro.shape[0]
+    t1v = torch.as_tensor(t1, dtype=torch.float32, device=ro.device).expand(n)
+    bound_t = t1v if t_final is None else t_final
+    inv_d = 1.0 / torch.where(rd == 0, 1e-20, rd)
+    going = t1v > T0
+    order, super_sorted = _sc_order(cs, ro)
+    tri = cs.tri.reshape(cs.n_clusters, cl.TRI_ROWS, cl.LANE_TRIS)
+    slabs = torch.zeros(n, dtype=torch.int64, device=ro.device)
+    tests = torch.zeros(n, dtype=torch.int64, device=ro.device)
+    for rank, s in enumerate(order[:cs.n_superclusters].tolist()):
+        slabs += going
+        inside = going & cl._slab(super_sorted[rank, 0:3], super_sorted[rank, 3:6], ro,
+                                  inv_d, T0, bound_t)
+        for j in range(s * cl.GROUP, (s + 1) * cl.GROUP):
+            slabs += inside
+            cross = inside & cl._slab(cs.child_box[j, 0:3], cs.child_box[j, 3:6], ro, inv_d,
+                                      T0, bound_t)
+            if t_final is not None:
+                tests += cross * cl.LANE_TRIS
+                continue
+            idx = cross.nonzero()[:, 0]
+            if idx.numel() == 0:
+                continue
+            occ = cl._leaf(tri[j], ro[idx], rd[idx], T0, t1v[idx], watertight) < cl.MISS_T
+            stop = occ.any(dim=1)
+            tests[idx] += torch.where(stop, occ.int().argmax(dim=1) + 1, cl.LANE_TRIS)
+            going[idx[stop]] = False
+            inside[idx[stop]] = False
+    return slabs, tests, (t1v > T0) & ~going
+
+
+def morton_chunk(res, dev):
+    """(px, py) of the first 2^16 pixels of a res x res frame in Morton order."""
+    from pyrenderer_tpu_torch.core.camera import morton_pixel_order
+
+    perm, _ = morton_pixel_order(res, res)
+    ys, xs = np.mgrid[0:res, 0:res]
+    return (torch.as_tensor(xs.reshape(-1)[perm][:N_RAYS], device=dev),
+            torch.as_tensor(ys.reshape(-1)[perm][:N_RAYS], device=dev))
+
+
+def terrain(res, dev, image=512):
+    """(scene, camera, ClusterScene) of big_scene_data("terrain", res) on `dev`."""
+    from pyrenderer_tpu_torch.accel import clusters as cl
+    from pyrenderer_tpu_torch.scene import procgen, to_device
+    from pyrenderer_tpu_torch.scene.tungsten import build_scene
+
+    host, cam, _ = build_scene(procgen.big_scene_data("terrain", res=res))
+    scene, camera = to_device(host, cam._replace(resolution=(image, image)), dev)
+    return scene, camera, cl.build_clusters(host.vertices, host.faces).to(dev)
+
+
+def bounce1(scene, camera, cs, dev):
+    """The bounce-1 wavefront and its shadow rays at 512x512, watertight."""
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.core.integrator import TraceTables
+
+    cfg = RenderConfig(max_bounces=4, spp=4, seed=0, estimator="reference",
+                       cluster_watertight=True)
+    return wavefronts(scene, camera, TraceTables(scene, cfg, accel=cs), cfg,
+                      *morton_chunk(512, dev))
+
+
+def launch(cs, ro, rd, t1, sort, watertight, closest):
+    """One kernel launch on operands prepared here; returns (fn() that
+    launches it again on the same operands, its outputs in launch order, the
+    permutation or None)."""
+    from pyrenderer_tpu_torch.kernels import build
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+
+    kc._check_cuda_args(cs, ro, rd)
+    rays, perm = kc._prepare(cs, ro, rd, t1, sort)
+    order, super_sorted = kc._sc_order(cs, ro)
+    # the child boxes as the checkout's kernels read them: the compact
+    # (K, 8) copy, or the (K, 128) rows of a checkout without one
+    child_box = getattr(cs, "child_box8", cs.child_box)
+    n = ro.shape[0]
+    if closest:
+        name = "pr_cluster_closest"
+        outs = (torch.empty(n, dtype=torch.float32, device=ro.device),
+                torch.empty(n, dtype=torch.int32, device=ro.device))
+    else:
+        name = "pr_cluster_occluded"
+        outs = (torch.empty(n, dtype=torch.bool, device=ro.device),)
+
+    def fn():
+        build.launch(name, ro.device, cs.tri.data_ptr(), child_box.data_ptr(),
+                     super_sorted.data_ptr(), order.data_ptr(), order.shape[0],
+                     rays.data_ptr(), float(T0), n, int(watertight),
+                     *[o.data_ptr() for o in outs])
+
+    fn()
+    return fn, outs, perm
+
+
+def run_kernels(cs, ro, rd, t1, sort, watertight):
+    """(t (N,) f32, 3e38 on a miss; slot (N,) i32, -1 on a miss; occluded
+    (N,) bool) of both kernels, in the caller's order."""
+    from pyrenderer_tpu_torch.kernels.cluster import _unsort
+
+    _, (t, slot), perm = launch(cs, ro, rd, t1, sort, watertight, True)
+    _, (occ,), perm_o = launch(cs, ro, rd, t1, sort, watertight, False)
+    torch.cuda.synchronize()
+    return _unsort(t, perm), _unsort(slot, perm), _unsort(occ, perm_o)
+
+
+def ptxas_report(log: str):
+    """The ptxas lines (registers, spills) of the cluster kernels in `log`."""
+    out, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and "cluster_" in entry and ("Used" in line or "spill" in line):
+            kind = "closest" if "closest" in entry else "anyhit"
+            leaves = "watertight" if "ILb1E" in entry else "MT"
+            out.append(f"ptxas {kind} {leaves}: {line.strip()}")
+    return out
+
+
+def parity_sets(dev, cs100, scene, camera, b1, s1):
+    """label -> (ClusterScene, ro, rd, t1) for PARITY_SETS."""
+    from pyrenderer_tpu_torch.core.camera import generate_rays
+
+    ro, rd = random_rays(N_RAYS, 0, dev)
+    lanes = torch.arange(N_RAYS, device=dev)
+    cro, crd = generate_rays(camera, *morton_chunk(512, dev), 0, 0)
+    t1_var = torch.as_tensor(np.random.RandomState(1).uniform(0.1, 3.0, N_RAYS),
+                             dtype=torch.float32, device=dev)
+    rro, rrd = random_rays(100, 4, dev)
+    sets = {
+        "random": (cs100, ro, rd, T_MAX),
+        "camera": (cs100, cro.contiguous(), crd.contiguous(), T_MAX),
+        "bounce1": (cs100, *b1),
+        "shadow1": (cs100, *s1),
+        "dead": (cs100, ro, rd, torch.where(lanes % 3 == 0, 0.0, T_MAX).float()),
+        "per_ray_t1": (cs100, ro, rd, t1_var),
+        "ragged": (cs100, rro, rrd, T_MAX),
+        "one": (cs100, ro[:1], rd[:1], T_MAX),
+        "five": (cs100, ro[:5], rd[:5], T_MAX),
+        "all_dead": (cs100, ro[:4096], rd[:4096], torch.zeros(4096, device=dev)),
+    }
+    _, _, cs8 = terrain(64, dev)
+    tro, trd = random_rays(1 << 14, 0, dev)
+    sets.update({
+        "test_random": (cs8, tro, trd,
+                        torch.where(torch.arange(1 << 14, device=dev) % 3 == 0, 0.0, 0.5)),
+        "test_one": (cs8, tro[:1], trd[:1], 1e5),
+        "test_five": (cs8, tro[:5], trd[:5], 1e5),
+        "test_dead": (cs8, tro[:256], trd[:256], torch.zeros(256, device=dev)),
+    })
+    assert tuple(sets) == PARITY_SETS
+    return sets
+
+
+def check_parity(sets, out_dir):
+    """Both kernels against the twins on every set, MT and watertight, sort
+    off and on; prints one line per case and saves rays and results."""
+    from pyrenderer_tpu_torch.accel import clusters as cl
+
+    saved = {}
+    for label, (cs, ro, rd, t1) in sets.items():
+        t1v = torch.as_tensor(t1, dtype=torch.float32, device=ro.device).expand(ro.shape[0])
+        saved[label] = {"rays": (ro.cpu(), rd.cpu(), t1v.cpu())}
+        for wt in (False, True):
+            hit_r, t_r, slot_r = cl.closest_hit_ref(cs, ro, rd, T0, t1, watertight=wt)
+            saved[label][(wt, "twin")] = (t_r.cpu(), slot_r.cpu())
+            for sort in (False, True):
+                t, slot, occ = run_kernels(cs, ro, rd, t1, sort, wt)
+                t = torch.where(slot >= 0, t, 0.0)
+                same = (t == t_r) & (slot == slot_r)
+                print(f"parity {label}, {'watertight' if wt else 'MT'}, sort "
+                      f"{'on' if sort else 'off'}: n={ro.shape[0]} hits={int(hit_r.sum())} "
+                      f"(t, slot) equal to the twin on {int(same.sum())}, occlusion "
+                      f"{'equal' if torch.equal(occ, hit_r) else 'DIFFERS'} "
+                      f"({int((occ != hit_r).sum())} rays)", flush=True)
+                saved[label][(wt, sort)] = (t.cpu(), slot.cpu(), occ.cpu())
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(saved, os.path.join(out_dir, "parity.pt"))
+
+
+def walk_spread(cs, b1, s1):
+    """Prints how the walk's leaf work spreads over the live rays of the
+    bounce-1 wavefront (closest hit, culled by the twin's final t) and its
+    shadow rays (any hit, up to the first occluder)."""
+    from pyrenderer_tpu_torch.accel import clusters as cl
+
+    hit, t, _ = cl.closest_hit_ref(cs, b1[0], b1[1], T0, b1[2], watertight=True)
+    for label, (ro, rd, t1), t_final in (("wavefront", b1, torch.where(hit, t, b1[2])),
+                                         ("shadow rays", s1, None)):
+        slabs, tests, _ = walk(cs, ro, rd, t1, t_final)
+        live = t1 > T0
+        leaves = tests[live].double() / cl.LANE_TRIS
+        q = torch.quantile(leaves, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64,
+                                                device=leaves.device)).tolist()
+        print(f"walk of the bounce-1 {label}, per live ray ({int(live.sum())}): leaves mean "
+              f"{float(leaves.mean()):.3f}, p50 {q[0]:.3f}, p90 {q[1]:.3f}, p99 {q[2]:.3f}, max "
+              f"{float(leaves.max()):.3f}; slab tests mean {float(slabs[live].double().mean()):.1f},"
+              f" max {int(slabs.max())}", flush=True)
+
+
+def cmd_kernels(args) -> int:
+    import pyrenderer_tpu_torch
+    from pyrenderer_tpu_torch.kernels import build
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+    from pyrenderer_tpu_torch.perf.kernelbench import graph_ms
+
+    dev = torch.device("cuda:0")
+    card = card_line()
+    package = os.path.dirname(os.path.abspath(pyrenderer_tpu_torch.__file__))
+    print(f"package {package}; {card}", flush=True)
+    t = time.perf_counter()
+    build.library()
+    print(f"kernels built or loaded in {time.perf_counter() - t:.2f} s", flush=True)
+    for line in ptxas_report(build.build_log()):
+        print(line)
+    scene, camera, cs = terrain(224, dev)
+    b1, s1 = bounce1(scene, camera, cs, dev)
+    print(f"bounce-1 wavefront: {int((b1[2] > 0).sum())} live rays of {N_RAYS}; shadow rays: "
+          f"{int((s1[2] > 0).sum())} live", flush=True)
+
+    cases = {}
+    for query, (ro, rd, t1) in (("closest_hit", b1), ("occluded", s1)):
+        closest = query == "closest_hit"
+        for sort in (False, True):
+            alone, _, _ = launch(cs, ro, rd, t1, sort, True, closest)
+            if closest:
+                def wrapper(ro=ro, rd=rd, t1=t1, sort=sort):
+                    kc.closest_hit(cs, ro, rd, T0, t1, sort=sort, watertight=True,
+                                   exact_t=False)
+            else:
+                def wrapper(ro=ro, rd=rd, t1=t1, sort=sort):
+                    kc.occluded(cs, ro, rd, T0, t1, sort=sort, watertight=True)
+            tag = "sorted" if sort else "unsorted"
+            cases[(query, tag, "alone")] = alone
+            cases[(query, tag, "wrapper")] = wrapper
+        # the same rays all dead: what the launch of N warps costs by itself
+        cases[(query, "dead", "alone")] = launch(cs, ro, rd, torch.zeros_like(t1), False,
+                                                 True, closest)[0]
+    times = {key: [] for key in cases}
+    for key in list(cases) + list(reversed(cases)):
+        times[key].append(graph_ms(cases[key], REPS))
+    result = {}
+    for (query, tag, kind), ms in times.items():
+        value = float(np.median(ms))
+        result.setdefault(query, {}).setdefault(tag, {})[f"{kind}_ms"] = value
+        print(f"{query} {tag} {kind}: {value:.4f} ms (median of {len(ms)} graph replays of "
+              f"{REPS} calls; bounce-1 {'wavefront' if query == 'closest_hit' else 'shadow rays'}"
+              f", terrain100k, watertight; {card})", flush=True)
+    walk_spread(cs, b1, s1)
+    if args.parity:
+        check_parity(parity_sets(dev, cs, scene, camera, b1, s1), args.out)
+    print(json.dumps({"package": package, "card": card, "device": torch.cuda.get_device_name(0),
+                      "kernels": result}))
+    return 0
+
+
+def cmd_compare(args) -> int:
+    a = torch.load(os.path.join(args.dirs[0], "parity.pt"))
+    b = torch.load(os.path.join(args.dirs[1], "parity.pt"))
+    worst = 0
+    for label in a:
+        ra, rb = a[label]["rays"], b[label]["rays"]
+        if not all(torch.equal(x, y) for x, y in zip(ra, rb)):
+            print(f"compare {label}: the two runs traced different rays")
+            worst = max(worst, 1)
+            continue
+        for wt in (False, True):
+            t_r, slot_r = a[label][(wt, "twin")]
+            for sort in (False, True):
+                (ta, sa, oa), (tb, sb, ob) = a[label][(wt, sort)], b[label][(wt, sort)]
+                diff = (ta != tb) | (sa != sb)
+                twin_a = int(((ta == t_r) & (sa == slot_r))[diff].sum())
+                twin_b = int(((tb == t_r) & (sb == slot_r))[diff].sum())
+                print(f"compare {label}, {'watertight' if wt else 'MT'}, sort "
+                      f"{'on' if sort else 'off'}: (t, slot) differ on {int(diff.sum())} of "
+                      f"{ta.shape[0]} rays (the twin agrees with A on {twin_a}, with B on "
+                      f"{twin_b}); occlusion differs on {int((oa != ob).sum())}")
+                worst = max(worst, int(bool(diff.any() or (oa != ob).any())))
+    print(json.dumps({"compare": args.dirs, "identical": worst == 0}))
+    return 0
+
+
+def cmd_profile(args) -> int:
+    from torch.autograd import DeviceType
+
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.core.integrator import TraceTables, render_sample
+
+    dev = torch.device("cuda:0")
+    card = card_line()
+    scene, camera, cs = terrain(224, dev)
+    cfg = RenderConfig(max_bounces=4, spp=4, seed=0, estimator="reference")
+    tables = TraceTables(scene, cfg, args.backend, accel=cs)
+    px, py = morton_chunk(512, dev)
+
+    def window(first):
+        for s in range(first, first + SAMPLES):
+            render_sample(scene, camera, cfg, cfg.seed, s, px, py, tables=tables,
+                          with_stats=True)
+        torch.cuda.synchronize()
+
+    window(0)
+    walls = []
+    for k in range(3):
+        t = time.perf_counter()
+        window(k * SAMPLES)
+        walls.append((time.perf_counter() - t) * 1e3 / SAMPLES)
+    wall = float(np.median(walls))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        window(0)
+    events = prof.events()
+    device = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    per_name = {}
+    for start, stop, name in device:
+        per_name[name] = per_name.get(name, 0.0) + (stop - start)
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    host = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith(("cudaLaunchKernel",
+                                                                  "cudaStreamSynchronize",
+                                                                  "cudaMemcpyAsync")):
+            host[e.name] = host.get(e.name, 0) + 1
+    busy_ms = busy / 1e3 / SAMPLES
+    # kernels in an anonymous namespace (the port's all are) by name, the
+    # rest summed
+    ours = {}
+    for name, us in per_name.items():
+        m = re.search(r"\(anonymous namespace\)::(\w+(<\w+>)?)", name)
+        key = m.group(1) if m else "other kernels"
+        ours[key] = ours.get(key, 0.0) + us
+    report = {
+        "backend": tables.backend, "card": card,
+        "wall_ms_per_chunk_sample": wall, "wall_ms_windows": walls,
+        "device_busy_ms_per_chunk_sample": busy_ms if device else None,
+        "idle_share": 1.0 - busy_ms / wall if device else None,
+        "device_ms_per_chunk_sample": {k: us / 1e3 / SAMPLES for k, us in
+                                       sorted(ours.items(), key=lambda kv: -kv[1])},
+        "host_calls_per_chunk_sample": {k: v / SAMPLES for k, v in host.items()},
+        "device_events": len(device),
+    }
+    print(f"profile terrain100k {tables.backend} ({card}): wall {wall:.3f} ms per "
+          f"chunk-sample (windows {', '.join(f'{w:.3f}' for w in walls)}), device busy "
+          + (f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / wall:.4f}" if device
+             else "not measured (the profiler saw no device event)"), flush=True)
+    print(json.dumps(report))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    k = sub.add_parser("kernels")
+    k.add_argument("--parity", action="store_true")
+    k.add_argument("--out", default=os.path.join("build", "clusterbench"))
+    c = sub.add_parser("compare")
+    c.add_argument("dirs", nargs=2)
+    p = sub.add_parser("profile")
+    p.add_argument("--backend", default="cluster", choices=("cluster", "cluster_binned"))
+    args = parser.parse_args(argv)
+    if args.cmd != "compare" and not torch.cuda.is_available():
+        print("no CUDA device: clusterbench runs on a GPU", file=sys.stderr)
+        return 2
+    return {"kernels": cmd_kernels, "compare": cmd_compare, "profile": cmd_profile}[args.cmd](args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,6 +3,8 @@ build, the cluster-sweep kernels' plain twins against the JAX package (its
 twin and its Pallas kernels in interpret mode), routing, and the "cluster"
 backend end to end against the JAX integrator and the NumPy oracle."""
 
+import ctypes
+import dataclasses
 import os
 import re
 import sys
@@ -27,6 +29,7 @@ from pyrenderer_tpu_torch.accel import clusters as cl
 from pyrenderer_tpu_torch.config import RenderConfig
 from pyrenderer_tpu_torch.core import integrator as integ
 from pyrenderer_tpu_torch.kernels import binned as kb
+from pyrenderer_tpu_torch.kernels import build
 from pyrenderer_tpu_torch.kernels import cluster as kc
 from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
 from pyrenderer_tpu_torch.scene import procgen, to_device
@@ -121,6 +124,28 @@ def test_cluster_scene_matches_jax(which, terrain, cornell_path):
     assert cs.bin_box.shape[0] % 32 == 0 and cs.bin_box.shape[0] >= k // cl.BIN
     assert np.isnan(cs.bin_box[kb_real:, :6].numpy()).all()
     assert np.isfinite(cs.bin_box[:kb_real, :6].numpy()).all()
+
+
+@pytest.mark.parametrize("which", ["terrain64", "quad"])
+def test_compact_box_copies(which, terrain):
+    """The kernels' compact box tables equal the first BOX_ROW lanes of
+    child_box and super_cols, NaN padding rows included, are contiguous,
+    and ClusterScene.to carries them."""
+    verts, faces = (terrain[0].vertices, terrain[0].faces) if which == "terrain64" else QUAD
+    cs = cl.build_clusters(verts, faces)
+    for small, full in ((cs.child_box8, cs.child_box), (cs.super_cols8, cs.super_cols)):
+        assert small.shape == (full.shape[0], cl.BOX_ROW) and small.is_contiguous()
+        assert small.dtype == torch.float32
+        torch.testing.assert_close(small, full[:, :cl.BOX_ROW], rtol=0, atol=0, equal_nan=True)
+        assert not small[:, 6:].any()
+    k_real = -(-faces.shape[0] // cl.LANE_TRIS)
+    assert torch.isnan(cs.child_box8[k_real:, :6]).all()
+    assert torch.isnan(cs.super_cols8[cs.n_superclusters:, :6]).all()
+    assert torch.isfinite(cs.super_cols8[:cs.n_superclusters, :6]).all()
+    moved = cs.to(torch.device("cpu"))
+    assert isinstance(moved, cl.ClusterScene) and moved is not cs
+    torch.testing.assert_close(moved.child_box8, cs.child_box8, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(moved.super_cols8, cs.super_cols8, rtol=0, atol=0, equal_nan=True)
 
 
 def test_slab_rejects_nan_boxes(clusters):
@@ -240,6 +265,110 @@ def test_cpu_wrappers_use_twins_and_count(clusters):
     kc.reset_counters()
 
 
+def _kernel_stand_in(cs, prepared, names):
+    """A stand-in for build.launch on the cluster kernels' route: checks the
+    pointers and sizes against the operands _operands prepared (the last of
+    `prepared`) and writes what the kernel computes -- the twin on those
+    rays, in launch order, t = 3e38 on a miss -- through the output
+    pointers."""
+    def launch(name, device, tri, child_box, super_sorted, order, s_pad, rays, t0, n,
+               watertight, *outs):
+        r, _, order_t, sup_t = prepared[-1]
+        assert (tri, child_box) == (cs.tri.data_ptr(), cs.child_box8.data_ptr())
+        assert (super_sorted, order, rays) == (sup_t.data_ptr(), order_t.data_ptr(),
+                                               r.data_ptr())
+        assert s_pad == cs.super_cols8.shape[0] == order_t.shape[0] and n == r.shape[0]
+        hit, t, slot = cl.closest_hit_ref(cs, r[:, 0:3], r[:, 3:6], t0, r[:, 6],
+                                          watertight=bool(watertight))
+        results = (torch.where(hit, t, cl.MISS_T), slot) if name == "pr_cluster_closest" \
+            else (hit,)
+        assert len(outs) == len(results)
+        for ptr, x in zip(outs, results):
+            ctypes.memmove(ptr, x.contiguous().data_ptr(), x.numel() * x.element_size())
+        names.append(name)
+    return launch
+
+
+@pytest.mark.parametrize("sort", [False, True])
+def test_kernel_route_prepares_operands_then_launches_once(clusters, monkeypatch, sort):
+    """The wrappers' CUDA route in two steps, run here with a stand-in for
+    the kernel launch: _operands (checks, the sort, the rank) and _launch
+    (one launch on those operands, counted). The results come back in the
+    caller's order, equal to the twins'; the sort puts dead lanes last."""
+    cs, _ = clusters
+    ro, rd = (torch.from_numpy(a) for a in _random_rays(300, 7))
+    t1 = torch.from_numpy(np.where(np.arange(300) % 3 == 0, 0.0, T1).astype(np.float32))
+    prepared, names = [], []
+    operands = kc._operands
+    monkeypatch.setattr(kc, "_operands", lambda *a: prepared.append(operands(*a)) or prepared[-1])
+    monkeypatch.setattr(build, "on_cuda", lambda x, name: True)
+    monkeypatch.setattr(build, "launch", _kernel_stand_in(cs, prepared, names))
+    kc.reset_counters()
+    h, t, face = kc.closest_hit(cs, ro, rd, T0, t1, sort=sort, exact_t=False)
+    occ = kc.occluded(cs, ro, rd, T0, t1, sort=sort)
+    assert names == ["pr_cluster_closest", "pr_cluster_occluded"]
+    assert (kc.closest_hit.launches, kc.occluded.launches) == (1, 1)
+    assert kc.closest_hit.twin_calls == kc.occluded.twin_calls == 0
+    kc.reset_counters()
+    h_r, t_r, slot_r = cl.closest_hit_ref(cs, ro, rd, T0, t1)
+    assert h_r.any() and torch.equal(h, h_r) and torch.equal(t, t_r)
+    assert torch.equal(face, cl.slot_to_face(cs, slot_r).to(torch.int32))
+    assert torch.equal(occ, h_r)
+    rays, perm, order, super_sorted = prepared[0]
+    order_r, super_r = kc._sc_order(cs, ro)
+    assert torch.equal(order, order_r)
+    torch.testing.assert_close(super_sorted, super_r, rtol=0, atol=0, equal_nan=True)
+    assert rays.shape == (300, 8) and rays.dtype == torch.float32
+    if sort:
+        assert torch.equal(rays, kc._prepare(cs, ro, rd, t1, False)[0][perm])
+        live = rays[:, 6] > 0
+        assert live[:200].all() and not live[200:].any()
+    else:
+        assert perm is None and torch.equal(rays[:, 6], t1)
+
+
+def test_operands_check_the_warp_padding(clusters):
+    """S_pad must be a multiple of the warp (the kernels ballot 32
+    supercluster rows at once); the build pads it so."""
+    cs, _ = clusters
+    ro, rd = (torch.from_numpy(a) for a in _random_rays(8, 3))
+    assert cs.super_cols8.shape[0] % kc.WARP == 0
+    rays, perm, order, super_sorted = kc._operands(cs, ro, rd, T1, False)
+    assert perm is None and order.shape == (cs.super_cols8.shape[0],)
+    assert super_sorted.shape == (cs.super_cols8.shape[0], cl.BOX_ROW)
+    short = dataclasses.replace(cs, super_cols8=cs.super_cols8[:-1])
+    with pytest.raises(ValueError, match="multiple of 32"):
+        kc._operands(short, ro, rd, T1, False)
+    wide = dataclasses.replace(cs, child_box8=cs.child_box)
+    with pytest.raises(ValueError, match="8 columns"):
+        kc._operands(wide, ro, rd, T1, False)
+
+
+def test_walk_counts_the_front_to_back_walk(clusters):
+    """perf/clusterbench.walk, the per-ray work the kernels' walk needs at
+    the least (the bound of chip_smoke.py phase 9): the any-hit walk finds
+    the twin's occlusion, dead rays cost nothing, every live ray slab-tests
+    each supercluster once, and a closest-hit ray culled by its final t
+    runs whole leaves, at least one where it hits; an any-hit ray stops at
+    its first occluder."""
+    from pyrenderer_tpu_torch.perf import clusterbench
+
+    cs, _ = clusters
+    ro, rd = (torch.from_numpy(a) for a in _random_rays(256, 13))
+    t1 = torch.from_numpy(np.where(np.arange(256) % 4 == 0, 0.0, T1).astype(np.float32))
+    live = t1 > T0
+    slabs, tests, occ = clusterbench.walk(cs, ro, rd, t1, watertight=False)
+    assert torch.equal(occ, cl.occluded_ref(cs, ro, rd, T0, t1))
+    assert not (slabs[~live].any() or tests[~live].any())
+    assert occ.any() and bool((slabs[live & ~occ] >= cs.n_superclusters).all())
+    assert bool((tests[occ] >= 1).all()) and bool((tests <= 128 * cs.n_clusters).all())
+    hit, t, _ = cl.closest_hit_ref(cs, ro, rd, T0, t1)
+    slabs_c, tests_c, _ = clusterbench.walk(cs, ro, rd, t1, torch.where(hit, t, t1))
+    assert bool((slabs_c[live] >= cs.n_superclusters).all()) and not slabs_c[~live].any()
+    assert bool((tests_c % cl.LANE_TRIS == 0).all()) and bool((tests_c[hit] >= 128).all())
+    assert not tests_c[~live].any()
+
+
 def test_kernel_source_matches_twin_constants():
     """The constants written into csrc/leaf.cuh (shared by the sweep and the
     binned kernels) and csrc/binned.cu are the twins'."""
@@ -261,7 +390,13 @@ def test_kernel_source_matches_twin_constants():
     assert int(const("kBin")) == cl.BIN and cl.BIN_TRIS == cl.BIN * cl.LANE_TRIS
     assert int(const("kThreads")) == kb._THREADS
     with open(os.path.join(csrc, "cluster.cu")) as fh:
-        assert '#include "leaf.cuh"' in fh.read()
+        cluster_src = fh.read()
+    assert '#include "leaf.cuh"' in cluster_src
+    # the warp's ballot over supercluster rows: S_pad is a multiple of it
+    warp = int(re.search(r"constexpr int kWarp = (\d+);", cluster_src).group(1))
+    assert warp == kc.WARP and cl.LANE_TRIS % warp == 0
+    # the compact box rows the kernels read
+    assert int(re.search(r"constexpr int kBoxRow = (\d+);", cluster_src).group(1)) == cl.BOX_ROW
 
 
 def test_routing_and_auto_policies(terrain):
@@ -411,23 +546,35 @@ def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
 @pytest.mark.cuda
 def test_cluster_kernels_match_twins_on_gpu(clusters):
     """On a CUDA device: both cluster kernels against their twins, MT and
-    watertight, sort off and on (run on the card with
-    `python -m pytest tests/test_torch_cluster.py -m cuda`)."""
+    watertight, sort off and on, on 2^14 random rays (a third dead, t1 =
+    0.5 elsewhere), one ray, five rays (a block holds four) and a dead
+    wavefront: the closest hit's t and slot equal to the twin's, its face
+    too, and the occlusion equal to the twin's hit mask (run on the card
+    with `python -m pytest tests/test_torch_cluster.py -m cuda`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     cs = clusters[0].to(dev)
     ro, rd = (torch.from_numpy(a).to(dev) for a in _random_rays(1 << 14, 0))
     t1 = torch.where(torch.arange(1 << 14, device=dev) % 3 == 0, 0.0, 0.5)
-    for watertight in (False, True):
-        h_r, t_r, slot_r = cl.closest_hit_ref(cs, ro, rd, T0, t1, watertight=watertight)
-        occ_r = cl.occluded_ref(cs, ro, rd, T0, t1, watertight=watertight)
-        for sort in (False, True):
-            h, t, face = kc.closest_hit(cs, ro, rd, T0, t1, sort=sort,
-                                        watertight=watertight, exact_t=False)
-            assert torch.equal(h, h_r)
-            same = (face == cl.slot_to_face(cs, slot_r)) & h
-            assert int(same.sum()) >= 0.999 * int(h.sum())
-            torch.testing.assert_close(t[same], t_r[same], rtol=1e-5, atol=0.0)
-            assert torch.equal(kc.occluded(cs, ro, rd, T0, t1, sort=sort,
-                                           watertight=watertight), occ_r)
+    sets = {"random": (ro, rd, t1), "one": (ro[:1], rd[:1], T1),
+            "five": (ro[:5], rd[:5], T1),
+            "dead": (ro[:256], rd[:256], torch.zeros(256, device=dev))}
+    for label, (ro, rd, t1) in sets.items():
+        for watertight in (False, True):
+            h_r, t_r, slot_r = cl.closest_hit_ref(cs, ro, rd, T0, t1, watertight=watertight)
+            occ_r = cl.occluded_ref(cs, ro, rd, T0, t1, watertight=watertight)
+            for sort in (False, True):
+                h, t, face = kc.closest_hit(cs, ro, rd, T0, t1, sort=sort,
+                                            watertight=watertight, exact_t=False)
+                assert torch.equal(h, h_r) and torch.equal(t, t_r), (label, watertight, sort)
+                assert torch.equal(face, cl.slot_to_face(cs, slot_r).to(torch.int32))
+                ops = kc._operands(cs, ro, rd, t1, sort)
+                t_k = torch.empty(ro.shape[0], device=dev)
+                slot = torch.empty(ro.shape[0], dtype=torch.int32, device=dev)
+                kc._launch(kc.closest_hit, cs, ops, T0, watertight, (t_k, slot))
+                assert torch.equal(kc._unsort(slot, ops[1]), slot_r), (label, watertight, sort)
+                assert torch.equal(kc.occluded(cs, ro, rd, T0, t1, sort=sort,
+                                               watertight=watertight), occ_r)
+    assert label == "dead" and not h_r.any()
+    kc.reset_counters()
