@@ -91,9 +91,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    no twin call); then the microbenchmark harness (``perf/kernelbench.py``,
    all seven benchmarks) in this process, with exactly 1 + 2 x 20 launches
    of each probe per parameter (graph_ms counts replays) and no twin call.
+   One more bench row, terrain100k with BENCH_ROUNDS=2, holds the
+   suspend/resume launches: two closest-hit launches per query, one of
+   each pass.
+16. The closest-hit kernel's resume mode (suspend/resume rounds) against
+   its twin accel/clusters.closest_hit_resume_ref on phase 6's ray sets,
+   budgets 1, 2 and 8, MT and watertight, sort off and on: pass 1's t,
+   slot and done bit for bit (some rays suspended at budget 1), the resume
+   pass after budget 1 bit for bit, and closest_hit with rounds=2 equal to
+   the one-pass kernel's t and face on every ray.
+17. The slice's path: phase 7's frame with cluster_rounds=2 and
+   cluster_budget=8, bit-identical to phase 7's HDR, with exactly 128
+   closest-hit launches (64 of each pass) and 64 any-hit launches; then a
+   rounds=1 frame, so that both frames' Mrays/s come from this call.
+18. Timings of the resume mode alone (kernels/cluster.py _operands and
+   _launch) on the bounce-1 wavefront, sorted: pass 1 at budget 8 and the
+   resume pass on pass 1's compacted rays, beside the twin; their bounds
+   from perf/clusterbench.walk (pass 1 stopping after 8 superclusters, the
+   resume pass over the suspended rays).
+19. The chunked sweep: terrain330k (329,684 triangles, 3 chunks of at most
+   CHUNK_MAX_TRIS) through "cluster_chunked" and the monolithic "cluster":
+   equal hit masks and occlusion on 65,536 random rays, faces equal except
+   exact ties; the 512x512 2-spp frames (3 launches of each kernel per
+   query against 1), > 99.9% of pixels close with a median |diff| of 0,
+   and their Mrays/s.
+20. The BVH (plain PyTorch, no kernel): the native SAH builder must load on
+   this machine; terrain8k 32x32 2 spp through backend "bvh" on the card
+   and on the CPU (> 95% close, median |diff| < 1e-5), and its Mrays/s.
+21. The wavefront sort (PYRENDERER_WF_SORT=1): the terrain100k frame with
+   both estimators, each within rtol 1e-5 of the same frame with the
+   per-query sort, with the launches of phase 7, and all four Mrays/s.
 
-Every main-path run above (the frames of phases 3, 7, 11 and 14, the CLI
-runs, the bench rows and the harness) is a counting window: every
+Every main-path run above (the frames of phases 3, 7, 11, 14 and 17-21,
+the CLI runs, the bench rows and the harness) is a counting window: every
 wrapper's counts are zeroed just before it and read just after. The line
 before the last is a JSON object with one entry per kernel: its launches
 summed over those windows, its largest difference from the twin, its time
@@ -177,6 +207,12 @@ KERNELS = {
                             "pyrenderer_tpu/kernels/pallas_cluster.py:449"),
     "cluster_occluded": ("pyrenderer_tpu_torch/csrc/cluster.cu",
                          "pyrenderer_tpu/kernels/pallas_cluster.py:577"),
+    # the closest-hit kernel's resume mode (resume=True there): pass 1 of
+    # suspend/resume rounds, with a budget, and the passes that resume
+    "cluster_closest_suspend": ("pyrenderer_tpu_torch/csrc/cluster.cu",
+                                "pyrenderer_tpu/kernels/pallas_cluster.py:449"),
+    "cluster_closest_resume": ("pyrenderer_tpu_torch/csrc/cluster.cu",
+                               "pyrenderer_tpu/kernels/pallas_cluster.py:449"),
     "binned_prepass": ("pyrenderer_tpu_torch/csrc/binned.cu",
                        "pyrenderer_tpu/kernels/pallas_binned.py:167"),
     "binned_peel": ("pyrenderer_tpu_torch/csrc/binned.cu",
@@ -426,7 +462,9 @@ def main() -> int:
     probes = probe_phases(dev, card)
     pbrt_phases(dev, card, rays / secs / 1e6)
     entry_point_phases(dev, card)
-    for entries in (large, binned, probes):
+    rounds = resume_phases(dev, card, ctx)
+    accel_phases(dev, card, ctx)
+    for entries in (large, binned, probes, rounds):
         max_abs_err.update(entries["max_abs_err"])
         ms.update(entries["ms"])
         plain_ms.update(entries["plain_ms"])
@@ -580,8 +618,9 @@ def large_scene_phases(dev, card):
     for wt in (False, True):
         cfg8 = RenderConfig(max_bounces=4, spp=2, seed=3, estimator="reference",
                             cluster_watertight=wt)
-        img_gpu = render_image(s_gpu, c_gpu, cfg8).cpu().numpy()
-        img_cpu = render_image(s_cpu, c_cpu, cfg8).numpy()
+        # "cluster" on both devices: CPU "auto" would take the BVH
+        img_gpu = render_image(s_gpu, c_gpu, cfg8, backend="cluster").cpu().numpy()
+        img_cpu = render_image(s_cpu, c_cpu, cfg8, backend="cluster").numpy()
         close = float(np.isclose(img_gpu, img_cpu, rtol=1e-3, atol=1e-4).mean())
         med = float(np.median(np.abs(img_gpu - img_cpu)))
         print(f"terrain8k 32x32, {'watertight' if wt else 'MT'} leaves: close fraction "
@@ -1005,11 +1044,277 @@ def pbrt_phases(dev, card, mrays_reference):
     check(abs(mean - ref) <= MEAN_TOL, "pbrt mean radiance off")
 
 
-WHOLE_TABLE = ("closest_hit", "occluded")
-CLUSTER = ("cluster_closest_hit", "cluster_occluded")
-# (scene, estimator, the kernels of its queries)
-BENCH_ROWS = (("cornell", "reference", WHOLE_TABLE), ("cornell", "pbrt", WHOLE_TABLE),
-              ("spheres", "pbrt", WHOLE_TABLE), ("terrain100k", "reference", CLUSTER))
+def resume_phases(dev, card, ctx):
+    """Phases 16-18 (the closest-hit kernel's resume mode and the rounds
+    frame at terrain100k); returns the kernel-line entries of its two
+    passes."""
+    from pyrenderer_tpu_torch.accel import clusters as cl
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+    from pyrenderer_tpu_torch.perf.clusterbench import walk
+    from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
+
+    cs, refs = ctx["cs"], ctx["refs"]
+    phase("16 resume mode against its twin on the card (terrain100k, phase 6's ray sets)")
+    err = {"cluster_closest_suspend": 0.0, "cluster_closest_resume": 0.0}
+    suspended = 0
+    for label, ref in refs.items():
+        ro, rd, t1 = ref["rays"]
+        n = ro.shape[0]
+        for wt in (False, True):
+            tag = f"{label}, {'watertight' if wt else 'MT'}"
+            h0, t_0, f0 = kc.closest_hit(cs, ro, rd, T0, t1, watertight=wt, exact_t=False)
+            ops = {sort: kc._operands(cs, ro, rd, t1, sort) for sort in (False, True)}
+            rays, _, order, super_sorted = ops[False]
+            for budget in (1, 2, 8):
+                # the twin walks each ray alone, so the unsorted launch
+                # order (the caller's) serves both launches
+                t_r, slot_r, done_r = cl.closest_hit_resume_ref(
+                    cs, rays, order, super_sorted, torch.full((n,), cl.MISS_T, device=dev),
+                    torch.full((n,), -1, dtype=torch.int32, device=dev), T0, budget, wt)
+                for sort in (False, True):
+                    perm = ops[sort][1]
+                    t, slot, done = (kc._unsort(x, perm)
+                                     for x in kc.suspend_pass(cs, ops[sort], T0, budget, wt))
+                    torch.cuda.synchronize()
+                    check(torch.equal(t, t_r) and torch.equal(slot, slot_r)
+                          and torch.equal(done, done_r),
+                          f"{tag}, budget {budget}, sort {sort}: pass 1 differs from the twin")
+                    hit = slot_r >= 0
+                    if hit.any():
+                        err["cluster_closest_suspend"] = max(
+                            err["cluster_closest_suspend"], float((t - t_r)[hit].abs().max()))
+                    h, tt, f = kc.closest_hit(cs, ro, rd, T0, t1, sort=sort, watertight=wt,
+                                              exact_t=False, rounds=2, budget=budget)
+                    check(torch.equal(h, h0) and torch.equal(tt, t_0) and torch.equal(f, f0),
+                          f"{tag}, budget {budget}, sort {sort}: rounds=2 differs from one pass")
+                n_susp = int((done_r == 0).sum())
+                if budget == 1:
+                    suspended += n_susp
+                    # the resume pass, as _rounds runs it, against the twin
+                    _, ops_b, t_in, slot_in = kc.resume_operands(
+                        ops[True], *kc.suspend_pass(cs, ops[True], T0, budget, wt))
+                    out = kc.resume_pass(cs, ops_b, t_in, slot_in, T0, wt)
+                    want = cl.closest_hit_resume_ref(cs, ops_b[0], order, super_sorted, t_in,
+                                                     slot_in, T0, 0, wt)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, b) for a, b in zip(out, want)),
+                          f"{tag}: the resume pass differs from the twin")
+                    hit = want[1] >= 0
+                    if hit.any():
+                        err["cluster_closest_resume"] = max(
+                            err["cluster_closest_resume"],
+                            float((out[0] - want[0])[hit].abs().max()))
+                print(f"{tag}, budget {budget}: pass 1 (t, slot, done) equal to the twin on "
+                      f"all {n} rays, sort off and on, {n_susp} suspended; rounds=2 equal to "
+                      f"one pass" + (", resume pass equal to the twin" if budget == 1 else ""),
+                      flush=True)
+    print(f"rays suspended at budget 1 over all sets: {suspended}", flush=True)
+    check(suspended > 0, "no ray was suspended at budget 1: the phase proves nothing")
+
+    phase("17 the slice's path: terrain100k frame with cluster_rounds=2, cluster_budget=8")
+    cfg2 = ctx["cfg"].replace(cluster_rounds=2, cluster_budget=8)
+    frames = {}
+    for rounds, c, expect in (
+            (2, cfg2, {"cluster_closest_hit": 128, "cluster_closest_suspend": 64,
+                       "cluster_closest_resume": 64, "cluster_occluded": 64}),
+            (1, ctx["cfg"], {"cluster_closest_hit": 64, "cluster_occluded": 64})):
+        renderer = ProgressiveRenderer(ctx["scene"], ctx["camera"], c, chunk=1 << 16, accel=cs)
+        check(renderer.backend == "cluster" and renderer.tables.cluster_sort
+              and renderer.tables.cluster_watertight, f"rounds {rounds}: not the sorted sweep")
+        film, _ = counted(lambda r=renderer: r.run(quiet=True),
+                          f"terrain100k cluster frame, rounds={rounds}", expect)
+        check(np.array_equal(film.hdr, ctx["hdr_cluster"]),
+              f"rounds {rounds}: the frame differs from phase 7's")
+        frames[rounds] = renderer.rays_traced / renderer.render_seconds / 1e6
+    print(f"rounds=2 and rounds=1 frames bit-identical to phase 7's; Mrays/s rounds=2 "
+          f"{frames[2]:.3f}, rounds=1 {frames[1]:.3f} (phase 7: {ctx['mrays_cluster']:.3f}; "
+          f"terrain100k, 512x512, 4 spp, 4 bounces, watertight, {card})", flush=True)
+
+    phase(f"18 resume-mode timings on {card}")
+    b_ro, b_rd, b_t1 = refs["bounce-1 wavefront"]["rays"]
+    hit_f, t_f, _ = refs["bounce-1 wavefront"][True]
+    n = b_ro.shape[0]
+    ops = kc._operands(cs, b_ro, b_rd, b_t1, True)     # sorted, as the frame runs it
+    rays, perm, order, super_sorted = ops
+    miss_t = torch.full((n,), cl.MISS_T, device=dev)
+    miss_s = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    pass1 = kc.suspend_pass(cs, ops, T0, 8, True)
+    done_s = pass1[2]
+    _, ops_b, t_in, slot_in = kc.resume_operands(ops, *pass1)
+
+    def outs():
+        return (torch.empty(n, device=dev), torch.empty(n, dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev))
+
+    o1, o2 = outs(), outs()
+    ms, plain_ms = {}, {}
+    ms["cluster_closest_suspend"], plain_ms["cluster_closest_suspend"] = cuda_ms_pair(
+        lambda: kc._launch(kc.suspend_pass, cs, ops, T0, True, o1, resume=(miss_t, miss_s, 8)),
+        lambda: cl.closest_hit_resume_ref(cs, rays, order, super_sorted, miss_t, miss_s, T0, 8,
+                                          True))
+    ms["cluster_closest_resume"], plain_ms["cluster_closest_resume"] = cuda_ms_pair(
+        lambda: kc._launch(kc.resume_pass, cs, ops_b, T0, True, o2, resume=(t_in, slot_in, 0)),
+        lambda: cl.closest_hit_resume_ref(cs, ops_b[0], order, super_sorted, t_in, slot_in,
+                                          T0, 0, True))
+    # the bounds: pass 1 walks each live ray until its 8th supercluster, the
+    # resume pass the whole walk of the suspended rays, both culled with the
+    # final t
+    t1v = torch.as_tensor(b_t1, dtype=torch.float32, device=dev).expand(n)
+    t_final = torch.where(hit_f, t_f, t1v)
+    susp = perm[(done_s == 0).nonzero()[:, 0]]
+    walks = {"cluster_closest_suspend": walk(cs, b_ro, b_rd, b_t1, t_final, budget=8),
+             "cluster_closest_resume": walk(cs, b_ro[susp], b_rd[susp], t1v[susp],
+                                            t_final[susp])}
+    tables_bytes = nbytes(cs.tri, cs.child_box8, cs.super_cols8) + 4 * cs.super_cols8.shape[0]
+    bounds = {}
+    for name, (slabs, tests, _) in walks.items():
+        slabs, tests = int(slabs.sum()), int(tests.sum())
+        # rays, t_in and slot_in in; t, slot and done out
+        bounds[name] = bound(slabs * SLAB_OPS + tests * WT_OPS, 28 * n + tables_bytes + 20 * n)
+        print(f"{name}: kernel alone {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, bound "
+              f"{bounds[name][0]:.6f} ms ({bounds[name][1]}; {slabs} slab tests, {tests} "
+              f"triangle tests) (bounce-1 wavefront of {n} rays, "
+              f"{int((t1v > T0).sum())} live, {susp.numel()} suspended at budget 8, "
+              f"terrain100k, watertight, sorted, {card})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bounds": bounds}
+
+
+def accel_phases(dev, card, ctx):
+    """Phases 19-21: the chunked sweep at terrain330k, the BVH at terrain8k
+    and the wavefront sort at terrain100k."""
+    from pyrenderer_tpu_torch import native
+    from pyrenderer_tpu_torch.accel import bvh as bvh_mod
+    from pyrenderer_tpu_torch.accel import clusters as cl
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.core import integrator as integ
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+    from pyrenderer_tpu_torch.perf.clusterbench import random_rays
+    from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
+    from pyrenderer_tpu_torch.scene import procgen, to_device
+    from pyrenderer_tpu_torch.scene.tungsten import build_scene
+
+    phase("19 chunked sweep against the monolithic one (terrain330k)")
+    host, host_cam, _ = build_scene(procgen.big_scene_data("terrain", res=406))
+    t = time.perf_counter()
+    cc = cl.build_chunked_clusters(host.vertices, host.faces).to(dev)
+    t_cc = time.perf_counter() - t
+    t = time.perf_counter()
+    cs = cl.build_clusters(host.vertices, host.faces).to(dev)
+    t_cs = time.perf_counter() - t
+    check(isinstance(cc, cl.ClusterChunks) and len(cc.chunks) == 3,
+          "terrain330k does not make 3 chunks")
+    print(f"terrain330k: {host.faces.shape[0]} triangles; {len(cc.chunks)} chunks of "
+          f"{cc.faces_per_chunk} ({cc.n_clusters} clusters) built in {t_cc:.3f} s, one "
+          f"ClusterScene of {cs.n_clusters} clusters in {t_cs:.3f} s", flush=True)
+    ro, rd = random_rays(N_RAYS, 0, dev)
+    for wt in (False, True):
+        h_c, t_c, f_c = kc.closest_hit_chunked(cc, ro, rd, T0, T_MAX, watertight=wt)
+        h_m, t_m, f_m = kc.closest_hit(cs, ro, rd, T0, T_MAX, sort=True, watertight=wt)
+        occ_c = kc.occluded_chunked(cc, ro, rd, T0, T_MAX, watertight=wt)
+        occ_m = kc.occluded(cs, ro, rd, T0, T_MAX, sort=True, watertight=wt)
+        torch.cuda.synchronize()
+        tag = f"terrain330k {'watertight' if wt else 'MT'}"
+        check(torch.equal(h_c, h_m) and torch.equal(occ_c, occ_m) and torch.equal(occ_c, h_c),
+              f"{tag}: chunked and monolithic hit masks or occlusion differ")
+        n_hit = int(h_m.sum())
+        differ = h_m & (f_c != f_m)
+        # a face that differs must be an exact tie: the same t
+        torch.testing.assert_close(t_c[differ], t_m[differ], rtol=1e-6, atol=0.0)
+        check(int(differ.sum()) <= 0.001 * n_hit, f"{tag}: faces differ on {int(differ.sum())}")
+        same = h_m & ~differ
+        print(f"{tag}: {N_RAYS} random rays, hits {n_hit} equal, occlusion equal, faces differ "
+              f"on {int(differ.sum())} (ties, |dt| <= 1e-6 t), max|dt| on equal faces "
+              f"{float((t_c - t_m)[same].abs().max()):.3g}", flush=True)
+    cam512 = host_cam._replace(resolution=(512, 512))
+    scene, camera = to_device(host, cam512, dev)
+    cfg = RenderConfig(max_bounces=4, spp=2, seed=0, estimator="reference")
+    per_query = 2 * 4 * 4
+    frames, mrays = {}, {}
+    for backend, accel, per in (("cluster_chunked", cc, 3), ("cluster", cs, 1)):
+        renderer = ProgressiveRenderer(scene, camera, cfg, backend=backend, chunk=1 << 16,
+                                       accel=accel)
+        check(renderer.backend == backend and renderer.tables.cluster_watertight,
+              f"{backend}: resolved {renderer.backend}, or not watertight")
+        film, _ = counted(lambda r=renderer: r.run(quiet=True), f"terrain330k {backend} frame",
+                          {"cluster_closest_hit": per * per_query,
+                           "cluster_occluded": per * per_query})
+        check(bool(np.isfinite(film.hdr).all()), f"{backend}: HDR not finite")
+        frames[backend] = film.hdr
+        mrays[backend] = renderer.rays_traced / renderer.render_seconds / 1e6
+    close = float(np.isclose(frames["cluster_chunked"], frames["cluster"], rtol=1e-3,
+                             atol=0.0).mean())
+    med = float(np.median(np.abs(frames["cluster_chunked"] - frames["cluster"])))
+    print(f"terrain330k 512x512 2 spp: chunked against monolithic close fraction {close:.6f} "
+          f"(> 0.999), median |diff| {med:.3g} (0); Mrays/s cluster_chunked "
+          f"{mrays['cluster_chunked']:.3f}, cluster {mrays['cluster']:.3f} ({card})", flush=True)
+    check(close > 0.999 and med == 0.0, "the chunked frame differs from the monolithic one")
+
+    phase("20 BVH: terrain8k 32x32 2 spp, backend bvh on the card and on the CPU")
+    check(native.load_library() is not None,
+          "the native SAH builder did not build on this machine (g++)")
+    host8, cam8, _ = build_scene(procgen.big_scene_data("terrain", res=64))
+    cam32 = cam8._replace(resolution=(32, 32))
+    cfg8 = RenderConfig(max_bounces=4, spp=2, seed=3, estimator="reference")
+    films = {}
+    for where in (dev, "cpu"):
+        renderer = ProgressiveRenderer(*to_device(host8, cam32, where), cfg8, backend="bvh")
+        check(renderer.backend == "bvh" and isinstance(renderer.accel, bvh_mod.FlatBVH),
+              "not the BVH")
+        film, _ = counted(lambda r=renderer: r.run(quiet=True), f"terrain8k bvh frame ({where})",
+                          {})
+        films[str(where)] = (film.hdr, renderer.rays_traced / renderer.render_seconds / 1e6)
+    (img_gpu, m_gpu), (img_cpu, m_cpu) = films[str(dev)], films["cpu"]
+    close = float(np.isclose(img_gpu, img_cpu, rtol=1e-3, atol=1e-4).mean())
+    med = float(np.median(np.abs(img_gpu - img_cpu)))
+    print(f"terrain8k bvh (native SAH): close fraction {close:.6f} (> 0.95), median |diff| "
+          f"{med:.3g} (< 1e-5); Mrays/s on the card {m_gpu:.3f}, on the CPU {m_cpu:.3f} "
+          f"({card})", flush=True)
+    check(close > 0.95 and med < 1e-5 and bool(np.isfinite(img_gpu).all()),
+          "the GPU and CPU bvh images disagree")
+
+    phase("21 wavefront sort (PYRENDERER_WF_SORT=1): terrain100k, both estimators")
+    cs100 = ctx["cs"]
+    expect = {"cluster_closest_hit": 64, "cluster_occluded": 64}
+    mrays = {}
+    for estimator in ("reference", "pbrt"):
+        c = ctx["cfg"].replace(estimator=estimator)
+        hdr = {}
+        for wf in ("0", "1"):
+            os.environ["PYRENDERER_WF_SORT"] = wf
+            try:
+                renderer = ProgressiveRenderer(ctx["scene"], ctx["camera"], c, chunk=1 << 16,
+                                               accel=cs100)
+                check(integ.use_wavefront_sort(renderer.tables) == (wf == "1"),
+                      f"{estimator}: the wavefront sort is not {'on' if wf == '1' else 'off'}")
+                film, _ = counted(lambda r=renderer: r.run(quiet=True),
+                                  f"terrain100k {estimator} frame, PYRENDERER_WF_SORT={wf}",
+                                  expect)
+            finally:
+                del os.environ["PYRENDERER_WF_SORT"]
+            hdr[wf] = film.hdr
+            mrays[(estimator, wf)] = renderer.rays_traced / renderer.render_seconds / 1e6
+        if estimator == "reference":
+            check(np.array_equal(hdr["0"], ctx["hdr_cluster"]), "the frame differs from phase 7's")
+        check(bool(np.isfinite(hdr["1"]).all()), f"{estimator}: HDR not finite")
+        close = np.isclose(hdr["1"], hdr["0"], rtol=1e-5, atol=1e-7)
+        print(f"{estimator}: wavefront-sorted frame within rtol 1e-5 of the per-query-sorted "
+              f"one on {int(close.sum())}/{close.size} values, max|diff| "
+              f"{float(np.abs(hdr['1'] - hdr['0']).max()):.3g}", flush=True)
+        check(bool(close.all()), f"{estimator}: the wavefront sort changes the frame")
+    print("frames (terrain100k, 512x512, 4 spp, 4 bounces, Mrays/s): "
+          + ", ".join(f"{e} WF_SORT={wf} {m:.3f}" for (e, wf), m in mrays.items())
+          + f" ({card})", flush=True)
+
+
+WHOLE_TABLE = {"closest_hit": 1, "occluded": 1}
+CLUSTER = {"cluster_closest_hit": 1, "cluster_occluded": 1}
+# suspend/resume rounds = 2: two closest-hit launches per query, one of each pass
+ROUNDS = dict(CLUSTER, cluster_closest_hit=2, cluster_closest_suspend=1,
+              cluster_closest_resume=1)
+# (scene, estimator, launches of each kernel per query, further bench env)
+BENCH_ROWS = (("cornell", "reference", WHOLE_TABLE, {}), ("cornell", "pbrt", WHOLE_TABLE, {}),
+              ("spheres", "pbrt", WHOLE_TABLE, {}), ("terrain100k", "reference", CLUSTER, {}),
+              ("terrain100k", "reference", ROUNDS, {"BENCH_ROUNDS": "2"}))
 
 
 def entry_point_phases(dev, card):
@@ -1024,31 +1329,32 @@ def entry_point_phases(dev, card):
     phase("15 entry points: python -m pyrenderer_tpu_torch.bench, then the harness")
     kind = torch.cuda.get_device_name(dev)
     base_env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    for scene, estimator, queries in BENCH_ROWS:
+    for scene, estimator, per_query_launches, extra_env in BENCH_ROWS:
         _, res, spp, _ = bench.SCENES[scene]
         per_query = spp * -(-res * res // (1 << 16)) * 4
-        expect = dict.fromkeys(queries, per_query)
+        expect = {name: n * per_query for name, n in per_query_launches.items()}
         expect["kb_leaf"] = bench.CALIB_WARMUP + bench.CALIB_REPS
-        env = dict(base_env, BENCH_SCENE=scene, BENCH_ESTIMATOR=estimator)
+        env = dict(base_env, BENCH_SCENE=scene, BENCH_ESTIMATOR=estimator, **extra_env)
+        label = "/".join([scene, estimator] + [f"{k}={v}" for k, v in extra_env.items()])
         proc = subprocess.run([sys.executable, "-m", "pyrenderer_tpu_torch.bench"], cwd=ROOT,
                               env=env, capture_output=True, text=True, timeout=600)
         sys.stderr.write(proc.stderr)
-        check(proc.returncode == 0, f"bench {scene}/{estimator} exited {proc.returncode}")
+        check(proc.returncode == 0, f"bench {label} exited {proc.returncode}")
         lines = proc.stdout.strip().splitlines()
-        check(len(lines) == 1, f"bench {scene}/{estimator} printed {len(lines)} lines")
+        check(len(lines) == 1, f"bench {label} printed {len(lines)} lines")
         row = json.loads(lines[0])
         metric = bench.SCENES[scene][3] + ("" if estimator == "reference" else "_" + estimator)
         calib = row.get("calib_ns_per_leaf")
         check(row.get("metric") == metric and row.get("unit") == "Mrays/s",
-              f"bench {scene}/{estimator}: metric {row.get('metric')!r}")
+              f"bench {label}: metric {row.get('metric')!r}")
         check(isinstance(row.get("value"), float) and np.isfinite(row["value"])
-              and row["value"] > 0, f"bench {scene}/{estimator}: value {row.get('value')!r}")
+              and row["value"] > 0, f"bench {label}: value {row.get('value')!r}")
         check(isinstance(calib, float) and np.isfinite(calib) and calib > 0,
-              f"bench {scene}/{estimator}: calib_ns_per_leaf {calib!r}")
-        check(row.get("device") == kind, f"bench {scene}/{estimator}: device {row.get('device')!r}")
-        print(f"bench {scene}/{estimator}: {lines[0]} ({card})", flush=True)
+              f"bench {label}: calib_ns_per_leaf {calib!r}")
+        check(row.get("device") == kind, f"bench {label}: device {row.get('device')!r}")
+        print(f"bench {label}: {lines[0]} ({card})", flush=True)
         check(row.get("launches") == expect and row.get("twin_calls") == {},
-              f"bench {scene}/{estimator}: launches {row.get('launches')}, twin calls "
+              f"bench {label}: launches {row.get('launches')}, twin calls "
               f"{row.get('twin_calls')}; expected {expect} and none")
         TALLY.update(row["launches"])
 

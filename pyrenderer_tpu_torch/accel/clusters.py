@@ -10,20 +10,27 @@ of every child it crosses. The kernels read compact copies of the two box
 tables (32 bytes a box instead of a 512-byte row), so that the 16 children
 of a supercluster are one 512-byte read.
 
-The build runs in NumPy on the host (scene-load time) and returns tensors.
-``closest_hit_ref`` and ``occluded_ref`` are the plain PyTorch twins of the
-two CUDA kernels: clusters in ascending index, a strict ``<`` update, the
-first minimum inside a cluster -- so the result is the exact minimum t, ties
-to the lowest slot.
+The build runs in NumPy on the host (scene-load time) and returns tensors;
+the median split goes through the native C++ orderer (native/
+cluster_order.cpp) when it compiles, and through the bit-identical Python
+recursion otherwise. ``closest_hit_ref`` and ``occluded_ref`` are the plain
+PyTorch twins of the two CUDA kernels: clusters in ascending index, a
+strict ``<`` update, the first minimum inside a cluster -- so the result is
+the exact minimum t, ties to the lowest slot. ``closest_hit_resume_ref`` is
+the twin of the closest-hit kernel's resume mode (suspend/resume rounds):
+the launch's front-to-back walk with carried state and a visit budget.
+
+``ClusterChunks`` (``build_chunked_clusters``) cuts a scene into contiguous
+face ranges of at most CHUNK_MAX_TRIS, one ClusterScene each, for backend
+"cluster_chunked" (kernels/cluster.closest_hit_chunked). The JAX package
+chunks scenes that overflow a TPU's VMEM; here chunking is explicit only.
 
 The binned traversal (kernels/binned.py, csrc/binned.cu) groups BIN
 adjacent clusters into a bin of BIN_TRIS triangles; ``bin_box`` holds the
 bins' boxes.
 
-Not ported here (ROADMAP A10): ``ClusterChunks`` / ``build_chunked_clusters``
-(a TPU VMEM ceiling; one H100 holds the whole table), the native C++
-orderer (the Python median split below is bit-identical to it), and the
-``bitw`` array of the TPU's bit packing.
+Not ported: the ``bitw`` array of the TPU's bit packing and the dummy
+child rows of its pair-peeled sweep.
 """
 
 from __future__ import annotations
@@ -103,12 +110,64 @@ class ClusterScene:
                               for f in dataclasses.fields(self)])
 
 
+@dataclasses.dataclass(frozen=True)
+class ClusterChunks:
+    """A scene as a tuple of ClusterScenes over contiguous face ranges,
+    padded to equal triangle counts: chunk i holds the global faces
+    [i * faces_per_chunk, (i + 1) * faces_per_chunk)."""
+
+    chunks: tuple            # tuple[ClusterScene, ...]
+    faces_per_chunk: int = 0
+
+    @property
+    def n_clusters(self) -> int:
+        """Total clusters (what the sort and watertight policies read)."""
+        return sum(c.n_clusters for c in self.chunks)
+
+    def to(self, device) -> "ClusterChunks":
+        return ClusterChunks(tuple(c.to(device) for c in self.chunks), self.faces_per_chunk)
+
+
+# Largest triangle count of one chunk: the JAX package's value, set by a
+# TPU's VMEM; not measured on this card.
+CHUNK_MAX_TRIS = 160_000
+
+
+def build_chunked_clusters(vertices, faces, max_tris: int = CHUNK_MAX_TRIS):
+    """Host-side build of a ClusterChunks: contiguous face ranges of equal
+    size, each chunk its own ClusterScene, the short last one padded with
+    zero faces (v0 with e1 = e2 = 0: det == 0, never hit). A scene of at
+    most `max_tris` faces gives a plain ClusterScene, as in the JAX
+    package."""
+    f = _host(faces)
+    t = f.shape[0]
+    n_chunks = -(-t // max_tris)
+    if n_chunks <= 1:
+        return build_clusters(vertices, faces)
+    per = -(-t // n_chunks)
+    chunks = []
+    for i in range(n_chunks):
+        fl = f[i * per:(i + 1) * per]
+        pad = per - fl.shape[0]
+        if pad:
+            fl = np.concatenate([fl, np.zeros((pad, 3), f.dtype)])
+        chunks.append(build_clusters(vertices, fl))
+    return ClusterChunks(chunks=tuple(chunks), faces_per_chunk=per)
+
+
 def _median_split_order(cent, leaf_size=LANE_TRIS):
     """Permutation putting spatially compact groups of `leaf_size`
     triangles into contiguous blocks: recursive largest-axis median split,
     the split point rounded to a leaf_size multiple so every block except
     the last is full. Recursion order doubles as the supercluster grouping
-    (adjacent leaves share a subtree, hence a compact parent box)."""
+    (adjacent leaves share a subtree, hence a compact parent box). The
+    native orderer gives the same permutation bit for bit, faster; the
+    Python recursion below runs where it cannot be built."""
+    from pyrenderer_tpu_torch import native
+
+    order = native.cluster_median_order_native(cent, leaf_size)
+    if order is not None:
+        return order
 
     def split(idx):
         if idx.shape[0] <= leaf_size:
@@ -322,6 +381,78 @@ def occluded_ref(cs: ClusterScene, ro, rd, t0, t1, watertight=False):
     crossed cluster lies in (t0, t1) -- the closest-hit twin's hit mask, as
     in the JAX package."""
     return closest_hit_ref(cs, ro, rd, t0, t1, watertight=watertight)[0]
+
+
+def pack_key(t, slot):
+    """int64 (float bits of t << 32 | slot as uint32) keys, csrc/leaf.cuh
+    pack_key: for t > 0 the minimum key is the minimum t, ties to the
+    lowest slot, and slot -1 (a miss) loses every tie."""
+    return ((t.float().view(torch.int32).to(torch.int64) << 32)
+            | (slot.to(torch.int64) & 0xFFFFFFFF))
+
+
+def unpack_key(key):
+    """(t float32, slot int32) of pack_key's keys."""
+    low = key & 0xFFFFFFFF
+    slot = torch.where(low >= 1 << 31, low - (1 << 32), low).to(torch.int32)
+    return (key >> 32).to(torch.int32).view(torch.float32), slot
+
+
+def closest_hit_resume_ref(cs: ClusterScene, rays, order, super_sorted, t_in, slot_in, t0,
+                           budget, watertight=False):
+    """Plain twin of one launch of the closest-hit kernel's resume mode
+    (csrc/cluster.cu, Resume = true): the launch's walk, vectorised over
+    rays. rays (N, 8) [o | d | t1 | 0] in launch order; order (S_pad,) and
+    super_sorted (S_pad, >= 6) the launch's front-to-back supercluster rank
+    (kernels/cluster._sc_order); t_in (N,) f32 and slot_in (N,) i32 the
+    carried best hit (3e38 and -1: none). Returns (t (N,) f32, 3e38 on a
+    miss; slot (N,) i32; done (N,) i32), all in launch order.
+
+    A live ray (t1 > t0) starts from pack_key(t_in, slot_in) and walks the
+    ranks in order. It visits a supercluster whose box crosses under its
+    current bound min(t_best, t1); a visit slab-tests the 16 children in
+    order, each under the current bound, and runs the leaf of each child
+    that crosses: every triangle accepted against t1, the best hit the
+    minimum key. With budget > 0 the ray stops after its budget-th visit;
+    done is 0 when a later rank still crosses under its bound then, and 1
+    otherwise (also for a ray that ran out of crossing ranks first, and
+    for a dead ray, which keeps its carried state)."""
+    ro, rd, t1 = rays[:, 0:3], rays[:, 3:6], rays[:, 6]
+    n = rays.shape[0]
+    inv_d = 1.0 / torch.where(rd == 0, 1e-20, rd)
+    key = pack_key(t_in, slot_in)
+    walking = t1 > t0
+    stopped = torch.zeros(n, dtype=torch.bool, device=rays.device)
+    pending = torch.zeros_like(stopped)
+    visits = torch.zeros(n, dtype=torch.int64, device=rays.device)
+    cmin, cmax = cs.child_box[:, 0:3], cs.child_box[:, 3:6]
+    tri = cs.tri.reshape(cs.n_clusters, TRI_ROWS, LANE_TRIS)
+
+    def bound(idx):
+        return torch.minimum(unpack_key(key[idx])[0], t1[idx])
+
+    for rank, s in enumerate(order.tolist()):
+        every = torch.arange(n, device=rays.device)
+        cross = _slab(super_sorted[rank, 0:3], super_sorted[rank, 3:6], ro, inv_d, t0,
+                      bound(every))
+        pending |= stopped & cross
+        idx = (walking & cross).nonzero()[:, 0]
+        if idx.numel() == 0:
+            continue
+        for j in range(s * GROUP, (s + 1) * GROUP):
+            sub = idx[_slab(cmin[j], cmax[j], ro[idx], inv_d[idx], t0, bound(idx))]
+            if sub.numel() == 0:
+                continue
+            t_new, lane = _leaf(tri[j], ro[sub], rd[sub], t0, t1[sub], watertight).min(dim=1)
+            cand = pack_key(t_new, j * LANE_TRIS + lane)
+            key[sub] = torch.where((t_new < MISS_T) & (cand < key[sub]), cand, key[sub])
+        visits[idx] += 1
+        if budget > 0:
+            out = idx[visits[idx] == budget]
+            walking[out] = False
+            stopped[out] = True
+    t, slot = unpack_key(key)
+    return t, slot, (~pending).to(torch.int32)
 
 
 def slot_to_face(cs: ClusterScene, slot):

@@ -15,8 +15,9 @@ runs.
 Env knobs (bench.py's):
   BENCH_SCENE      cornell (default) | spheres | terrain8k | terrain100k |
                    terrain330k | terrain500k | blob82k (SCENES)
-  BENCH_BACKEND    auto (default) | cuda | brute | cluster | cluster_binned |
-                   cluster_streamed | watertight; the JAX-only backends raise
+  BENCH_BACKEND    auto (default) | cuda | brute | bvh | cluster |
+                   cluster_binned | cluster_streamed | cluster_chunked |
+                   watertight; "pallas" and "matmul" raise
   BENCH_SPP        timed samples per pixel (the row's default)
   BENCH_RES        square resolution (the row's default)
   BENCH_CHUNK      rays per chunk (default 2^16, Morton-ordered screen
@@ -25,9 +26,9 @@ Env knobs (bench.py's):
   BENCH_ESTIMATOR  reference (default) | pbrt
   BENCH_WATERTIGHT 1 | 0 forces the cluster leaves (default "auto")
   BENCH_SORT       0 | 1 | auto (default)
-  BENCH_ROUNDS     cluster suspend/resume passes; above 1 raises, as
-                   cluster_rounds does (ROADMAP A10)
-  BENCH_BUDGET     pass-1 supercluster visit budget (read only with rounds)
+  BENCH_ROUNDS     cluster suspend/resume passes (default 1; cluster_rounds)
+  BENCH_BUDGET     pass-1 supercluster visit budget per ray (default 8;
+                   read only with rounds > 1)
   PYRENDERER_PIXEL_ORDER  morton (default) | hilbert | row
   BENCH_DEVICE     cuda:0 (default) | cpu; without a GPU and without
                    BENCH_DEVICE=cpu it exits non-zero (the tests use cpu)
@@ -164,6 +165,7 @@ def run(env=None, dtype=torch.float32):
     tag = "" if estimator == "reference" else f",{estimator}"
     tag += {True: ",watertight", False: ",nowatertight"}.get(watertight, "")
     tag += ",nosort" if sort is False else ""
+    tag += f",rounds={cfg.cluster_rounds}" if cfg.cluster_rounds > 1 else ""
 
     def samples(first, count, tables):
         total = torch.zeros(3, dtype=dtype, device=device)

@@ -64,18 +64,20 @@ class RenderConfig:
     #                                clusters. The crossover was measured on
     #                                a TPU; not measured on this card
     #                                (ROADMAP A10).
-    cluster_rounds: int = 1        # suspend/resume passes for cluster
-    #                                closest-hit: pass 1 sweeps at most
-    #                                cluster_budget superclusters per tile
-    #                                (front to back), then unresolved rays
-    #                                are finished unbudgeted. Only 1 (a
-    #                                single exhaustive sweep) is ported;
-    #                                more raises NotImplementedError
-    #                                (ROADMAP A10). The JAX default of 1 was
+    cluster_rounds: int = 1        # suspend/resume passes for the cluster
+    #                                closest hit ("cluster" and
+    #                                "cluster_chunked"): pass 1 visits at
+    #                                most cluster_budget superclusters per
+    #                                ray (front to back), then each further
+    #                                pass finishes the suspended rays
+    #                                without a budget (kernels/cluster.py).
+    #                                The image is the rounds = 1 image bit
+    #                                for bit. The JAX default of 1 was
     #                                chosen from a TPU measurement; not
     #                                measured on this card.
-    cluster_budget: int = 8        # supercluster visit budget per ray tile
-    #                                in pass 1; only read when
+    cluster_budget: int = 8        # supercluster visit budget of pass 1,
+    #                                per ray on this card (the TPU counts
+    #                                it per 128-ray tile); only read when
     #                                cluster_rounds > 1.
     # The binned backends' candidate bins per ray and pass (kernels/binned.py
     # W_SLOTS = 6, W_SLOTS_STREAMED = 10, env PYRENDERER_BINNED_W) are the

@@ -16,9 +16,20 @@ Intersection backends:
                   it for CPU tensors of such scenes.
   "cluster"    -- the cluster sweep over a ClusterScene (accel/clusters.py):
                   the CUDA kernels of kernels/cluster.py on a GPU, their
-                  plain twins on the CPU. "auto" picks it above
-                  AUTO_BRUTE_MAX_TRIS on every device (the JAX package picks
-                  "bvh" on the CPU, which is not ported yet, ROADMAP A10).
+                  plain twins on the CPU; cfg.cluster_rounds > 1 runs its
+                  suspend/resume rounds. "auto" picks it above
+                  AUTO_BRUTE_MAX_TRIS for CUDA tensors. It stays one
+                  monolithic ClusterScene whatever the scene's size: the
+                  JAX package chunks scenes past a TPU's VMEM, and one H100
+                  holds the whole table.
+  "cluster_chunked"
+               -- the same sweep over a ClusterChunks (contiguous face
+                  ranges of at most CHUNK_MAX_TRIS, one ClusterScene each),
+                  chunk by chunk with the running best t carried. Explicit
+                  only (or for a ClusterChunks given as `accel`).
+  "bvh"        -- the stackless BVH walk (accel/bvh.py, plain PyTorch).
+                  "auto" picks it above AUTO_BRUTE_MAX_TRIS for CPU
+                  tensors, as the JAX package does off the TPU.
   "cluster_binned", "cluster_streamed"
                -- the binned (bin, ray) pair traversal over the same
                   ClusterScene (kernels/binned.py), overflow rays finished
@@ -50,7 +61,13 @@ import numpy as np
 import torch
 
 from pyrenderer_tpu_torch import rng
-from pyrenderer_tpu_torch.accel.clusters import build_clusters
+from pyrenderer_tpu_torch.accel import bvh as bvh_mod
+from pyrenderer_tpu_torch.accel.clusters import (
+    ClusterChunks,
+    build_chunked_clusters,
+    build_clusters,
+    sort_keys,
+)
 from pyrenderer_tpu_torch.config import RenderConfig
 from pyrenderer_tpu_torch.core import intersect as isect
 from pyrenderer_tpu_torch.core import sampling
@@ -78,16 +95,14 @@ AUTO_BRUTE_MAX_TRIS = 4096
 # and stays as the reference has it.
 AUTO_SORT_MIN_CLUSTERS = 256
 
-# the backends that trace a ClusterScene
-CLUSTER_BACKENDS = ("cluster", "cluster_binned", "cluster_streamed")
-BACKENDS = ("cuda", "brute", "watertight") + CLUSTER_BACKENDS
+# the backends that trace a ClusterScene (a ClusterChunks for "cluster_chunked")
+CLUSTER_BACKENDS = ("cluster", "cluster_binned", "cluster_streamed", "cluster_chunked")
+BACKENDS = ("cuda", "brute", "watertight", "bvh") + CLUSTER_BACKENDS
 
 # JAX backends and the ROADMAP item that ports each one.
 _NOT_PORTED = {
     "pallas": 'A4 (its port is backend "cuda")',
     "matmul": "A14",
-    "bvh": "A10",
-    "cluster_chunked": "A10",
 }
 
 
@@ -95,11 +110,11 @@ def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
-def accel_backend() -> str:
-    """Backend "auto" takes past AUTO_BRUTE_MAX_TRIS: "cluster" on every
-    device. The JAX package takes "bvh" on the CPU; that backend is not
-    ported yet (ROADMAP A10), so the CPU runs the cluster twins."""
-    return "cluster"
+def accel_backend(device) -> str:
+    """Backend "auto" takes past AUTO_BRUTE_MAX_TRIS when no accelerator is
+    given: "cluster" for CUDA tensors, "bvh" for CPU tensors, as the JAX
+    package takes "cluster" on the TPU and "bvh" elsewhere."""
+    return "cluster" if torch.device(device).type == "cuda" else "bvh"
 
 
 def _cluster_impl_binned() -> bool:
@@ -109,18 +124,30 @@ def _cluster_impl_binned() -> bool:
     return os.environ.get("PYRENDERER_CLUSTER_IMPL", "") == "binned"
 
 
-def resolve_backend(backend: str, n_tris: int, device) -> str:
+def resolve_backend(backend: str, n_tris: int, device, accel=None) -> str:
     """Turn "auto" into "cuda" (CUDA device) or "brute" (CPU) up to
-    AUTO_BRUTE_MAX_TRIS faces and into accel_backend() above, and "cluster"
-    into "cluster_binned" under PYRENDERER_CLUSTER_IMPL=binned; reject what
-    is not ported instead of silently taking another path."""
+    AUTO_BRUTE_MAX_TRIS faces, and above into the backend of the given
+    accelerator (a FlatBVH "bvh", a ClusterScene "cluster", a ClusterChunks
+    "cluster_chunked") or, with none, into accel_backend(device); "cluster"
+    into "cluster_binned" under PYRENDERER_CLUSTER_IMPL=binned. As in the
+    JAX package, "cluster" or "cluster_chunked" with a ClusterChunks resolve
+    to "cluster_chunked", and "cluster_chunked" with a ClusterScene to
+    "cluster". Reject what is not ported instead of silently taking
+    another path."""
     if backend in _NOT_PORTED:
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet (ROADMAP {_NOT_PORTED[backend]})")
     if backend not in ("auto",) + BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "auto" and n_tris > AUTO_BRUTE_MAX_TRIS:
-        backend = accel_backend()
+        if isinstance(accel, bvh_mod.FlatBVH):
+            backend = "bvh"
+        elif accel is not None:
+            backend = "cluster"
+        else:
+            backend = accel_backend(device)
+    if backend in ("cluster", "cluster_chunked") and accel is not None:
+        backend = "cluster_chunked" if isinstance(accel, ClusterChunks) else "cluster"
     if backend == "cluster" and _cluster_impl_binned():
         return "cluster_binned"
     if backend != "auto":
@@ -130,8 +157,11 @@ def resolve_backend(backend: str, n_tris: int, device) -> str:
 
 def resolve_cluster_sort(cfg: RenderConfig, accel) -> bool:
     """Concrete coherence-sort decision for a cluster query: "auto" sorts
-    scenes of at least AUTO_SORT_MIN_CLUSTERS clusters."""
+    scenes of at least AUTO_SORT_MIN_CLUSTERS clusters, and never a
+    ClusterChunks (the JAX package's choice, from a TPU measurement)."""
     if cfg.cluster_sort == "auto":
+        if isinstance(accel, ClusterChunks):
+            return False
         return accel.n_clusters >= AUTO_SORT_MIN_CLUSTERS
     return bool(cfg.cluster_sort)
 
@@ -147,16 +177,24 @@ def resolve_cluster_watertight(cfg: RenderConfig, accel) -> bool:
 
 
 def maybe_build_accel(scene: Scene, backend: str, accel=None):
-    """The accelerator `backend` needs on the scene's device: a ClusterScene
-    for the CLUSTER_BACKENDS (and for "auto" past AUTO_BRUTE_MAX_TRIS),
-    built on the host; None for the whole-table backends. A given `accel`
-    is returned as it is."""
+    """The accelerator `backend` needs on the scene's device, built on the
+    host: a FlatBVH for "bvh" (and for "auto" past AUTO_BRUTE_MAX_TRIS on
+    the CPU), build_chunked_clusters' result for "cluster_chunked" (a plain
+    ClusterScene when one chunk holds the scene), a ClusterScene for the
+    other CLUSTER_BACKENDS (and for "auto" past AUTO_BRUTE_MAX_TRIS on
+    CUDA); None for the whole-table backends. A given `accel` is returned
+    as it is."""
     if accel is not None:
         return accel
     device = scene.vertices.device
-    if resolve_backend(backend, scene.faces.shape[0], device) not in CLUSTER_BACKENDS:
-        return None
-    return build_clusters(scene.vertices, scene.faces).to(device)
+    backend = resolve_backend(backend, scene.faces.shape[0], device)
+    if backend == "bvh":
+        return bvh_mod.build_bvh(scene.vertices, scene.faces).to(device)
+    if backend == "cluster_chunked":
+        return build_chunked_clusters(scene.vertices, scene.faces).to(device)
+    if backend in CLUSTER_BACKENDS:
+        return build_clusters(scene.vertices, scene.faces).to(device)
+    return None
 
 
 def check_supported(cfg: RenderConfig) -> None:
@@ -165,14 +203,6 @@ def check_supported(cfg: RenderConfig) -> None:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if cfg.adaptive:
         raise NotImplementedError("adaptive sampling is not ported yet (ROADMAP A6)")
-    if cfg.cluster_rounds > 1:
-        raise NotImplementedError(
-            "suspend/resume cluster traversal (cluster_rounds > 1) is not "
-            "ported yet (ROADMAP A10)")
-    if os.environ.get("PYRENDERER_WF_SORT", "0") == "1":
-        raise NotImplementedError(
-            "the wavefront sort (PYRENDERER_WF_SORT=1) is not ported yet "
-            "(ROADMAP A10)")
 
 
 def light_area_pdf(scene: Scene):
@@ -244,29 +274,36 @@ def pack_light_data(scene: Scene, use_emission: bool = False):
 class TraceTables:
     """Per-scene device tables shared by every sample and pass: the packed
     face and light rows (extended for the pbrt estimator), for backend
-    "cuda" the (9, T) kernel table, for the
-    CLUSTER_BACKENDS the ClusterScene (`accel`, built here unless given)
-    with its resolved leaf choice and, for "cluster", sort choice (the
-    binned backends need no sort), and the light color (made once: a
-    host-to-device copy per trace would make the host wait for the
-    device)."""
+    "cuda" the (9, T) kernel table, for "bvh" the FlatBVH (`accel`) and the
+    triangles in its traversal order, for the CLUSTER_BACKENDS the
+    ClusterScene or ClusterChunks (`accel`) with its resolved leaf choice
+    and, for the sweep, sort choice (the binned backends need no sort), and
+    the light color (made once: a host-to-device copy per trace would make
+    the host wait for the device). The accelerator is built here
+    (maybe_build_accel) unless `accel` gives one; the backend is resolved
+    with it."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig, backend: str = "auto",
                  accel=None):
         check_supported(cfg)
         v = scene.vertices
-        self.backend = resolve_backend(backend, scene.faces.shape[0], v.device)
+        self.accel = maybe_build_accel(scene, backend, accel)
+        self.backend = resolve_backend(backend, scene.faces.shape[0], v.device, self.accel)
         self.light_color = torch.tensor(REF_LIGHT_COLOR, dtype=v.dtype, device=v.device)
         extended = cfg.estimator != "reference"
         self.face_data = pack_face_data(scene, extended=extended)
         self.light_data = pack_light_data(scene, use_emission=extended)
         self.tri_table = None
-        self.accel = None
         if self.backend == "cuda":
             self.tri_table = kernels.pack_triangles(scene.vertices, scene.faces)
+        elif self.backend == "bvh":
+            ordered = scene.faces[self.accel.order.to(torch.int64)]
+            vd = v.detach()
+            self.bvh_v0 = vd[ordered[:, 0]]
+            self.bvh_e1 = vd[ordered[:, 1]] - self.bvh_v0
+            self.bvh_e2 = vd[ordered[:, 2]] - self.bvh_v0
         elif self.backend in CLUSTER_BACKENDS:
-            self.accel = maybe_build_accel(scene, self.backend, accel)
-            self.cluster_sort = (self.backend == "cluster"
+            self.cluster_sort = (self.backend in ("cluster", "cluster_chunked")
                                  and resolve_cluster_sort(cfg, self.accel))
             self.cluster_watertight = resolve_cluster_watertight(cfg, self.accel)
 
@@ -276,15 +313,23 @@ class TraceTables:
         return self.face_data.index_select(0, tri)
 
 
-def _closest(scene, tables, cfg, ro, rd, t1):
+def _closest(scene, tables, cfg, ro, rd, t1, sort=None):
+    """Closest-hit query of the tables' backend; `sort` overrides the
+    cluster sweep's coherence sort (the wavefront sort turns it off)."""
     b = tables.backend
     if b == "cuda":
         return kernels.closest_hit(tables.tri_table, ro, rd, cfg.t_min, t1)
-    if b == "cluster":
+    if b in ("cluster", "cluster_chunked"):
+        fn = (cluster_kernels.closest_hit if b == "cluster"
+              else cluster_kernels.closest_hit_chunked)
         # exact_t=False: the trace re-derives the hit geometry from the face
-        return cluster_kernels.closest_hit(
-            tables.accel, ro, rd, cfg.t_min, t1, sort=tables.cluster_sort,
-            watertight=tables.cluster_watertight, exact_t=False)
+        return fn(tables.accel, ro, rd, cfg.t_min, t1,
+                  sort=tables.cluster_sort if sort is None else sort,
+                  watertight=tables.cluster_watertight, exact_t=False,
+                  rounds=cfg.cluster_rounds, budget=cfg.cluster_budget)
+    if b == "bvh":
+        return bvh_mod.traverse(tables.accel, tables.bvh_v0, tables.bvh_e1, tables.bvh_e2,
+                                ro, rd, cfg.t_min, t1)
     if b in ("cluster_binned", "cluster_streamed"):
         return binned_kernels.closest_hit(
             tables.accel, ro, rd, cfg.t_min, t1, watertight=tables.cluster_watertight,
@@ -294,14 +339,19 @@ def _closest(scene, tables, cfg, ro, rd, t1):
     return isect.intersect_brute(scene, ro, rd, cfg.t_min, t1)
 
 
-def _any_hit(scene, tables, cfg, ro, rd, t1):
+def _any_hit(scene, tables, cfg, ro, rd, t1, sort=None):
     b = tables.backend
     if b == "cuda":
         return kernels.occluded(tables.tri_table, ro, rd, cfg.t_min, t1)
-    if b == "cluster":
-        return cluster_kernels.occluded(
-            tables.accel, ro, rd, cfg.t_min, t1, sort=tables.cluster_sort,
-            watertight=tables.cluster_watertight)
+    if b in ("cluster", "cluster_chunked"):
+        fn = (cluster_kernels.occluded if b == "cluster"
+              else cluster_kernels.occluded_chunked)
+        return fn(tables.accel, ro, rd, cfg.t_min, t1,
+                  sort=tables.cluster_sort if sort is None else sort,
+                  watertight=tables.cluster_watertight)
+    if b == "bvh":
+        return bvh_mod.traverse(tables.accel, tables.bvh_v0, tables.bvh_e1, tables.bvh_e2,
+                                ro, rd, cfg.t_min, t1, any_hit=True)[0]
     if b in ("cluster_binned", "cluster_streamed"):
         return binned_kernels.occluded(
             tables.accel, ro, rd, cfg.t_min, t1, watertight=tables.cluster_watertight,
@@ -337,6 +387,26 @@ def _sample_light_point(scene, tables, pixel_id, sample_id, bounce, seed, dtype)
     return p2, n2, em, pdf_a
 
 
+def use_wavefront_sort(tables: TraceTables) -> bool:
+    """True when the bounce loop sorts the whole wavefront state once per
+    bounce (PYRENDERER_WF_SORT=1, read at every trace) instead of letting
+    each cluster query sort its own rays: only on backend "cluster" with
+    its coherence sort on, as in the JAX package
+    (pyrenderer_tpu/core/integrator.py:481-501). On the TPU it measured
+    slower than the per-query sort; the default stays off."""
+    if os.environ.get("PYRENDERER_WF_SORT", "0") != "1":
+        return False
+    return tables.backend == "cluster" and tables.cluster_sort
+
+
+def wavefront_sort_perm(accel, ro, rd, alive):
+    """(N,) permutation: live rays in coherence-key order
+    (accel/clusters.sort_keys), dead lanes last; stable, so rays of equal
+    keys keep their order from the bounce before."""
+    keys = torch.where(alive, sort_keys(accel, ro.detach(), rd.detach()), 0xFFFFFFFF)
+    return torch.argsort(keys, stable=True)
+
+
 def trace_reference(
     scene: Scene,
     cfg: RenderConfig,
@@ -358,6 +428,11 @@ def trace_reference(
     closest-hit rays of live lanes plus the NEE shadow rays -- the
     Mrays/s numerator of bench.py; masked dead lanes are not counted
     although their work still happens.
+
+    Under use_wavefront_sort the whole state is re-sorted at the start of
+    each bounce: pixel and sample ids travel with their lanes (the RNG is
+    keyed on them, so each pixel's radiance is the same), and the radiance
+    is scattered back to the caller's lane order at the end.
     """
     if collect_paths:
         raise NotImplementedError("collect_paths (debug path records) is not "
@@ -369,20 +444,29 @@ def trace_reference(
     n = ro.shape[0]
     pixel_id = pixel_id.to(torch.int64).expand(n)
     light_color = tables.light_color
+    wf_sort = use_wavefront_sort(tables)
+    sort = False if wf_sort else None
 
     beta = torch.ones_like(ro)
     radiance = torch.zeros_like(ro)
     alive = torch.ones(n, dtype=torch.bool, device=ro.device)
     n_rays = torch.zeros((), dtype=torch.float32, device=ro.device)
     t_max = torch.full((), cfg.t_max, dtype=dtype, device=ro.device)
+    if wf_sort:
+        sample_id = torch.as_tensor(sample_id, device=ro.device).to(torch.int64).expand(n)
+        orig = torch.arange(n, device=ro.device)
 
     for bounce in range(cfg.max_bounces):
+        if wf_sort:
+            perm = wavefront_sort_perm(tables.accel, ro, rd, alive)
+            ro, rd, beta, radiance, alive, pixel_id, sample_id, orig = (
+                x[perm] for x in (ro, rd, beta, radiance, alive, pixel_id, sample_id, orig))
         n_rays = n_rays + alive.sum(dtype=torch.float32)
 
         # dead lanes trace with t1 = 0: they can never hit, and every result
         # is masked by `alive` below anyway
         t_clip = torch.where(alive, t_max, 0.0)
-        hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip)
+        hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip, sort=sort)
         tri = torch.clamp(tri, min=0).to(torch.int64)
 
         # packed-row fetch, then differentiable re-evaluation of the selected
@@ -439,7 +523,7 @@ def trace_reference(
         dist = torch.sqrt(dist_sq)
         w = to_light / dist[:, None]
         shadow_t1 = torch.where(alive, dist.detach() * (1.0 - cfg.shadow_eps), 0.0)
-        occ = _any_hit(scene, tables, cfg, p.detach(), w.detach(), shadow_t1)
+        occ = _any_hit(scene, tables, cfg, p.detach(), w.detach(), shadow_t1, sort=sort)
         n_rays = n_rays + alive.sum(dtype=torch.float32)
         dot1 = _dot(nrm, w)
         dot2 = _dot(n2, -w)
@@ -450,6 +534,9 @@ def trace_reference(
         ro = torch.where(alive[:, None], p, ro)
         rd = torch.where(alive[:, None], wi, rd)
 
+    if wf_sort:
+        # lanes end in the last bounce's order; orig maps each back
+        radiance = torch.zeros_like(radiance).index_put((orig,), radiance)
     if with_stats:
         return radiance, n_rays
     return radiance
@@ -505,9 +592,9 @@ def render_image(scene: Scene, camera: Camera, cfg: RenderConfig,
 
     `scene` and `camera` hold tensors on one device (scene.types.to_device).
     Pixels are traced in Morton order, `chunk` rays per block (the order is
-    invisible to the estimator: the RNG is keyed on pixel id). Scenes past
-    AUTO_BRUTE_MAX_TRIS build their ClusterScene here unless `accel` gives
-    one."""
+    invisible to the estimator: the RNG is keyed on pixel id). The
+    accelerator the backend needs is built here unless `accel` gives one
+    (maybe_build_accel)."""
     device = scene.vertices.device
     tables = TraceTables(scene, cfg, backend, accel=accel)
     w, h = camera.resolution

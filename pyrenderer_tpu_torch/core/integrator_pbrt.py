@@ -37,6 +37,8 @@ from pyrenderer_tpu_torch.core.integrator import (
     _closest,
     _sample_light_point,
     check_supported,
+    use_wavefront_sort,
+    wavefront_sort_perm,
 )
 from pyrenderer_tpu_torch.core.sampling import INV_PI
 from pyrenderer_tpu_torch.scene.types import MAT_LAMBERT, MAT_METAL, Scene
@@ -62,7 +64,9 @@ def trace_pbrt(
 
     Arguments and the with_stats count as trace_reference: live
     closest-hit rays plus one shadow ray per live lane and bounce (the JAX
-    estimator's count, which includes lanes that need no shadow test)."""
+    estimator's count, which includes lanes that need no shadow test).
+    The wavefront sort (use_wavefront_sort) permutes this loop's state as
+    trace_reference's, prev_pdf and prev_spec included."""
     check_supported(cfg)
     dtype = ro.dtype
     if tables is None:
@@ -77,13 +81,23 @@ def trace_pbrt(
     prev_spec = torch.zeros(n, dtype=torch.bool, device=ro.device)
     n_rays = torch.zeros((), dtype=torch.float32, device=ro.device)
     t_max = torch.full((), cfg.t_max, dtype=dtype, device=ro.device)
+    wf_sort = use_wavefront_sort(tables)
+    sort = False if wf_sort else None
+    if wf_sort:
+        sample_id = torch.as_tensor(sample_id, device=ro.device).to(torch.int64).expand(n)
+        orig = torch.arange(n, device=ro.device)
 
     for bounce in range(cfg.max_bounces):
+        if wf_sort:
+            perm = wavefront_sort_perm(tables.accel, ro, rd, alive)
+            (ro, rd, beta, radiance, alive, prev_pdf, prev_spec, pixel_id, sample_id,
+             orig) = (x[perm] for x in (ro, rd, beta, radiance, alive, prev_pdf, prev_spec,
+                                         pixel_id, sample_id, orig))
         n_rays = n_rays + alive.sum(dtype=torch.float32)
 
         # dead lanes trace a zero interval, as in trace_reference
         t_clip = torch.where(alive, t_max, 0.0)
-        hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip)
+        hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip, sort=sort)
         tri = torch.clamp(tri, min=0).to(torch.int64)
 
         row = tables.fetch_face(tri)
@@ -136,7 +150,7 @@ def trace_pbrt(
         cos_light = _dot(n2, -wl)
         nee_candidate = alive & is_lambert & (cos_surf > 0) & (cos_light > 0)
         shadow_t1 = torch.where(nee_candidate, dist.detach() * (1.0 - cfg.shadow_eps), 0.0)
-        occ = _any_hit(scene, tables, cfg, p.detach(), wl.detach(), shadow_t1)
+        occ = _any_hit(scene, tables, cfg, p.detach(), wl.detach(), shadow_t1, sort=sort)
         n_rays = n_rays + alive.sum(dtype=torch.float32)
         pdf_nee_sa = pdf_a * dist_sq / torch.clamp(cos_light, min=1e-6)
         w_nee = bsdf.power_heuristic(pdf_nee_sa, bsdf.lambert_pdf(nrm, wl))
@@ -181,6 +195,8 @@ def trace_pbrt(
         ro = torch.where(alive[:, None], p, ro)
         rd = torch.where(alive[:, None], wi, rd)
 
+    if wf_sort:
+        radiance = torch.zeros_like(radiance).index_put((orig,), radiance)
     if with_stats:
         return radiance, n_rays
     return radiance

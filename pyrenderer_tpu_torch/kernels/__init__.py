@@ -15,6 +15,8 @@ def wrappers():
         "closest_hit": intersect.closest_hit,
         "occluded": intersect.occluded,
         "cluster_closest_hit": cluster.closest_hit,
+        "cluster_closest_suspend": cluster.suspend_pass,
+        "cluster_closest_resume": cluster.resume_pass,
         "cluster_occluded": cluster.occluded,
         "binned_prepass": binned.prepass,
         "binned_peel": binned.peel,

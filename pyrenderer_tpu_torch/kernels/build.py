@@ -77,6 +77,9 @@ def _declare(lib) -> None:
     lib.pr_occluded.restype = ctypes.c_int
     lib.pr_cluster_closest.argtypes = [p, p, p, p, i32, p, f32, i64, i32, p, p, p]
     lib.pr_cluster_closest.restype = ctypes.c_int
+    lib.pr_cluster_closest_resume.argtypes = [p, p, p, p, i32, p, f32, i64, i32, p, p, i32,
+                                              p, p, p, p]
+    lib.pr_cluster_closest_resume.restype = ctypes.c_int
     lib.pr_cluster_occluded.argtypes = [p, p, p, p, i32, p, f32, i64, i32, p, p]
     lib.pr_cluster_occluded.restype = ctypes.c_int
     lib.pr_binned_prepass.argtypes = [p, i32, p, f32, i64, i32, p, p, p, p]

@@ -121,7 +121,7 @@ def wavefronts(scene, camera, tables, cfg, px, py, module="cluster_kernels"):
     return calls["closest_hit"][1], calls["occluded"][1]
 
 
-def walk(cs, ro, rd, t1, t_final=None, watertight=True):
+def walk(cs, ro, rd, t1, t_final=None, watertight=True, budget=0):
     """The tests that the cluster kernels' front-to-back walk
     (csrc/cluster.cu sweep, superclusters in kernels/cluster._sc_order's
     rank) needs at the least, per ray: for each live ray (t1 > T0) a slab
@@ -131,8 +131,9 @@ def walk(cs, ro, rd, t1, t_final=None, watertight=True):
     the twin's t on a hit, t1 on a miss), which culls no less than the
     kernel's running bound. Any hit (t_final None): the walk culls with t1
     and a ray stops at its first occluder, counting the leaf's lanes up to
-    it. Returns (slab tests (N,), triangle tests (N,), the rays the walk
-    found occluded)."""
+    it. With budget > 0 (the closest hit's suspend pass) a ray stops after
+    the budget-th supercluster it crosses. Returns (slab tests (N,),
+    triangle tests (N,), the rays the walk found occluded)."""
     from pyrenderer_tpu_torch.accel import clusters as cl
     from pyrenderer_tpu_torch.kernels.cluster import _sc_order
 
@@ -145,6 +146,7 @@ def walk(cs, ro, rd, t1, t_final=None, watertight=True):
     tri = cs.tri.reshape(cs.n_clusters, cl.TRI_ROWS, cl.LANE_TRIS)
     slabs = torch.zeros(n, dtype=torch.int64, device=ro.device)
     tests = torch.zeros(n, dtype=torch.int64, device=ro.device)
+    visits = torch.zeros(n, dtype=torch.int64, device=ro.device)
     for rank, s in enumerate(order[:cs.n_superclusters].tolist()):
         slabs += going
         inside = going & cl._slab(super_sorted[rank, 0:3], super_sorted[rank, 3:6], ro,
@@ -164,6 +166,9 @@ def walk(cs, ro, rd, t1, t_final=None, watertight=True):
             tests[idx] += torch.where(stop, occ.int().argmax(dim=1) + 1, cl.LANE_TRIS)
             going[idx[stop]] = False
             inside[idx[stop]] = False
+        if budget > 0:
+            visits += inside
+            going &= visits < budget
     return slabs, tests, (t1v > T0) & ~going
 
 

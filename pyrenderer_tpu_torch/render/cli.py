@@ -54,11 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
                  "watertight"],
         default="auto",
         help="intersection backend: auto = the whole-table CUDA kernels on a "
-        "GPU (the plain PyTorch test on the CPU) up to 4096 triangles, the "
-        "cluster sweep above (the binned traversal under "
-        "PYRENDERER_CLUSTER_IMPL=binned); cluster, cluster_binned, "
-        "cluster_streamed, watertight and cuda/brute are ported, the rest "
-        "raises",
+        "GPU (the plain PyTorch test on the CPU) up to 4096 triangles, above "
+        "the cluster sweep on a GPU (the binned traversal under "
+        "PYRENDERER_CLUSTER_IMPL=binned) and the BVH on the CPU; pallas and "
+        "matmul are not ported and raise",
     )
     p.add_argument("--chunk", type=int, default=1 << 16,
                    help="rays per dispatch chunk (default 2^16)")

@@ -36,9 +36,10 @@ class ProgressiveRenderer:
     """Accumulates spp_step-sample passes into a Film until cfg.spp.
 
     `scene` and `camera` hold tensors on the device to render on
-    (scene.types.to_device); the film lives on the host. The backend is
-    resolved, and for scenes past AUTO_BRUTE_MAX_TRIS the ClusterScene
-    built (unless `accel` gives one), before the first pass."""
+    (scene.types.to_device); the film lives on the host. The accelerator
+    the backend needs (a FlatBVH, a ClusterScene or a ClusterChunks:
+    core/integrator.maybe_build_accel) is built unless `accel` gives one,
+    and the backend resolved with it, before the first pass."""
 
     def __init__(
         self,

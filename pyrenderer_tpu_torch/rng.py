@@ -50,16 +50,19 @@ _U32 = 0xFFFFFFFF
 _KEY_TAG = 0x70617468
 _SCALE = 1.0 / (1 << 24)
 
-# Round count, read once per process (20: Threefry's default; 13: the
-# smallest count that passes BigCrush, Salmon et al. SC'11). Subkeys are
-# injected only after complete 4-round groups (the Random123 schedule).
-ROUNDS = int(os.environ.get("PYRENDERER_TF_ROUNDS", "20"))
+def _default_rounds() -> int:
+    """The round count PYRENDERER_TF_ROUNDS asks for (20: Threefry's
+    default; 13: the smallest count that passes BigCrush, Salmon et al.
+    SC'11), read at every call, as the JAX package and the NumPy oracle
+    read it. Subkeys are injected only after complete 4-round groups (the
+    Random123 schedule)."""
+    return int(os.environ.get("PYRENDERER_TF_ROUNDS", "20"))
 
 
 def threefry2x32(k0, k1, c0, c1, rounds: int | None = None):
     """Threefry-2x32. Inputs are Python ints or int64 tensors holding uint32
     values; returns the two output words as int64 tensors in [0, 2**32)."""
-    rounds = ROUNDS if rounds is None else rounds
+    rounds = _default_rounds() if rounds is None else rounds
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (c0 + ks[0]) & _U32
     x1 = (c1 + ks[1]) & _U32

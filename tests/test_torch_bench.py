@@ -66,7 +66,7 @@ CLUSTER = ("cluster_closest_hit", "cluster_occluded")
     pytest.param("cornell", "reference", "auto", (), id="cornell-reference"),
     pytest.param("cornell", "pbrt", "auto", (), id="cornell-pbrt"),
     pytest.param("cornell", "pbrt", "cuda", WHOLE_TABLE, id="cornell-pbrt-cuda"),
-    pytest.param("terrain8k", "reference", "auto", CLUSTER, id="terrain8k-reference")])
+    pytest.param("terrain8k", "reference", "cluster", CLUSTER, id="terrain8k-reference")])
 def test_bench_json_line_on_cpu(scene, estimator, backend, queries, monkeypatch, capsys):
     """BENCH_DEVICE=cpu at 16x16, 1 spp: one JSON line with bench.py's
     metric name, a finite value, device "cpu", no calibration, and the
@@ -102,8 +102,16 @@ def test_bench_metric_suffixes():
 
 
 def test_bench_rounds_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
-        bench.run(_env("cornell", BENCH_ROUNDS="2", BENCH_RES="8"))
+    """BENCH_ROUNDS=2 runs suspend/resume rounds: on terrain8k with backend
+    "cluster" it counts the rays of rounds 1, and each closest-hit query
+    runs two twin passes (one suspend, one resume)."""
+    env = _env("terrain8k", BENCH_BACKEND="cluster", BENCH_RES="8")
+    one = bench.run(env)
+    two = bench.run(dict(env, BENCH_ROUNDS="2", BENCH_BUDGET="1"))
+    assert two["rays"] == one["rays"] > 0 and two["metric"] == one["metric"]
+    assert two["twin_calls"] == {"cluster_closest_hit": 8, "cluster_closest_suspend": 4,
+                                 "cluster_closest_resume": 4, "cluster_occluded": 4}
+    assert two["launches"] == {}
 
 
 def test_calibrate_is_none_on_cpu():

@@ -120,20 +120,22 @@ def _words_lane(words):
 
 def test_routing_honours_cluster_impl_binned(monkeypatch, terrain64):
     """PYRENDERER_CLUSTER_IMPL=binned turns "cluster", and "auto" past
-    AUTO_BRUTE_MAX_TRIS, into "cluster_binned" on both devices, as the JAX
-    package does (core/integrator.py:178-179, :204); the binned backends
-    resolve to themselves, and "auto" never picks "cluster_streamed"."""
+    AUTO_BRUTE_MAX_TRIS on CUDA, into "cluster_binned", as the JAX package
+    does (core/integrator.py:178-179, :204); CPU "auto" stays "bvh" there,
+    as off the TPU; the binned backends resolve to themselves, and "auto"
+    never picks "cluster_streamed"."""
     limit = integ.AUTO_BRUTE_MAX_TRIS
     monkeypatch.setenv("PYRENDERER_CLUSTER_IMPL", "binned")
     for dev in ("cpu", "cuda:0"):
         assert integ.resolve_backend("cluster", 36, dev) == "cluster_binned"
-        assert integ.resolve_backend("auto", limit + 1, dev) == "cluster_binned"
         assert integ.resolve_backend("auto", limit, dev) in ("brute", "cuda")
         for b in ("cluster_binned", "cluster_streamed"):
             assert integ.resolve_backend(b, 36, dev) == b
+    assert integ.resolve_backend("auto", limit + 1, "cuda:0") == "cluster_binned"
+    assert integ.resolve_backend("auto", limit + 1, "cpu") == "bvh"
     host, camera, _, _ = terrain64
     scene, _ = to_device(host, camera, "cpu")
-    accel = integ.maybe_build_accel(scene, "auto")
+    accel = integ.maybe_build_accel(scene, "cluster")
     assert isinstance(accel, cl.ClusterScene) and accel.bin_box.shape == (32, 128)
     tables = integ.TraceTables(scene, CFG, "cluster", accel=accel)
     assert tables.backend == "cluster_binned" and not tables.cluster_sort
@@ -141,7 +143,7 @@ def test_routing_honours_cluster_impl_binned(monkeypatch, terrain64):
     for n_tris in (36, limit + 1, 10 ** 6):
         for dev in ("cpu", "cuda:0"):
             assert integ.resolve_backend("auto", n_tris, dev) != "cluster_streamed"
-    assert integ.resolve_backend("auto", limit + 1, "cpu") == "cluster"
+    assert integ.resolve_backend("auto", limit + 1, "cuda:0") == "cluster"
     assert integ.resolve_backend("cluster", 36, "cpu") == "cluster"
     for b in ("cluster_binned", "cluster_streamed"):
         assert integ.resolve_backend(b, 36, "cpu") == b

@@ -400,19 +400,23 @@ def test_kernel_source_matches_twin_constants():
 
 
 def test_routing_and_auto_policies(terrain):
-    """"auto" picks the cluster sweep above AUTO_BRUTE_MAX_TRIS on the CPU
-    and on CUDA; sort and watertight switch on at AUTO_SORT_MIN_CLUSTERS;
-    suspend/resume rounds raise."""
+    """"auto" picks the cluster sweep above AUTO_BRUTE_MAX_TRIS on CUDA and
+    the BVH on the CPU (as the JAX package does off the TPU), or the
+    backend of a given accelerator; "bvh" and "cluster_chunked" resolve;
+    sort and watertight switch on at AUTO_SORT_MIN_CLUSTERS; suspend/resume
+    rounds build."""
+    from pyrenderer_tpu_torch.accel.bvh import FlatBVH
+
     limit = integ.AUTO_BRUTE_MAX_TRIS
-    for dev in ("cpu", "cuda:0"):
-        assert integ.resolve_backend("auto", limit + 1, dev) == "cluster"
+    assert integ.resolve_backend("auto", limit + 1, "cuda:0") == "cluster"
+    assert integ.resolve_backend("auto", limit + 1, "cpu") == "bvh"
     assert integ.resolve_backend("auto", limit, "cpu") == "brute"
     assert integ.resolve_backend("auto", limit, "cuda:0") == "cuda"
     assert integ.resolve_backend("cluster", 36, "cpu") == "cluster"
     assert integ.resolve_backend("watertight", 10 ** 6, "cpu") == "watertight"
     for backend in ("bvh", "cluster_chunked"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            integ.resolve_backend(backend, 10 ** 5, "cpu")
+        for dev in ("cpu", "cuda:0"):
+            assert integ.resolve_backend(backend, 10 ** 5, dev) == backend
 
     small = types.SimpleNamespace(n_clusters=integ.AUTO_SORT_MIN_CLUSTERS - 1)
     large = types.SimpleNamespace(n_clusters=integ.AUTO_SORT_MIN_CLUSTERS)
@@ -426,7 +430,8 @@ def test_routing_and_auto_policies(terrain):
     host, camera = terrain
     scene, _ = to_device(host, camera, "cpu")
     assert scene.faces.shape[0] > limit
-    accel = integ.maybe_build_accel(scene, "auto")
+    assert isinstance(integ.maybe_build_accel(scene, "auto"), FlatBVH)
+    accel = integ.maybe_build_accel(scene, "cluster")
     assert isinstance(accel, cl.ClusterScene) and accel.n_clusters == 80
     assert integ.maybe_build_accel(scene, "brute") is None
     assert integ.maybe_build_accel(scene, "auto", accel) is accel
@@ -434,8 +439,9 @@ def test_routing_and_auto_policies(terrain):
     assert tables.backend == "cluster" and tables.accel is accel
     # 80 clusters: below the auto thresholds, MT leaves and no sort
     assert not tables.cluster_sort and not tables.cluster_watertight
-    with pytest.raises(NotImplementedError, match="A10"):
-        integ.TraceTables(scene, CFG.replace(cluster_rounds=2))
+    tables = integ.TraceTables(scene, CFG.replace(cluster_rounds=2), "cluster", accel=accel)
+    assert tables.backend == "cluster"
+    assert integ.TraceTables(scene, CFG, "bvh").backend == "bvh"
 
 
 def _camera_wavefront(host, camera, n=256):
@@ -501,19 +507,47 @@ def test_render_image_cluster_matches_jax(terrain, clusters, watertight):
     assert np.median(np.abs(img - img_j)) < 1e-5
 
 
-def test_progressive_renderer_builds_accel_and_matches_render_image(terrain):
-    """ProgressiveRenderer with backend "auto" on an 8k-triangle scene
-    resolves "cluster" and builds the ClusterScene before the first pass;
-    its film equals render_image's image."""
+@pytest.mark.parametrize("backend", ["cluster", "auto"])
+def test_progressive_renderer_builds_accel_and_matches_render_image(terrain, backend):
+    """ProgressiveRenderer on an 8k-triangle scene builds the accelerator of
+    its backend before the first pass (backend "cluster": a ClusterScene;
+    "auto" on the CPU: a FlatBVH, backend "bvh"); its film equals
+    render_image's image."""
+    from pyrenderer_tpu_torch.accel.bvh import FlatBVH
+
     host, camera = terrain
     scene, cam = to_device(host, camera._replace(resolution=(8, 8)), "cpu")
     cfg = CFG.replace(spp=1)
-    renderer = ProgressiveRenderer(scene, cam, cfg)
-    assert renderer.backend == "cluster"
-    assert isinstance(renderer.accel, cl.ClusterScene)
+    renderer = ProgressiveRenderer(scene, cam, cfg, backend=backend)
+    expected = {"cluster": ("cluster", cl.ClusterScene), "auto": ("bvh", FlatBVH)}[backend]
+    assert renderer.backend == expected[0]
+    assert isinstance(renderer.accel, expected[1])
     film = renderer.run(quiet=True)
-    img = integ.render_image(scene, cam, cfg, accel=renderer.accel).numpy()
+    img = integ.render_image(scene, cam, cfg, backend=backend, accel=renderer.accel).numpy()
     np.testing.assert_allclose(film.hdr, img, rtol=1e-6, atol=1e-7)
+
+
+def test_wavefront_sort_optin_matches_default(terrain, monkeypatch):
+    """PYRENDERER_WF_SORT=1 (the whole wavefront state sorted once per
+    bounce, tests/test_cluster.py:349-380) gives each pixel the radiance of
+    the default per-query path, both estimators; it applies only to the
+    sorted "cluster" backend."""
+    host, camera = terrain
+    scene, cam = to_device(host, camera._replace(resolution=(24, 24)), "cpu")
+    cfg = CFG.replace(spp=2, max_bounces=3, cluster_sort=True)
+    accel = cl.build_clusters(host.vertices, host.faces)
+    for estimator in ("reference", "pbrt"):
+        c = cfg.replace(estimator=estimator)
+        monkeypatch.delenv("PYRENDERER_WF_SORT", raising=False)
+        img = integ.render_image(scene, cam, c, backend="cluster", accel=accel)
+        assert not integ.use_wavefront_sort(integ.TraceTables(scene, c, "cluster", accel))
+        monkeypatch.setenv("PYRENDERER_WF_SORT", "1")
+        assert integ.use_wavefront_sort(integ.TraceTables(scene, c, "cluster", accel))
+        assert not integ.use_wavefront_sort(integ.TraceTables(
+            scene, c.replace(cluster_sort=False), "cluster", accel))
+        img_wf = integ.render_image(scene, cam, c, backend="cluster", accel=accel)
+        assert img.max() > 0
+        torch.testing.assert_close(img_wf, img, rtol=1e-5, atol=1e-7)
 
 
 def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):

@@ -127,17 +127,18 @@ def test_packed_tables_match_jax(cornell_path):
 
 
 def test_backend_resolution_and_unported_paths(cornell_path):
-    """"auto" is "brute" on CPU tensors and "cuda" on CUDA ones, and the
-    cluster sweep past AUTO_BRUTE_MAX_TRIS; both estimators render, an
-    unknown one is refused; what is not ported raises NotImplementedError
-    instead of taking another path."""
+    """"auto" is "brute" on CPU tensors and "cuda" on CUDA ones, and past
+    AUTO_BRUTE_MAX_TRIS the BVH on the CPU and the cluster sweep on CUDA;
+    both estimators render, an unknown one is refused; what is not ported
+    raises NotImplementedError instead of taking another path."""
     assert integ.resolve_backend("auto", 36, "cpu") == "brute"
     assert integ.resolve_backend("auto", 36, "cuda:0") == "cuda"
     assert integ.resolve_backend("cuda", 36, "cpu") == "cuda"
-    for backend in ("pallas", "matmul", "bvh"):
+    for backend in ("pallas", "matmul"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             integ.resolve_backend(backend, 36, "cpu")
-    assert integ.resolve_backend("auto", integ.AUTO_BRUTE_MAX_TRIS + 1, "cpu") == "cluster"
+    assert integ.resolve_backend("auto", integ.AUTO_BRUTE_MAX_TRIS + 1, "cpu") == "bvh"
+    assert integ.resolve_backend("auto", integ.AUTO_BRUTE_MAX_TRIS + 1, "cuda:0") == "cluster"
     with pytest.raises(ValueError):
         integ.resolve_backend("nope", 36, "cpu")
 

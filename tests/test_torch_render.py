@@ -108,8 +108,8 @@ def test_cli_cpu_end_to_end(cornell_path, tmp_path):
 def test_cli_unported_options_raise(cornell_path, tmp_path):
     base = [cornell_path, "--cpu", "--res", "4", "4", "--spp", "1",
             "--out", str(tmp_path / "o.png")]
-    with pytest.raises(NotImplementedError, match="A10"):
-        cli.main(base + ["--estimator", "reference", "--backend", "bvh"])
+    with pytest.raises(NotImplementedError, match="A14"):
+        cli.main(base + ["--estimator", "reference", "--backend", "matmul"])
     with pytest.raises(NotImplementedError, match="A11"):
         cli.main(["analytic"])
     with pytest.raises(SystemExit):  # --live is not ported yet (ROADMAP A6)

@@ -82,6 +82,21 @@ def test_uniform_streams_bit_exact(seed):
     assert np.array_equal(a, na) and np.array_equal(b, nb)
 
 
+def test_rounds_read_at_call_time(monkeypatch):
+    """PYRENDERER_TF_ROUNDS set after the port was imported takes effect:
+    uniform at 13 rounds equals the NumPy oracle's 13-round draw and
+    differs from the 20-round one."""
+    pixel, sample, bounce, use = _counters(256, 3)
+    args_t = (_t(pixel), _t(sample), _t(bounce), _t(use))
+    u20 = rng.uniform(11, *args_t).numpy()
+    monkeypatch.setenv("PYRENDERER_TF_ROUNDS", "13")
+    u13 = rng.uniform(11, *args_t).numpy()
+    assert np.array_equal(u13, rng_np.uniform(11, pixel, sample, bounce, use, np.float32))
+    assert (u13 != u20).mean() > 0.99
+    monkeypatch.delenv("PYRENDERER_TF_ROUNDS")
+    assert np.array_equal(rng.uniform(11, *args_t).numpy(), u20)
+
+
 def test_scalar_counters_broadcast():
     """Scalar sample/bounce/use broadcast against a pixel tensor, as the
     integrator calls it."""
