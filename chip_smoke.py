@@ -56,10 +56,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (200 bins of 512 triangles, 224 box rows), on phase 6's ray sets, with
    W at its default and at 1 (overflow and peel rounds), MT and watertight
    leaves: prepass and peel bit for bit, each leaf's per-pair (t, slot) key
-   bit for bit; then the public binned closest_hit / occluded, resident and
-   streamed, against phase 6's sweep-twin results (equal hit masks and
-   occlusion, faces >= 0.999); the leak hunt through the binned watertight
-   path.
+   bit for bit, also on the leaves' launch edges (one pair, 33 pairs, a bin
+   of more than 128, a last piece of one pair, all SENTINEL, dead rays) and
+   on exact duplicate triangles in one bin (the lower slot must win; both
+   from perf/clusterbench.py); then the public binned closest_hit /
+   occluded, resident and streamed, against phase 6's sweep-twin results
+   (equal hit masks and occlusion, faces >= 0.999); the leak hunt through
+   the binned watertight path.
 11. The binned path through ProgressiveRenderer: phase 7's frame with
    backend "cluster_binned" and with "cluster_streamed". Checks a finite
    HDR, at least 4 passes x 4 chunks x 4 bounces x 2 queries launches of
@@ -69,7 +72,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    > 0.999 at rtol 1e-3, median |diff| 0); prints the three frames' Mrays/s.
    Then one CLI render with --backend cluster_binned (Cornell, 64x64).
 12. Timings on the bounce-1 wavefront: each binned kernel alone and its
-   twin, and the binned wrappers (glue included) against the sweep's.
+   twin, with ptxas's registers and spill of both leaves, and the binned
+   wrappers (glue included) against the sweep's.
 13. The four probe kernels of perf/kernelbench.py (csrc/kernelbench.cu:
    leaf, extract, cond, ctz) against their twins at the harness's shape
    (256 tiles of 128 rays), on every parameter of its lists, bit for bit;
@@ -730,6 +734,48 @@ def compare_binned_kernels(kb, cs, rays, w, label):
     return np.array(err)
 
 
+def compare_binned_edges(kb, cs, refs, dev):
+    """Both leaves against their twins, bit for bit, MT and watertight, on
+    the launch edges (perf/clusterbench.edge_streams of phase 6's random
+    rays: one pair, 33, a bin of more than 128, a last piece of one pair,
+    all SENTINEL, dead rays) and on the duplicate triangles
+    (perf/clusterbench.duplicate_set: the lower slot wins); returns the max
+    absolute differences (leaf t, streamed leaf t)."""
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+    from pyrenderer_tpu_torch.perf import clusterbench as cb
+
+    rays = kc._prepare(cs, *refs["random, scalar t1"]["rays"], sort=False)[0]
+    cs_d, rays_d, sortd_d, pair_d, copies, sources = cb.duplicate_set(cs, dev)
+    cases = [(label, cs, stream) for label, stream in cb.edge_streams(kb, cs, rays).items()]
+    cases.append(("duplicate triangles", cs_d, (sortd_d, pair_d, rays_d)))
+    err = np.zeros(2)
+    for label, scene, (sortd, pair_ray, r) in cases:
+        blocks = kb.blocks_for(sortd, cs.n_clusters // kb.BIN)
+        for wt in (False, True):
+            keys = kb.leaf(scene, sortd, pair_ray, r, T0, wt)
+            keys_s = kb.leaf_streamed(scene, blocks, pair_ray, r, T0, wt)
+            keys_r = kb.leaf_ref(scene, sortd, pair_ray, r, T0, wt)
+            keys_sr = kb.leaf_streamed_ref(scene, blocks, pair_ray, r, T0, wt)
+            torch.cuda.synchronize()
+            tag = f"binned leaf edge {label}, {'watertight' if wt else 'MT'}"
+            check(torch.equal(keys, keys_r), f"{tag}: leaf keys differ from the twin")
+            check(torch.equal(keys_s, keys_sr), f"{tag}: streamed leaf keys differ from the twin")
+            check(torch.equal(keys_s, keys), f"{tag}: the two leaves differ")
+            slot = kb.decode(keys)[2]
+            if scene is cs_d:
+                check(not torch.isin(slot, torch.tensor(copies, device=dev)).any()
+                      and torch.isin(slot, torch.tensor(sources, device=dev)).all(),
+                      f"{tag}: a duplicate did not resolve to its lower slot")
+            hit = keys_r != kb.MISS_KEY
+            for i, k in enumerate((keys, keys_s)):
+                dt = (kb.decode(k)[1] - kb.decode(keys_r)[1])[hit].abs()
+                err[i] = max(err[i], float(dt.max()) if dt.numel() else 0.0)
+        print(f"{label}: {sortd.shape[0]} pairs, {int((blocks[:, 0] >= 0).sum())} streamed "
+              f"blocks, {int(hit.sum())} hits; both leaves' keys bit-equal to the twins "
+              f"(MT, watertight)", flush=True)
+    return err
+
+
 def compare_binned_wrappers(kb, cl, cs, refs, label):
     """The public binned closest_hit / occluded, resident and streamed, W at
     its default and at 1, MT and watertight, against phase 6's sweep-twin
@@ -769,7 +815,9 @@ def binned_phases(dev, card, ctx):
     kernel-line entries of the four binned kernels."""
     from pyrenderer_tpu_torch.accel import clusters as cl
     from pyrenderer_tpu_torch.kernels import binned as kb
+    from pyrenderer_tpu_torch.kernels import build
     from pyrenderer_tpu_torch.kernels import cluster as kc
+    from pyrenderer_tpu_torch.perf.clusterbench import ptxas_report
     from pyrenderer_tpu_torch.perf.kernelbench import cuda_ms
     from pyrenderer_tpu_torch.render import cli
     from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
@@ -783,6 +831,7 @@ def binned_phases(dev, card, ctx):
         rays = kc._prepare(cs, *ref["rays"], sort=False)[0]
         for w in (kb._W_DEFAULT, 1):
             err = np.maximum(err, compare_binned_kernels(kb, cs, rays, w, label))
+    err[2:] = np.maximum(err[2:], compare_binned_edges(kb, cs, refs, dev))
     max_abs_err = dict(zip(names, (float(e) for e in err)))
     peels = {label: compare_binned_wrappers(kb, cl, cs, ref, label)
              for label, ref in refs.items()}
@@ -874,11 +923,15 @@ def binned_phases(dev, card, ctx):
         "binned_leaf": bound(leaf_ops, leaf_bytes + nbytes(sortd)),
         "binned_leaf_streamed": bound(leaf_ops, leaf_bytes + nbytes(blocks)),
     }
+    ptxas = ptxas_report(build.build_log(), "binned")
     for name in names:
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, bound "
               f"{bounds[name][0]:.6f} ms ({bounds[name][1]}) (bounce-1 wavefront of {N_RAYS} "
               f"rays, {n_live} live, {n_real} pairs, terrain100k, watertight, {card})",
               flush=True)
+        for line in ptxas:
+            if line.startswith(f"ptxas {name}_kernel "):
+                print(f"  {line}", flush=True)
     wrappers = {
         "closest, binned": lambda: kb.closest_hit(cs, b_ro, b_rd, T0, b_t1, watertight=True,
                                                   exact_t=False),

@@ -78,8 +78,8 @@
 // The fresh mode compiles to the same code as before: the resume mode costs
 // it nothing, as on the TPU (_sweep :713-719).
 //
-// Arithmetic, constants, the slab and triangle tests and the key are
-// leaf.cuh's.
+// Arithmetic, constants, the slab and triangle tests, the key and its warp
+// minimum are leaf.cuh's.
 //
 // Each C entry point launches on the caller's stream, returns the
 // cudaError_t of the launch and never synchronises.
@@ -91,20 +91,8 @@
 
 namespace {
 
-constexpr int kWarp = 32;
 constexpr int kBoxRow = 8;   // floats per box row: bmin.xyz | bmax.xyz | 0 | 0
-constexpr int kRaysPerBlock = kThreads / kWarp;
 constexpr int kLeafSteps = kLane / kWarp;   // triangles per lane in a leaf
-constexpr unsigned kAll = 0xFFFFFFFFu;
-
-__device__ __forceinline__ int64_t warp_min(int64_t key) {
-#pragma unroll
-  for (int d = kWarp / 2; d > 0; d /= 2) {
-    const int64_t other = __shfl_xor_sync(kAll, key, d);
-    key = other < key ? other : key;
-  }
-  return key;
-}
 
 // The walk of one ray by its warp. Visit(j) runs the leaf of cluster j
 // (every lane calls it, with the same j) and returns true to stop; bound()
@@ -272,10 +260,6 @@ cluster_anyhit_kernel(const float* __restrict__ tri,
           });
   }
   if (lane == 0) occ_out[i] = occ;
-}
-
-inline unsigned int warp_blocks(int64_t n) {
-  return (unsigned int)((n + kRaysPerBlock - 1) / kRaysPerBlock);
 }
 
 }  // namespace

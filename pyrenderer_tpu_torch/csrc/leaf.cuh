@@ -1,7 +1,7 @@
 // Device helpers shared by the cluster-sweep (cluster.cu) and binned
 // (binned.cu) kernels: the constants of the ClusterScene layout, the ray
 // row, the slab test of a box, the Moeller-Trumbore and watertight
-// triangle tests, and the int64 (t, slot) key of a hit.
+// triangle tests, the int64 (t, slot) key of a hit and its warp minimum.
 //
 // Arithmetic follows the plain twins operation for operation
 // (accel/clusters.py _slab and _leaf, core/intersect.py _mt_terms,
@@ -20,6 +20,8 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr unsigned kAll = 0xFFFFFFFFu;
 constexpr int kLane = 128;      // triangles per cluster = row stride
 constexpr int kGroup = 16;      // clusters per supercluster
 constexpr int kTriRows = 16;    // table rows per cluster (9 used)
@@ -87,6 +89,16 @@ __device__ __forceinline__ bool slab(const float* __restrict__ b,
 // tie to the lowest slot; a miss is pack_key(kMissT, -1).
 __device__ __forceinline__ int64_t pack_key(float t, int32_t slot) {
   return (int64_t)(((uint64_t)__float_as_uint(t) << 32) | (uint32_t)slot);
+}
+
+// The minimum key of the warp, in every lane (all 32 lanes must call it).
+__device__ __forceinline__ int64_t warp_min(int64_t key) {
+#pragma unroll
+  for (int d = kWarp / 2; d > 0; d /= 2) {
+    const int64_t other = __shfl_xor_sync(kAll, key, d);
+    key = other < key ? other : key;
+  }
+  return key;
 }
 
 // Moeller-Trumbore in the order of core/intersect.py _mt_terms; true when
@@ -219,6 +231,12 @@ __device__ __forceinline__ bool tri_test(const float* __restrict__ c,
 
 inline unsigned int n_blocks(int64_t n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
+}
+
+// Blocks of kThreads for one warp per item.
+inline unsigned int warp_blocks(int64_t n) {
+  constexpr int per_block = kThreads / kWarp;
+  return (unsigned int)((n + per_block - 1) / per_block);
 }
 
 }  // namespace

@@ -29,15 +29,16 @@ Overflow rays (more than W crossing bins) are finished in one of two ways:
     also returns each ray's crossing bits left after the peel, and rounds
     of ``peel`` (the next W bins) -> sort -> ``leaf_streamed`` -> reduce,
     min-merged, run until no ray has bits left. ``leaf_streamed`` gives
-    each CUDA block one bin's run of up to 128 sorted pairs (the blockify
-    step, ``blocks_for``) and stages the bin's triangles in shared memory.
+    each CUDA block one bin's run of up to RUN_PAIRS sorted pairs (the
+    blockify step, ``blocks_for``) and stages the bin's triangles in shared
+    memory.
 
 The leaf runs over the real pairs only: the one device-to-host read of a
 query (resident) or of a round (streamed), ``_count``, returns whether
 any ray overflowed together with the number of real pairs, and the sorted
 stream is cut to that prefix (the TPU's ``_tier_caps`` picked a static
 prefix for XLA's static shapes instead). Rays need no padding: one thread
-per ray or pair.
+per ray (prepass, peel), one warp per pair (both leaves).
 
 Each kernel wrapper (``prepass``, ``peel``, ``leaf``, ``leaf_streamed``)
 takes the device from its tensors: on a CUDA tensor it launches the kernel
@@ -92,7 +93,11 @@ def _w_slots(streamed: bool = False) -> int:
 SENTINEL = 0x7FFFFFFF   # an empty candidate slot: sorts after every bin id
 # a pair's key on a miss: MISS_T's bits over slot -1 (all ones)
 MISS_KEY = (int(np.float32(MISS_T).view(np.int32)) << 32) | 0xFFFFFFFF
-_THREADS = 128          # pairs per block of the streamed leaf (kThreads)
+# most sorted pairs per CUDA block of the streamed leaf (blocks_for); its 4
+# warps take them in turn. On the terrain100k bounce-1 wavefront the kernel
+# took 0.155 ms with runs of 16 against 0.179 (32), 0.221 (64) and 0.298
+# (128) (NVIDIA H100 80GB HBM3, 700 W; perf/clusterbench.py kernels binned).
+RUN_PAIRS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -193,11 +198,11 @@ def leaf_streamed_ref(cs: ClusterScene, blocks, pair_ray, rays, t0, watertight=F
     """Twin of the streamed leaf kernel over the blockified stream: blocks
     (B, 3) int32 rows (bin, start, count) cover the P sorted pairs; keys
     (P,) int64 (MISS_KEY where no row covers a pair)."""
-    lane = torch.arange(_THREADS, device=blocks.device)
+    lane = torch.arange(RUN_PAIRS, device=blocks.device)
     blocks = blocks.to(torch.int64)
     ok = (lane < blocks[:, 2:3]) & (blocks[:, 0:1] >= 0)
     pos = (blocks[:, 1:2] + lane)[ok]
-    bins = blocks[:, 0:1].expand(-1, _THREADS)[ok]
+    bins = blocks[:, 0:1].expand(-1, RUN_PAIRS)[ok]
     keys = torch.full(pair_ray.shape, MISS_KEY, dtype=torch.int64, device=pair_ray.device)
     keys[pos] = _leaf_pairs(cs, bins, pair_ray[pos], rays, t0, watertight)
     return keys
@@ -255,6 +260,9 @@ def _check_leaf_args(cs, pair_ray, rays):
     _check_table(rays, torch.float32, "rays", dev)
     _check_table(pair_ray, torch.int64, "pair_ray", dev)
     _check_table(cs.tri, torch.float32, "ClusterScene.tri", dev)
+    if cs.tri.data_ptr() % 16:
+        raise ValueError("ClusterScene.tri must be 16-byte aligned (the streamed leaf copies "
+                         "it in 16-byte pieces)")
     if BIN != 4:
         raise ValueError(f"the binned kernels are compiled for BIN = 4, not {BIN}")
 
@@ -282,7 +290,8 @@ def leaf_streamed(cs: ClusterScene, blocks, pair_ray, rays, t0, watertight=False
         return leaf_streamed_ref(cs, blocks, pair_ray, rays, t0, watertight)
     _check_leaf_args(cs, pair_ray, rays)
     _check_table(blocks, torch.int32, "blocks", rays.device)
-    keys = torch.empty(pair_ray.shape[0], dtype=torch.int64, device=rays.device)
+    # a pair no row covers (a SENTINEL pair) keeps the miss, as in the twin
+    keys = torch.full((pair_ray.shape[0],), MISS_KEY, dtype=torch.int64, device=rays.device)
     build.launch("pr_binned_leaf_streamed", rays.device, cs.tri.data_ptr(), blocks.data_ptr(),
                  blocks.shape[0], pair_ray.data_ptr(), rays.data_ptr(), float(t0),
                  int(bool(watertight)), keys.data_ptr())
@@ -323,18 +332,19 @@ def sort_pairs(ids, n_real):
 def blocks_for(sortd, n_bins):
     """The blockify step of the streamed leaf: (B, 3) int32 rows (bin,
     start, count) cutting each bin's run of the sorted pairs into pieces of
-    at most 128, one per CUDA block. B is the static bound
-    ceil(P / 128) + min(n_bins, P); rows past the real pieces carry bin -1."""
+    at most RUN_PAIRS, one per CUDA block. B is the static bound
+    ceil(P / RUN_PAIRS) + min(n_bins, P); rows past the real pieces carry bin
+    -1."""
     p = sortd.shape[0]
     dev = sortd.device
     coff = torch.searchsorted(sortd, torch.arange(n_bins + 1, dtype=sortd.dtype, device=dev))
-    per_bin = (coff.diff() + _THREADS - 1) // _THREADS                # pieces per bin
+    per_bin = (coff.diff() + RUN_PAIRS - 1) // RUN_PAIRS                # pieces per bin
     boff = torch.cat([per_bin.new_zeros(1), per_bin.cumsum(0)])        # (n_bins + 1,)
-    blk = torch.arange(-(-p // _THREADS) + min(n_bins, p), device=dev)
+    blk = torch.arange(-(-p // RUN_PAIRS) + min(n_bins, p), device=dev)
     b = (torch.searchsorted(boff, blk, right=True) - 1).clamp(max=n_bins - 1)
-    start = coff[b] + (blk - boff[b]) * _THREADS
+    start = coff[b] + (blk - boff[b]) * RUN_PAIRS
     real = blk < boff[-1]
-    count = torch.where(real, (coff[b + 1] - start).clamp(max=_THREADS), 0)
+    count = torch.where(real, (coff[b + 1] - start).clamp(max=RUN_PAIRS), 0)
     return torch.stack([torch.where(real, b, -1), start, count], dim=1).to(torch.int32)
 
 

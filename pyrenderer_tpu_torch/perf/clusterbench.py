@@ -1,8 +1,8 @@
-"""The cluster-sweep kernels on the GPU at terrain100k: each kernel timed
-alone and with its wrapper's glue, checked ray by ray, and the frame's
-device profile.
+"""The cluster-sweep and binned kernels on the GPU at terrain100k: each
+kernel timed alone and with its wrapper's glue, checked ray by ray or pair
+by pair, and the frame's device profile.
 
-    python -m pyrenderer_tpu_torch.perf.clusterbench kernels [--parity] [--out DIR]
+    python -m pyrenderer_tpu_torch.perf.clusterbench kernels [sweep|binned] [--parity] [--out DIR]
     python -m pyrenderer_tpu_torch.perf.clusterbench compare DIR_A DIR_B
     python -m pyrenderer_tpu_torch.perf.clusterbench profile [--backend B]
 
@@ -22,28 +22,42 @@ walk's leaves spread over the live rays (walk), and one JSON line. With
 PARITY_SETS, holds (t, slot) and occlusion against the plain twins, and
 saves the ray sets and every result to DIR for ``compare``.
 
+``kernels binned`` does the same for the four binned kernels
+(kernels/binned.py) at W = 6 on the same wavefront and shadow rays: the
+prepass, the peel, each leaf with MT and watertight leaves (the streamed
+leaf also with the other runs per block of RUN_CAPS), each alone from CUDA
+graphs, then the binned wrappers, resident and streamed, with their glue
+(eager calls: each query reads the device); it prints the ptxas report of
+csrc/binned.cu. With --parity it runs both leaves on the pairs of every
+PARITY_SETS set at W = 6 and 1, on the launch edges (edge_streams) and on
+the duplicate triangles (duplicate_set), holds every key against the
+resident twin and saves the pairs and keys to DIR/binned.pt.
+
 The kernels are driven only through names an older checkout of the port
 has too (kernels/cluster.py _check_cuda_args, _prepare, _sc_order,
-_unsort; kernels/build.launch; perf/kernelbench.graph_ms), and never through the
-wrappers' launch counts, so this file times and checks an older
-checkout's kernels when that checkout comes first on the path:
+_unsort; kernels/binned.py prepass, peel, sort_pairs, blocks_for, leaf,
+leaf_streamed, leaf_ref, RUN_PAIRS or _THREADS; kernels/build.launch;
+perf/kernelbench.graph_ms, cuda_ms), and never through the wrappers'
+launch counts, so this file times and checks an older checkout's kernels
+when that checkout comes first on the path:
 
-    PYTHONPATH=OLD python pyrenderer_tpu_torch/perf/clusterbench.py kernels --parity --out A
-    PYTHONPATH=. python pyrenderer_tpu_torch/perf/clusterbench.py kernels --parity --out B
+    PYTHONPATH=OLD python pyrenderer_tpu_torch/perf/clusterbench.py kernels binned --parity --out A
+    PYTHONPATH=. python pyrenderer_tpu_torch/perf/clusterbench.py kernels binned --parity --out B
     PYTHONPATH=. python pyrenderer_tpu_torch/perf/clusterbench.py compare A B
 
-``compare`` counts, per ray set and configuration, the rays on which the
-two runs' kernels differ and on how many of them each run agrees with the
-twin.
+``compare`` counts, per ray set and configuration, the rays (or pairs) on
+which the two runs' kernels differ and on how many of them each run agrees
+with the twin.
 
 ``profile`` runs chunk-samples of the terrain100k frame (512x512, 4
 bounces, reference estimator, the first 2^16-pixel chunk) through backend
-"cluster" or "cluster_binned": the wall time per chunk-sample (host clock,
-median of 3 windows), then one window under torch.profiler: device busy
-time (the union of the kernels' intervals), the idle share against the
-unprofiled wall, device ms by kernel name for the kernels defined in an
-anonymous namespace (the port's, and a few of PyTorch's) and for all the
-others together, and the host's kernel launches and stream syncs.
+"cluster", "cluster_binned" or "cluster_streamed": the wall time per
+chunk-sample (host clock, median of 3 windows), then one window under
+torch.profiler: device busy time (the union of the kernels' intervals),
+the idle share against the unprofiled wall, device ms by kernel name for
+the kernels defined in an anonymous namespace (the port's, and a few of
+PyTorch's) and for all the others together, and the host's kernel
+launches and stream syncs.
 
 Runs on a GPU only; every time names the card (nvidia-smi's name and
 power limit).
@@ -75,6 +89,9 @@ SAMPLES = 4       # chunk-samples per profiled window
 PARITY_SETS = ("random", "camera", "bounce1", "shadow1", "dead", "per_ray_t1", "ragged",
                "one", "five", "all_dead", "test_random", "test_one", "test_five",
                "test_dead")
+# runs per block of the streamed leaf that `kernels binned` times beside
+# blocks_for's own (every one at most the 128 pairs an older kernel takes)
+RUN_CAPS = (16, 32, 64, 128)
 
 
 def card_line() -> str:
@@ -247,16 +264,24 @@ def run_kernels(cs, ro, rd, t1, sort, watertight):
     return _unsort(t, perm), _unsort(slot, perm), _unsort(occ, perm_o)
 
 
-def ptxas_report(log: str):
-    """The ptxas lines (registers, spills) of the cluster kernels in `log`."""
+def ptxas_report(log: str, source="cluster"):
+    """The ptxas lines (registers, spills) of the kernels of csrc/<source>.cu
+    ("cluster" or "binned") in `log`, each named by its kernel and its
+    template flags (leaves MT or watertight; the resume mode)."""
     out, entry = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line
-        elif entry and "cluster_" in entry and ("Used" in line or "spill" in line):
-            kind = "closest" if "closest" in entry else "anyhit"
-            leaves = "watertight" if "ILb1E" in entry else "MT"
-            out.append(f"ptxas {kind} {leaves}: {line.strip()}")
+            continue
+        name = re.search(rf"{source}_[a-z_]+?_kernel", entry or "")
+        if name and ("Used" in line or "spill" in line):
+            flags = re.findall(r"Lb([01])E", entry)
+            tag = name.group(0)
+            if flags:
+                tag += " watertight" if flags[0] == "1" else " MT"
+            if flags[1:] == ["1"]:
+                tag += " resume"
+            out.append(f"ptxas {tag}: {re.sub(r'^ptxas info *: *', '', line.strip())}")
     return out
 
 
@@ -319,6 +344,99 @@ def check_parity(sets, out_dir):
                 saved[label][(wt, sort)] = (t.cpu(), slot.cpu(), occ.cpu())
     os.makedirs(out_dir, exist_ok=True)
     torch.save(saved, os.path.join(out_dir, "parity.pt"))
+
+
+# (source, copy) slots within one bin of duplicate_triangles: the copy at the
+# higher slot, across the lanes of a warp's split (31/32, 63/64), within one
+# lane (95/127) and across the bin's clusters 0 and 3
+DUPLICATES = ((31, 32), (63, 64), (95, 127), (10, 3 * 128 + 10), (100, 3 * 128 + 3))
+
+
+def duplicate_triangles(tri, order):
+    """A lane split's edge for the binned leaves: exact duplicate triangles
+    in one bin, whose hits must resolve to the lower slot. tri (K*16, 128)
+    and order (K*128,) are a ClusterScene's tables as NumPy arrays. Returns
+    (the bin b: the first whose 512 slots hold 512 distinct faces; a copy of
+    tri in which slot b*512 + copy of each DUPLICATES pair holds the
+    triangle of slot b*512 + source; rays ro, rd (N, 3) f32, nine into each
+    source triangle: three points inside it, each from along its normal and
+    tilted toward x and toward z, so that the watertight shear takes
+    every axis)."""
+    from pyrenderer_tpu_torch.accel.clusters import BIN_TRIS, LANE_TRIS, TRI_ROWS
+
+    faces = order.reshape(-1, BIN_TRIS)
+    b = next(i for i, f in enumerate(faces) if len(np.unique(f)) == BIN_TRIS)
+    tri = tri.copy()
+    rows = tri.reshape(-1, TRI_ROWS, LANE_TRIS)          # a view of the copy
+    ro, rd = [], []
+    for src, dst in DUPLICATES:
+        cs_, ls = divmod(b * BIN_TRIS + src, LANE_TRIS)
+        cd, ld = divmod(b * BIN_TRIS + dst, LANE_TRIS)
+        rows[cd, :, ld] = rows[cs_, :, ls]
+        v0, e1, e2 = (rows[cs_, k:k + 3, ls].astype(np.float64) for k in (0, 3, 6))
+        normal = np.cross(e1, e2)
+        normal /= np.linalg.norm(normal)
+        for u, v in ((1 / 3, 1 / 3), (0.2, 0.5), (0.6, 0.2)):
+            point = v0 + u * e1 + v * e2
+            for tilt in ((0.0, 0.0, 0.0), (1.5, 0.0, 0.0), (0.0, 0.0, 1.5)):
+                d = -(normal + np.asarray(tilt))
+                d /= np.linalg.norm(d)
+                ro.append(point - 0.5 * d)
+                rd.append(d)
+    return b, tri, np.asarray(ro, np.float32), np.asarray(rd, np.float32)
+
+
+def duplicate_set(cs, dev):
+    """duplicate_triangles on a ClusterScene: (its copy with the duplicates,
+    rays (N, 8) of kernels/cluster._prepare, sortd (N,) the bin for every
+    ray, pair_ray (N,) = arange, the copies' slots, the sources' slots)."""
+    import dataclasses
+
+    from pyrenderer_tpu_torch.accel.clusters import BIN_TRIS
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+
+    b, tri, ro, rd = duplicate_triangles(cs.tri.cpu().numpy(), cs.order.cpu().numpy())
+    cs_dup = dataclasses.replace(cs, tri=torch.as_tensor(tri, device=dev))
+    ro, rd = torch.as_tensor(ro, device=dev), torch.as_tensor(rd, device=dev)
+    rays = kc._prepare(cs_dup, ro, rd, T_MAX, sort=False)[0]
+    n = ro.shape[0]
+    return (cs_dup, rays, torch.full((n,), b, dtype=torch.int32, device=dev),
+            torch.arange(n, device=dev), [b * BIN_TRIS + d for _, d in DUPLICATES],
+            [b * BIN_TRIS + s for s, _ in DUPLICATES])
+
+
+def edge_streams(kb, cs, rays):
+    """label -> (sortd, pair_ray, rays) of the launch edges of the binned
+    leaves, cut from the sorted pair stream of `rays` (N, 8) at W = 6: one
+    pair; 33 pairs; the whole run of the bin with the most pairs (more than
+    129); that bin's first 129 pairs (blocks_for's last piece holds one pair
+    at runs of 16, 32, 64 or 128); 64 SENTINEL pairs; every pair with its
+    ray dead (t1 = 0)."""
+    ids, _ = kb.prepass(cs, rays, T0, 6)
+    sortd, pair_ray = kb.sort_pairs(ids, int((ids != kb.SENTINEL).sum()))
+    _, counts = torch.unique_consecutive(sortd, return_counts=True)
+    big = int(counts.argmax())
+    start, n_big = int(counts[:big].sum()), int(counts[big])
+    if n_big <= 129:
+        raise ValueError(f"no bin has more than 129 pairs: {n_big}")
+    dead = rays.clone()
+    dead[:, 6] = 0.0
+    dev = rays.device
+    run = slice(start, start + n_big)
+    one_more = slice(start, start + 129)
+    return {
+        "one pair": (sortd[:1], pair_ray[:1], rays),
+        "33 pairs": (sortd[:33], pair_ray[:33], rays),
+        "the largest bin": (sortd[run], pair_ray[run], rays),
+        "last piece of one pair": (sortd[one_more], pair_ray[one_more], rays),
+        "all SENTINEL": (torch.full((64,), kb.SENTINEL, dtype=torch.int32, device=dev),
+                         torch.arange(64, device=dev), rays),
+        "dead rays": (sortd, pair_ray, dead),
+    }
+
+
+EDGE_STREAMS = ("one pair", "33 pairs", "the largest bin", "last piece of one pair",
+                "all SENTINEL", "dead rays")
 
 
 def walk_spread(cs, b1, s1):
@@ -397,9 +515,183 @@ def cmd_kernels(args) -> int:
     return 0
 
 
-def cmd_compare(args) -> int:
-    a = torch.load(os.path.join(args.dirs[0], "parity.pt"))
-    b = torch.load(os.path.join(args.dirs[1], "parity.pt"))
+def binned_operands(kb, cs, ro, rd, t1, w):
+    """One binned query's leaf operands at W = w, through the prepass, the
+    sort and the blockify step: (rays (N, 8), sortd, pair_ray, blocks,
+    words)."""
+    from pyrenderer_tpu_torch.accel.clusters import BIN
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+
+    rays = kc._prepare(cs, ro, rd, t1, sort=False)[0]
+    ids, _, words = kb.prepass(cs, rays, T0, w, emit_words=True)
+    sortd, pair_ray = kb.sort_pairs(ids, int((ids != kb.SENTINEL).sum()))
+    return rays, sortd, pair_ray, kb.blocks_for(sortd, cs.n_clusters // BIN), words
+
+
+def run_cap_name(kb):
+    """The name of blocks_for's run cap in kernels/binned.py (_THREADS in
+    checkouts before the warp-per-pair leaves)."""
+    return "RUN_PAIRS" if hasattr(kb, "RUN_PAIRS") else "_THREADS"
+
+
+def blocks_with_cap(kb, sortd, n_bins, cap):
+    """blocks_for with runs of at most `cap` pairs."""
+    name = run_cap_name(kb)
+    saved = getattr(kb, name)
+    setattr(kb, name, cap)
+    try:
+        return kb.blocks_for(sortd, n_bins)
+    finally:
+        setattr(kb, name, saved)
+
+
+def binned_sets(kb, sets, dev):
+    """label -> (ClusterScene, [(W, rays, sortd, pair_ray)]) of the binned
+    leaves' parity: each ray set of `sets` (parity_sets) at W = 6 and 1, the
+    launch edges (edge_streams of the "random" set) and the duplicate
+    triangles (duplicate_set)."""
+    out = {}
+    for label, (cs, ro, rd, t1) in sets.items():
+        out[label] = (cs, [(w, *binned_operands(kb, cs, ro, rd, t1, w)[:3]) for w in (6, 1)])
+    cs, ro, rd, t1 = sets["random"]
+    rays = binned_operands(kb, cs, ro, rd, t1, 6)[0]
+    for label, (sortd, pair_ray, r) in edge_streams(kb, cs, rays).items():
+        out[f"edge: {label}"] = (cs, [(None, r, sortd, pair_ray)])
+    cs_dup, rays, sortd, pair_ray, _, _ = duplicate_set(cs, dev)
+    out["duplicate triangles"] = (cs_dup, [(None, rays, sortd, pair_ray)])
+    return out
+
+
+def check_binned_parity(kb, sets, out_dir):
+    """Both binned leaves against the resident twin on every set of
+    binned_sets, MT and watertight; prints one line per case and saves the
+    pairs and every pair's keys to DIR/binned.pt for ``compare``."""
+    from pyrenderer_tpu_torch.accel.clusters import BIN
+
+    saved = {}
+    for label, (cs, cases) in sets.items():
+        for w, rays, sortd, pair_ray in cases:
+            blocks = kb.blocks_for(sortd, cs.n_clusters // BIN)
+            entry = saved[(label, w)] = {"pairs": (sortd.cpu(), pair_ray.cpu())}
+            for wt in (False, True):
+                twin = kb.leaf_ref(cs, sortd, pair_ray, rays, T0, wt)
+                keys = kb.leaf(cs, sortd, pair_ray, rays, T0, wt)
+                keys_s = kb.leaf_streamed(cs, blocks, pair_ray, rays, T0, wt)
+                torch.cuda.synchronize()
+                print(f"binned parity {label}{'' if w is None else f', W={w}'}, "
+                      f"{'watertight' if wt else 'MT'}: {sortd.shape[0]} pairs, "
+                      f"{int((twin != kb.MISS_KEY).sum())} hits; keys equal to the twin: "
+                      f"leaf {int((keys == twin).sum())}, streamed leaf "
+                      f"{int((keys_s == twin).sum())}", flush=True)
+                entry[wt] = (twin.cpu(), keys.cpu(), keys_s.cpu())
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(saved, os.path.join(out_dir, "binned.pt"))
+
+
+def compare_binned(a, b):
+    """Per binned case, the pairs on which two runs' leaves differ; returns
+    True when no key differs."""
+    same = True
+    for key in a:
+        label, w = key
+        tag = f"{label}{'' if w is None else f', W={w}'}"
+        if key not in b or not all(torch.equal(x, y) for x, y in
+                                   zip(a[key]["pairs"], b[key]["pairs"])):
+            print(f"compare binned {tag}: the two runs made different pairs")
+            same = False
+            continue
+        for wt in (False, True):
+            twin, *runs_a = a[key][wt]
+            _, *runs_b = b[key][wt]
+            for name, ka, kb_ in zip(("leaf", "streamed leaf"), runs_a, runs_b):
+                diff = ka != kb_
+                print(f"compare binned {tag}, {'watertight' if wt else 'MT'}, {name}: keys "
+                      f"differ on {int(diff.sum())} of {ka.shape[0]} pairs (the twin agrees "
+                      f"with A on {int((ka == twin)[diff].sum())}, with B on "
+                      f"{int((kb_ == twin)[diff].sum())})")
+                same &= not bool(diff.any())
+    return same
+
+
+def cmd_binned(args) -> int:
+    """``kernels binned``: the four binned kernels alone and the binned
+    wrappers with their glue, on the bounce-1 wavefront and its shadow
+    rays; with --parity, binned_sets against the twin."""
+    import pyrenderer_tpu_torch
+    from pyrenderer_tpu_torch.accel.clusters import BIN
+    from pyrenderer_tpu_torch.kernels import binned as kb
+    from pyrenderer_tpu_torch.kernels import build
+    from pyrenderer_tpu_torch.perf.kernelbench import cuda_ms, graph_ms
+
+    dev = torch.device("cuda:0")
+    card = card_line()
+    package = os.path.dirname(os.path.abspath(pyrenderer_tpu_torch.__file__))
+    print(f"package {package}; {card}; streamed leaf runs of "
+          f"{getattr(kb, run_cap_name(kb))} pairs", flush=True)
+    t = time.perf_counter()
+    build.library()
+    print(f"kernels built or loaded in {time.perf_counter() - t:.2f} s", flush=True)
+    for line in ptxas_report(build.build_log(), "binned"):
+        print(line)
+    scene, camera, cs = terrain(224, dev)
+    b1, s1 = bounce1(scene, camera, cs, dev)
+    n_bins = cs.n_clusters // BIN
+    w = 6
+    cases = {}
+    for query, (ro, rd, t1) in (("wavefront", b1), ("shadow rays", s1)):
+        rays, sortd, pair_ray, blocks, words = binned_operands(kb, cs, ro, rd, t1, w)
+        print(f"bounce-1 {query}: {int((t1 > T0).sum())} live rays, {sortd.shape[0]} pairs at "
+              f"W={w}, {int((blocks[:, 0] >= 0).sum())} streamed blocks", flush=True)
+        cases[(query, "prepass")] = lambda rays=rays: kb.prepass(cs, rays, T0, w)
+        cases[(query, "peel")] = lambda words=words: kb.peel(words, w)
+        for wt in (False, True):
+            tag = "watertight" if wt else "MT"
+            cases[(query, f"leaf {tag}")] = (
+                lambda rays=rays, s=sortd, p=pair_ray, wt=wt: kb.leaf(cs, s, p, rays, T0, wt))
+            cases[(query, f"leaf_streamed {tag}")] = (
+                lambda rays=rays, b=blocks, p=pair_ray, wt=wt:
+                kb.leaf_streamed(cs, b, p, rays, T0, wt))
+        # the streamed leaf with other runs per block than blocks_for's cap
+        for cap in RUN_CAPS:
+            if cap != getattr(kb, run_cap_name(kb)):
+                b = blocks_with_cap(kb, sortd, n_bins, cap)
+                cases[(query, f"leaf_streamed watertight, runs of {cap}")] = (
+                    lambda rays=rays, b=b, p=pair_ray: kb.leaf_streamed(cs, b, p, rays, T0, True))
+    times = {key: [] for key in cases}
+    for key in list(cases) + list(reversed(cases)):
+        times[key].append(graph_ms(cases[key], REPS))
+    result = {}
+    for (query, name), ms in times.items():
+        value = float(np.median(ms))
+        result.setdefault(query, {})[f"{name} ms"] = value
+        print(f"{name} alone: {value:.4f} ms (median of {len(ms)} graph replays of {REPS} "
+              f"calls; bounce-1 {query}, terrain100k; {card})", flush=True)
+    wrappers = {}
+    for streamed in (False, True):
+        variant = "streamed" if streamed else "binned"
+        wrappers[f"closest_hit {variant}"] = lambda s=streamed: kb.closest_hit(
+            cs, *b1[:2], T0, b1[2], watertight=True, streamed=s, exact_t=False)
+        wrappers[f"occluded {variant}"] = lambda s=streamed: kb.occluded(
+            cs, *s1[:2], T0, s1[2], watertight=True, streamed=s)
+    glue = {key: [] for key in wrappers}
+    for key in list(wrappers) + list(reversed(wrappers)):
+        glue[key].append(cuda_ms(wrappers[key]))
+    for key, ms in glue.items():
+        value = float(np.median(ms))
+        result.setdefault("wrappers", {})[f"{key} ms"] = value
+        print(f"wrapper {key} (glue included, W at its default): {value:.4f} ms (median of "
+              f"{len(ms)} means of eager calls; watertight, terrain100k; {card})", flush=True)
+    if args.parity:
+        check_binned_parity(kb, binned_sets(kb, parity_sets(dev, cs, scene, camera, b1, s1),
+                                            dev), args.out)
+    print(json.dumps({"package": package, "card": card, "device": torch.cuda.get_device_name(0),
+                      "binned": result}))
+    return 0
+
+
+def compare_sweep(a, b):
+    """Per sweep case, the rays on which two runs' kernels differ; returns
+    True when none differs."""
     worst = 0
     for label in a:
         ra, rb = a[label]["rays"], b[label]["rays"]
@@ -419,7 +711,19 @@ def cmd_compare(args) -> int:
                       f"{ta.shape[0]} rays (the twin agrees with A on {twin_a}, with B on "
                       f"{twin_b}); occlusion differs on {int((oa != ob).sum())}")
                 worst = max(worst, int(bool(diff.any() or (oa != ob).any())))
-    print(json.dumps({"compare": args.dirs, "identical": worst == 0}))
+    return worst == 0
+
+
+def cmd_compare(args) -> int:
+    """The files of `kernels --parity` (parity.pt) and `kernels binned
+    --parity` (binned.pt) that both directories hold, compared."""
+    same = {}
+    for name, fn in (("parity.pt", compare_sweep), ("binned.pt", compare_binned)):
+        paths = [os.path.join(d, name) for d in args.dirs]
+        if all(os.path.exists(p) for p in paths):
+            same[name] = fn(*(torch.load(p) for p in paths))
+    print(json.dumps({"compare": args.dirs, "files": sorted(same),
+                      "identical": bool(same) and all(same.values())}))
     return 0
 
 
@@ -501,16 +805,20 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     k = sub.add_parser("kernels")
+    k.add_argument("which", nargs="?", default="sweep", choices=("sweep", "binned"))
     k.add_argument("--parity", action="store_true")
     k.add_argument("--out", default=os.path.join("build", "clusterbench"))
     c = sub.add_parser("compare")
     c.add_argument("dirs", nargs=2)
     p = sub.add_parser("profile")
-    p.add_argument("--backend", default="cluster", choices=("cluster", "cluster_binned"))
+    p.add_argument("--backend", default="cluster",
+                   choices=("cluster", "cluster_binned", "cluster_streamed"))
     args = parser.parse_args(argv)
     if args.cmd != "compare" and not torch.cuda.is_available():
         print("no CUDA device: clusterbench runs on a GPU", file=sys.stderr)
         return 2
+    if args.cmd == "kernels" and args.which == "binned":
+        return cmd_binned(args)
     return {"kernels": cmd_kernels, "compare": cmd_compare, "profile": cmd_profile}[args.cmd](args)
 
 

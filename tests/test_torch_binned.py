@@ -21,6 +21,7 @@ from pyrenderer_tpu_torch.core import integrator as integ
 from pyrenderer_tpu_torch.core.camera import generate_rays
 from pyrenderer_tpu_torch.kernels import binned as kb
 from pyrenderer_tpu_torch.kernels import cluster as kc
+from pyrenderer_tpu_torch.perf import clusterbench as cb
 from pyrenderer_tpu_torch.render import cli
 from pyrenderer_tpu_torch.scene import procgen, to_device
 from pyrenderer_tpu_torch.scene.tungsten import build_scene
@@ -249,6 +250,82 @@ def test_leaf_twin_matches_pallas_interpret(terrain96, watertight):
     assert (slot.numpy()[~h] == -1).all()
 
 
+def _jax_leaf_slots(cs_j, sortd, pair_ray, rays, watertight):
+    """pb._leaf_call in interpret mode on the port's sorted pairs: (hit,
+    slot) per pair, decoded as test_leaf_twin_matches_pallas_interpret
+    decodes them."""
+    n = sortd.shape[0]
+    p_pad = -(-n // (pb.BPS * 128)) * (pb.BPS * 128)
+    sortd_j = np.full(p_pad, pb.SENTINEL, np.int32)
+    sortd_j[:n] = sortd.numpy()
+    prcol = np.zeros((p_pad, 8), np.float32)
+    prcol[:n] = rays[pair_ray].numpy()
+    keys_j = np.asarray(pb._leaf_call(cs_j, jnp.asarray(sortd_j), jnp.asarray(prcol), T0,
+                                      watertight, True))[:n]
+    return keys_j < pb.MISS_KEY, sortd_j[:n] * pb.BIN_TRIS + (keys_j & 511)
+
+
+@pytest.mark.parametrize("watertight", [False, True])
+def test_leaf_twins_resolve_duplicates_to_lowest_slot(terrain64, watertight):
+    """Exact duplicate triangles in one bin (clusterbench.DUPLICATES: across
+    a warp's lane split at 31/32 and 63/64, within one lane at 95/127,
+    across the bin's clusters 0 and 3): every ray aimed at a source
+    triangle hits it at the lower slot, never the copy, in leaf_ref,
+    leaf_streamed_ref and pb._leaf_call in interpret mode alike."""
+    import dataclasses
+
+    _, _, cs, cs_j = terrain64
+    cs_d, rays, sortd, pair_ray, copies, sources = cb.duplicate_set(cs, "cpu")
+    cs_dj = dataclasses.replace(cs_j, tri=jnp.asarray(cs_d.tri.numpy()))
+    keys = kb.leaf_ref(cs_d, sortd, pair_ray, rays, T0, watertight)
+    blocks = kb.blocks_for(sortd, cs.n_clusters // cl.BIN)
+    assert torch.equal(kb.leaf_streamed_ref(cs_d, blocks, pair_ray, rays, T0, watertight), keys)
+    hit, _, slot = kb.decode(keys)
+    assert hit.all()
+    per_source = slot.reshape(len(sources), -1)
+    for k, (src, dst) in enumerate(zip(sources, copies)):
+        assert (per_source[k] == src).all(), (src, per_source[k])
+        assert not (slot == dst).any()
+    hit_j, slot_j = _jax_leaf_slots(cs_dj, sortd, pair_ray, rays, watertight)
+    np.testing.assert_array_equal(hit_j, hit.numpy())
+    np.testing.assert_array_equal(slot_j, slot.numpy())
+
+
+@pytest.fixture(scope="module")
+def edge_streams(terrain64):
+    """clusterbench.edge_streams of 256 random rays on terrain 64."""
+    _, _, cs, _ = terrain64
+    ro, rd, t1 = _ray_set("random")
+    streams = cb.edge_streams(kb, cs, _port_rays(cs, ro, rd, t1))
+    assert tuple(streams) == cb.EDGE_STREAMS
+    return streams
+
+
+@pytest.mark.parametrize("label", cb.EDGE_STREAMS)
+def test_leaf_twins_agree_on_launch_edges(terrain64, edge_streams, label):
+    """The launch edges of the binned leaves (one pair, 33, a bin of more
+    than 128, a last piece of one pair, all SENTINEL, dead rays): both
+    twins give the same key on every pair, MT and watertight, the streamed
+    one through blocks_for's pieces; SENTINEL and dead pairs miss."""
+    _, _, cs, _ = terrain64
+    sortd, pair_ray, rays = edge_streams[label]
+    n_bins = cs.n_clusters // cl.BIN
+    blocks = kb.blocks_for(sortd, n_bins)
+    counts = blocks[blocks[:, 0] >= 0, 2]
+    assert counts.sum() == (0 if label == "all SENTINEL" else sortd.shape[0])
+    if label == "the largest bin":
+        assert sortd.shape[0] > 128 and (sortd == sortd[0]).all() and counts.shape[0] >= 2
+    if label == "last piece of one pair":
+        assert counts.tolist() == [kb.RUN_PAIRS] * (128 // kb.RUN_PAIRS) + [1]
+    for wt in (False, True):
+        keys = kb.leaf_ref(cs, sortd, pair_ray, rays, T0, wt)
+        assert torch.equal(kb.leaf_streamed_ref(cs, blocks, pair_ray, rays, T0, wt), keys)
+        if label in ("all SENTINEL", "dead rays"):
+            assert (keys == kb.MISS_KEY).all()
+        elif sortd.shape[0] > 128:
+            assert (keys != kb.MISS_KEY).any()
+
+
 @pytest.mark.parametrize("w", [6, 1])
 @pytest.mark.parametrize("watertight", [False, True])
 def test_wrappers_match_pallas_interpret(terrain64, monkeypatch, watertight, w):
@@ -332,13 +409,20 @@ def test_binned_equals_sweep_twin_bit_for_bit(terrain64, terrain96, monkeypatch,
 
 def test_blocks_for_cuts_each_bin_into_pieces_of_128():
     """The streamed leaf's blockify step: one row (bin, start, count) per
-    piece of at most 128 pairs of one bin, in order, then bin -1 rows up to
-    the static bound ceil(P / 128) + min(bins, P)."""
-    sortd = torch.tensor([0] * 130 + [2] + [5] * 3, dtype=torch.int32)
+    piece of at most RUN_PAIRS pairs of one bin (16; 128 when a thread
+    took each pair), in order, then bin -1 rows up to the static bound
+    ceil(P / RUN_PAIRS) + min(bins, P)."""
+    run = kb.RUN_PAIRS
+    assert run == 16
+    sortd = torch.tensor([0] * (run + 2) + [2] + [5] * 3, dtype=torch.int32)
     blocks = kb.blocks_for(sortd, 8)
     assert blocks.dtype == torch.int32 and blocks.shape == (2 + 8, 3)
-    assert blocks[:4].tolist() == [[0, 0, 128], [0, 128, 2], [2, 130, 1], [5, 131, 3]]
+    assert blocks[:4].tolist() == [[0, 0, run], [0, run, 2], [2, run + 2, 1],
+                                   [5, run + 3, 3]]
     assert (blocks[4:, 0] == -1).all() and (blocks[4:, 2] == 0).all()
+    # a run of 128 pairs is eight full pieces
+    blocks = kb.blocks_for(torch.zeros(128, dtype=torch.int32), 1)
+    assert blocks.tolist() == [[0, k * run, run] for k in range(8)] + [[-1, 128, 0]]
 
 
 def test_cpu_wrappers_count_twins_and_meta_raises(terrain64, monkeypatch):
@@ -413,7 +497,9 @@ def test_render_image_binned_matches_cluster_and_jax(terrain64, images, backend)
 @pytest.mark.cuda
 def test_binned_kernels_match_twins_on_gpu(terrain96):
     """On a CUDA device: each binned kernel against its twin (bit for bit),
-    and both variants against the sweep twin (run on the card with
+    the leaves also on the launch edges (clusterbench.edge_streams) and the
+    duplicate triangles (clusterbench.duplicate_set), and both variants
+    against the sweep twin (run on the card with
     `python -m pytest tests/test_torch_binned.py -m cuda`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -422,6 +508,19 @@ def test_binned_kernels_match_twins_on_gpu(terrain96):
     ro, rd = (torch.from_numpy(a).to(dev) for a in _random_rays(1 << 12, 0))
     t1 = torch.where(torch.arange(1 << 12, device=dev) % 3 == 0, 0.0, 0.7)
     rays = kc._prepare(cs, ro, rd, t1, sort=False)[0]
+    cs_d, rays_d, sortd_d, pair_d, copies, _ = cb.duplicate_set(cs, dev)
+    streams = cb.edge_streams(kb, cs, kc._prepare(cs, ro, rd, T1, sort=False)[0])
+    for label, (scene, (sortd, pair_ray, r)) in [
+            ("duplicate triangles", (cs_d, (sortd_d, pair_d, rays_d)))] + [
+            (label, (cs, stream)) for label, stream in streams.items()]:
+        blocks = kb.blocks_for(sortd, cs.n_clusters // cl.BIN)
+        for wt in (False, True):
+            keys = kb.leaf(scene, sortd, pair_ray, r, T0, wt)
+            assert torch.equal(keys, kb.leaf_ref(scene, sortd, pair_ray, r, T0, wt)), label
+            assert torch.equal(kb.leaf_streamed(scene, blocks, pair_ray, r, T0, wt),
+                               kb.leaf_streamed_ref(scene, blocks, pair_ray, r, T0, wt)), label
+            if scene is cs_d:
+                assert not torch.isin(kb.decode(keys)[2], torch.tensor(copies, device=dev)).any()
     for w in (6, 1):
         ids, ovf, words = kb.prepass(cs, rays, T0, w, emit_words=True)
         for a, b in zip((ids, ovf, words), kb.prepass_ref(cs, rays, T0, w, emit_words=True)):

@@ -388,13 +388,14 @@ def test_kernel_source_matches_twin_constants():
     assert int(const("kTriRows")) == cl.TRI_ROWS
     assert int(const("kSentinel"), 16) == kb.SENTINEL
     assert int(const("kBin")) == cl.BIN and cl.BIN_TRIS == cl.BIN * cl.LANE_TRIS
-    assert int(const("kThreads")) == kb._THREADS
     with open(os.path.join(csrc, "cluster.cu")) as fh:
         cluster_src = fh.read()
     assert '#include "leaf.cuh"' in cluster_src
     # the warp's ballot over supercluster rows: S_pad is a multiple of it
-    warp = int(re.search(r"constexpr int kWarp = (\d+);", cluster_src).group(1))
+    warp = int(const("kWarp"))
     assert warp == kc.WARP and cl.LANE_TRIS % warp == 0
+    # the streamed leaf's warps share a block's run of pairs evenly
+    assert kb.RUN_PAIRS % (int(const("kThreads")) // warp) == 0
     # the compact box rows the kernels read
     assert int(re.search(r"constexpr int kBoxRow = (\d+);", cluster_src).group(1)) == cl.BOX_ROW
 
