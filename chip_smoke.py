@@ -9,10 +9,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Build: compiles csrc/*.cu with nvcc for sm_90a (kernels/build.py, one
    nvcc per source, in parallel) and prints the build time and ptxas's
    register/shared-memory report.
-2. Each whole-table kernel against its plain PyTorch twin on the card, at
-   the Cornell path's shapes (65,536 rays against the 36 triangles):
-   random rays, real camera rays, rays with dead lanes (t1 = 0), and a
-   ragged N = 100, with scalar and per-ray t1.
+2. Each whole-table kernel against its plain PyTorch twin on the card, bit
+   for bit on every ray (hit, t's bits, face, occlusion), at the Cornell
+   path's shapes (65,536 rays against the 36 triangles): random rays, real
+   camera rays, rays with dead lanes (t1 = 0), and a ragged N = 100, with
+   scalar and per-ray t1; then 65,536 random rays against the spheres
+   table (3,852 triangles), exact duplicate triangles where a lane split
+   or a tile would separate them, and each table's launch edges (N = 1,
+   31, 33, 129, all rays dead, every third dead, t1 = 0, below t0, NaN,
+   negative or inf; perf/clusterbench.py whole_sets).
 3. The Cornell path through the CLI entry point: reference estimator,
    1024x1024, 4 bounces, 16 spp on cuda:0. Checks the PNG and EXR, a finite
    HDR, exactly 16 passes x 16 chunks x 4 bounces launches of each
@@ -23,8 +28,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. Timings: each whole-table kernel and its twin on the card (medians of
    CUDA-event timings, in turns; every kernel time in this script is the
    replay of a CUDA graph of 20 calls, the device's time without the
-   host's launch cost; perf/kernelbench.graph_ms and cuda_ms), and the
-   phase-3 frame in Mrays/s, counted as bench.py counts.
+   host's launch cost; perf/kernelbench.graph_ms and cuda_ms) on phase 2's
+   dead-lane set (the kernel line's time), then the closest hit on
+   Cornell's own bounce-1 wavefront and the any hit on its shadow rays
+   (the pbrt frame's, as phase 14 takes them), and the phase-3 frame in
+   Mrays/s, counted as bench.py counts.
 6. Each cluster-sweep kernel against its twin on the card, at the
    terrain100k tables (100,364 triangles, 785 clusters padded to 800):
    65,536 random rays, camera rays, the integrator's real bounce-1
@@ -84,8 +92,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (2 spp) for the Cornell box with a metal tall box and a glass short box
    and for scenes/spheres.json; the whole-table kernels against their
    twins at T = 3,852 (spheres) on its bounce-1 wavefront and shadow rays,
-   timed; the Cornell pbrt mean radiance at 160x160 (32 spp, 8 bounces,
-   seed 1) against the JAX package's CPU value.
+   bit for bit, and timed there (the closest hit on the wavefront, the any
+   hit on the shadow rays, each with its bound and ptxas's registers); the
+   Cornell pbrt mean radiance at 160x160 (32 spp, 8 bounces, seed 1)
+   against the JAX package's CPU value.
 15. The entry points: ``python -m pyrenderer_tpu_torch.bench`` as a
    subprocess for cornell (reference, pbrt), spheres (pbrt) and
    terrain100k (reference), each JSON line checked (metric, finite value,
@@ -284,22 +294,6 @@ def nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
-def whole_table_bounds(ki, table, ro, rd, t1):
-    """Bounds of the two whole-table kernels on one ray set: closest hit
-    tests every triangle for every live ray (t1 > T0); any hit stops at a
-    ray's first accepted triangle, in table order."""
-    from pyrenderer_tpu_torch.core.intersect import _accept, _mt_terms
-
-    n, n_tris = ro.shape[0], table.shape[1]
-    t1v = torch.as_tensor(t1, dtype=torch.float32, device=ro.device).expand(n)
-    live = t1v > T0
-    ok = _accept(*_mt_terms(*ki._table_arrays(table, ro.dtype), ro, rd), T0, t1v)
-    first = torch.where(ok.any(dim=1), ok.int().argmax(dim=1) + 1, n_tris)
-    ins = nbytes(ro, rd, table) + (4 * n if torch.is_tensor(t1) else 0)
-    return {"closest_hit": bound(int(live.sum()) * n_tris * MT_OPS, ins + 9 * n),
-            "occluded": bound(int(first[live].sum()) * MT_OPS, ins + n)}
-
-
 def cuda_ms_pair(kernel_fn, twin_fn, reps=20, twin_reps=3, twin_graph=False):
     """(kernel ms, twin ms): medians of CUDA-event timings, in turns twin,
     kernel, kernel, twin so that drift of the card shows in neither alone.
@@ -323,27 +317,26 @@ def cuda_ms_pair(kernel_fn, twin_fn, reps=20, twin_reps=3, twin_graph=False):
 
 
 def compare_kernels(ki, table, ro, rd, t1, label):
-    """Kernel against twin on the card; returns the max absolute differences
-    (closest-hit t, occluded flag) over all rays."""
+    """Kernel against twin on the card, bit for bit on every ray: hit, t's
+    bits, face and occlusion. Returns the max absolute differences
+    (closest-hit t, occluded flag) over all rays: 0 when it passes."""
     hit, t, tri = ki.closest_hit(table, ro, rd, T0, t1)
     occ = ki.occluded(table, ro, rd, T0, t1)
     torch.cuda.synchronize()
     hit_r, t_r, tri_r = ki.closest_hit_ref(table, ro, rd, T0, t1)
     occ_r = ki.occluded_ref(table, ro, rd, T0, t1)
-    check(torch.equal(hit, hit_r), f"{label}: hit masks differ")
+    check(torch.equal(hit, hit_r), f"{label}: hit masks differ on {int((hit != hit_r).sum())}")
     check(bool((tri[~hit] == -1).all()) and bool((t[~hit] == 0).all()),
           f"{label}: miss contract (tri=-1, t=0) broken")
-    n_hit = int(hit.sum())
-    same = (tri == tri_r) & hit
-    n_same = int(same.sum())
-    frac = n_same / max(n_hit, 1)
-    check(frac >= 0.995, f"{label}: faces equal on {n_same}/{n_hit} hits")
-    torch.testing.assert_close(t[same], t_r[same], rtol=1e-5, atol=0.0)
-    check(torch.equal(occ, occ_r), f"{label}: occluded differs")
-    err_t = float((t - t_r).abs().max())
-    err_occ = float((occ.float() - occ_r.float()).abs().max())
-    print(f"{label}: n={ro.shape[0]} hits={n_hit} faces equal {n_same}/{n_hit} "
-          f"max|dt|={err_t:.3g} occluded={int(occ.sum())} (equal)", flush=True)
+    check(torch.equal(tri, tri_r), f"{label}: faces differ on {int((tri != tri_r).sum())} rays")
+    t_bits, t_bits_r = t.view(torch.int32), t_r.view(torch.int32)
+    check(torch.equal(t_bits, t_bits_r),
+          f"{label}: t's bits differ on {int((t_bits != t_bits_r).sum())} rays")
+    check(torch.equal(occ, occ_r), f"{label}: occluded differs on {int((occ != occ_r).sum())}")
+    err_t = float((t - t_r).abs().max()) if t.numel() else 0.0
+    err_occ = float((occ.float() - occ_r.float()).abs().max()) if occ.numel() else 0.0
+    print(f"{label}: n={ro.shape[0]} T={table.shape[1]} hits={int(hit.sum())}, (hit, t bits, "
+          f"face) equal on every ray; occluded={int(occ.sum())} (equal)", flush=True)
     return np.array([err_t, err_occ])
 
 
@@ -361,7 +354,8 @@ def main() -> int:
 
     from pyrenderer_tpu_torch.kernels import build
     from pyrenderer_tpu_torch.kernels import intersect as ki
-    from pyrenderer_tpu_torch.perf.clusterbench import random_rays
+    from pyrenderer_tpu_torch.perf.clusterbench import (random_rays, whole_bounds, whole_scenes,
+                                                        whole_sets, whole_wavefronts)
 
     phase("1 build")
     t = time.perf_counter()
@@ -372,7 +366,6 @@ def main() -> int:
     print(build.build_log().strip(), flush=True)
 
     from pyrenderer_tpu_torch.config import RenderConfig
-    from pyrenderer_tpu_torch.core.camera import generate_rays, morton_pixel_order
     from pyrenderer_tpu_torch.core.integrator import render_image
     from pyrenderer_tpu_torch.render import cli
     from pyrenderer_tpu_torch.scene import load_tungsten, to_device
@@ -383,29 +376,18 @@ def main() -> int:
     table = ki.pack_triangles(scene.vertices, scene.faces)
     n_tris = table.shape[1]
 
-    phase(f"2 kernels against twins on the card ({N_RAYS} rays x {n_tris} triangles)")
+    phase(f"2 kernels against twins on the card, bit for bit ({N_RAYS} rays x {n_tris} "
+          "triangles; the spheres table; duplicates; launch edges)")
+    whole = whole_scenes(dev)
+    check(torch.equal(whole["cornell"][2], table), "whole_scenes' Cornell table differs")
     err = np.zeros(2)
+    for label, (tab, r_o, r_d, t1) in whole_sets(dev, whole).items():
+        err = np.maximum(err, compare_kernels(ki, tab, r_o, r_d, t1, label))
     ro, rd = random_rays(N_RAYS, 0, dev)
-    err = np.maximum(err, compare_kernels(ki, table, ro, rd, T_MAX, "random, scalar t1"))
     lanes = torch.arange(N_RAYS, device=dev)
     t1_dead = torch.where(lanes % 3 == 0, 0.0, T_MAX).float().contiguous()
-    err = np.maximum(err, compare_kernels(ki, table, ro, rd, t1_dead, "random, dead lanes t1=0"))
     hit_dead, _, _ = ki.closest_hit(table, ro, rd, T0, t1_dead)
     check(not bool(hit_dead[lanes % 3 == 0].any()), "a dead lane (t1=0) hit")
-    w, h = host_camera.resolution
-    perm, _ = morton_pixel_order(w, h)
-    ys, xs = np.mgrid[0:h, 0:w]
-    px = torch.as_tensor(xs.reshape(-1)[perm][:N_RAYS], device=dev)
-    py = torch.as_tensor(ys.reshape(-1)[perm][:N_RAYS], device=dev)
-    cro, crd = generate_rays(camera, px, py, 0, 0)
-    err = np.maximum(err, compare_kernels(ki, table, cro.contiguous(), crd.contiguous(),
-                                   T_MAX, "camera rays, scalar t1"))
-    t1_half = torch.full((N_RAYS,), 0.5, device=dev)
-    err = np.maximum(err, compare_kernels(ki, table, ro, rd, t1_half, "random, per-ray t1=0.5"))
-    rro, rrd = random_rays(100, 4, dev)
-    err = np.maximum(err, compare_kernels(ki, table, rro, rrd, T_MAX, "ragged N=100, scalar t1"))
-    err = np.maximum(err, compare_kernels(ki, table, rro, rrd, t1_half[:100].contiguous(),
-                                   "ragged N=100, per-ray t1"))
     max_abs_err = {"closest_hit": float(err[0]), "occluded": float(err[1])}
 
     phase("3 main path: CLI, cornell_box.json, reference, 1024x1024, 4 bounces, 16 spp")
@@ -453,11 +435,12 @@ def main() -> int:
                           ("occluded", ki.occluded, ki.occluded_ref)):
         ms[name], plain_ms[name] = cuda_ms_pair(lambda: fn(table, ro, rd, T0, t1_dead),
                                                 lambda: ref(table, ro, rd, T0, t1_dead))
-    bounds = whole_table_bounds(ki, table, ro, rd, t1_dead)
+    bounds = whole_bounds(table, ro, rd, t1_dead)
     for name in ms:
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, bound "
               f"{bounds[name][0]:.6f} ms ({bounds[name][1]}) ({N_RAYS} rays x {n_tris} tris, "
               f"{card})")
+    time_whole_table(ki, table, whole_wavefronts(*whole["cornell"][:2], dev), "Cornell", card)
     print(f"frame: {rays} rays in {secs:.3f} s = {rays / secs / 1e6:.3f} Mrays/s "
           f"(1024x1024, 16 spp, 4 bounces, {card})", flush=True)
 
@@ -1020,6 +1003,32 @@ def metal_glass_cornell():
     return build_scene(data)[:2]
 
 
+def time_whole_table(ki, table, waves, scene, card):
+    """Times the closest hit on the bounce-1 wavefront and the any hit on
+    its shadow rays (waves: the two (ro, rd, t1) of whole_wavefronts),
+    each beside its twin, its bound from those rays and ptxas's lines of
+    its kernel."""
+    from pyrenderer_tpu_torch.kernels import build
+    from pyrenderer_tpu_torch.perf.clusterbench import whole_bounds, whole_ptxas
+
+    ptxas = whole_ptxas(build.build_log())
+    for name, fn, ref, (ro, rd, t1), rays in (
+            ("closest_hit", ki.closest_hit, ki.closest_hit_ref, waves[0], "bounce-1 wavefront"),
+            ("occluded", ki.occluded, ki.occluded_ref, waves[1], "bounce-1 shadow rays")):
+        k_ms, t_ms = cuda_ms_pair(lambda: fn(table, ro, rd, T0, t1),
+                                  lambda: ref(table, ro, rd, T0, t1))
+        b = whole_bounds(table, ro, rd, t1)[name]
+        closest = name == "closest_hit"
+        kernel = f"{'closest' if closest else 'anyhit'}_kernel G=" + str(
+            build.library().pr_whole_table_lanes(int(closest), table.shape[1]))
+        regs = "; ".join(line.split(": ", 1)[1] for line in ptxas
+                         if line.startswith(f"ptxas {kernel}:"))
+        print(f"{name} at T={table.shape[1]}: kernel {k_ms:.4f} ms, plain {t_ms:.4f} ms, bound "
+              f"{b[0]:.6f} ms ({b[1]}) ({scene} {rays}, {ro.shape[0]} rays, "
+              f"{int((torch.as_tensor(t1) > T0).sum())} live; {card}); ptxas {kernel}: "
+              f"{regs or 'not built in this process'}", flush=True)
+
+
 def pbrt_phases(dev, card, mrays_reference):
     """Phase 14 (the pbrt estimator on the card)."""
     from pyrenderer_tpu_torch.config import RenderConfig
@@ -1073,19 +1082,11 @@ def pbrt_phases(dev, card, mrays_reference):
     ys, xs = np.mgrid[0:1024, 0:1024]
     px = torch.as_tensor(xs.reshape(-1)[perm][:N_RAYS], device=dev)
     py = torch.as_tensor(ys.reshape(-1)[perm][:N_RAYS], device=dev)
-    bounce1, shadow1 = wavefronts(scene, camera, tables, cfg_s, px, py, module="kernels")
+    waves = wavefronts(scene, camera, tables, cfg_s, px, py, module="kernels")
     table = tables.tri_table
-    for label, rays in (("spheres bounce-1 wavefront", bounce1),
-                        ("spheres bounce-1 shadow rays", shadow1)):
+    for label, rays in zip(("spheres bounce-1 wavefront", "spheres bounce-1 shadow rays"), waves):
         compare_kernels(ki, table, *rays, label)
-    bounds = whole_table_bounds(ki, table, *bounce1)
-    for name, fn, ref in (("closest_hit", ki.closest_hit, ki.closest_hit_ref),
-                          ("occluded", ki.occluded, ki.occluded_ref)):
-        k_ms, t_ms = cuda_ms_pair(lambda: fn(table, *bounce1[:2], T0, bounce1[2]),
-                                  lambda: ref(table, *bounce1[:2], T0, bounce1[2]))
-        print(f"{name} at T={table.shape[1]}: kernel {k_ms:.4f} ms, plain {t_ms:.4f} ms, bound "
-              f"{bounds[name][0]:.6f} ms ({bounds[name][1]}) (spheres bounce-1 wavefront of "
-              f"{N_RAYS} rays, {card})", flush=True)
+    time_whole_table(ki, table, waves, "spheres", card)
 
     host, host_cam, _ = load_tungsten(SCENE)
     s160, c160 = to_device(host, host_cam._replace(resolution=(160, 160)), dev)

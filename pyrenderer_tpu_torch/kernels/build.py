@@ -75,6 +75,10 @@ def _declare(lib) -> None:
     lib.pr_closest_hit.restype = ctypes.c_int
     lib.pr_occluded.argtypes = [p, i32, p, p, p, f32, f32, i64, p, p]
     lib.pr_occluded.restype = ctypes.c_int
+    lib.pr_whole_table_lanes.argtypes = [i32, i32]
+    lib.pr_whole_table_lanes.restype = ctypes.c_int
+    lib.pr_whole_table_g.argtypes = [i32, i32, p, i32, p, p, p, f32, f32, i64, p, p, p, p]
+    lib.pr_whole_table_g.restype = ctypes.c_int
     lib.pr_cluster_closest.argtypes = [p, p, p, p, i32, p, f32, i64, i32, p, p, p]
     lib.pr_cluster_closest.restype = ctypes.c_int
     lib.pr_cluster_closest_resume.argtypes = [p, p, p, p, i32, p, f32, i64, i32, p, p, i32,

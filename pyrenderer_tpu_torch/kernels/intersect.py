@@ -2,8 +2,9 @@
 
 Counterpart of pyrenderer_tpu/kernels/pallas_intersect.py. The kernels
 (csrc/intersect.cu) replace the TPU's ``_closest_kernel`` and
-``_anyhit_kernel``: every ray against every triangle of a (9, T) table
-``[v0 | e1 | e2]``, one GPU thread per ray.
+``_anyhit_kernel``: every live ray (t1 > t0) against every triangle of a
+(9, T) table ``[v0 | e1 | e2]``, a few GPU lanes per ray (the kernel picks
+how many from T), bit for bit the twins' hit, t and face.
 
 ``closest_hit`` and ``occluded`` take the device from their tensors. For a
 CUDA tensor they launch the kernel (or raise); for a CPU tensor they run

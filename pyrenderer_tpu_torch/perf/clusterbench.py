@@ -1,10 +1,10 @@
-"""The cluster-sweep and binned kernels on the GPU at terrain100k: each
+"""The cluster-sweep, binned and whole-table kernels on the GPU: each
 kernel timed alone and with its wrapper's glue, checked ray by ray or pair
 by pair, and the frame's device profile.
 
-    python -m pyrenderer_tpu_torch.perf.clusterbench kernels [sweep|binned] [--parity] [--out DIR]
+    python -m pyrenderer_tpu_torch.perf.clusterbench kernels [sweep|binned|whole] [--parity] [--out DIR]
     python -m pyrenderer_tpu_torch.perf.clusterbench compare DIR_A DIR_B
-    python -m pyrenderer_tpu_torch.perf.clusterbench profile [--backend B]
+    python -m pyrenderer_tpu_torch.perf.clusterbench profile [--backend B] [--scene S] [--estimator E]
 
 ``kernels`` builds terrain100k (scene/procgen.py terrain res=224, 100,364
 triangles) and records the integrator's bounce-1 wavefront and its NEE
@@ -33,13 +33,28 @@ PARITY_SETS set at W = 6 and 1, on the launch edges (edge_streams) and on
 the duplicate triangles (duplicate_set), holds every key against the
 resident twin and saves the pairs and keys to DIR/binned.pt.
 
+``kernels whole`` times the two whole-table kernels (csrc/intersect.cu,
+kernels/intersect.py) at both shapes the frames give them: Cornell (36
+triangles) on chip_smoke.py phase 2's sets, and Cornell and spheres (3,852)
+on the bounce-1 wavefront and shadow rays of their pbrt frames
+(whole_wavefronts): each kernel alone (one launch of its C entry point on
+outputs allocated beforehand), through its wrapper, and, where the
+checkout has pr_whole_table_g, at each of WHOLE_LANES lanes per ray, with
+each set's bound; it prints the ptxas report of both kernels. With
+--parity it runs both kernels on every set of whole_sets (those, 65,536
+random rays against the spheres table, duplicate triangles and the launch
+edges), through the wrappers and at every lane count, holds hit, t's bits,
+face and occlusion against the twins ray by ray and saves the rays and the
+wrappers' results to DIR/whole.pt.
+
 The kernels are driven only through names an older checkout of the port
 has too (kernels/cluster.py _check_cuda_args, _prepare, _sc_order,
 _unsort; kernels/binned.py prepass, peel, sort_pairs, blocks_for, leaf,
-leaf_streamed, leaf_ref, RUN_PAIRS or _THREADS; kernels/build.launch;
-perf/kernelbench.graph_ms, cuda_ms), and never through the wrappers'
-launch counts, so this file times and checks an older checkout's kernels
-when that checkout comes first on the path:
+leaf_streamed, leaf_ref, RUN_PAIRS or _THREADS; kernels/intersect.py
+pack_triangles, closest_hit, occluded, their twins and _check_cuda_args;
+kernels/build.launch; perf/kernelbench.graph_ms, cuda_ms), and never
+through the wrappers' launch counts, so this file times and checks an
+older checkout's kernels when that checkout comes first on the path:
 
     PYTHONPATH=OLD python pyrenderer_tpu_torch/perf/clusterbench.py kernels binned --parity --out A
     PYTHONPATH=. python pyrenderer_tpu_torch/perf/clusterbench.py kernels binned --parity --out B
@@ -50,14 +65,17 @@ which the two runs' kernels differ and on how many of them each run agrees
 with the twin.
 
 ``profile`` runs chunk-samples of the terrain100k frame (512x512, 4
-bounces, reference estimator, the first 2^16-pixel chunk) through backend
-"cluster", "cluster_binned" or "cluster_streamed": the wall time per
+bounces, the first 2^16-pixel chunk) through backend "cluster",
+"cluster_binned" or "cluster_streamed", or with ``--backend cuda`` of the
+Cornell or spheres frame (``--scene``, 1024x1024, 4 bounces) through the
+whole-table kernels, with the reference or pbrt estimator: the wall time per
 chunk-sample (host clock, median of 3 windows), then one window under
 torch.profiler: device busy time (the union of the kernels' intervals),
 the idle share against the unprofiled wall, device ms by kernel name for
 the kernels defined in an anonymous namespace (the port's, and a few of
-PyTorch's) and for all the others together, and the host's kernel
-launches and stream syncs.
+PyTorch's) and for all the others together, per chunk-sample and per frame
+(the bench row's chunks x spp), and the host's kernel launches and stream
+syncs.
 
 Runs on a GPU only; every time names the card (nvidia-smi's name and
 power limit).
@@ -352,16 +370,31 @@ def check_parity(sets, out_dir):
 DUPLICATES = ((31, 32), (63, 64), (95, 127), (10, 3 * 128 + 10), (100, 3 * 128 + 3))
 
 
+def aimed_rays(v0, e1, e2, ro, rd):
+    """Appends to the lists ro, rd nine rays into the triangle (v0, e1, e2):
+    three points inside it, each from along its normal and tilted toward x
+    and toward z (so that the watertight shear takes every axis), starting
+    0.5 before the point."""
+    v0, e1, e2 = (np.asarray(x, np.float64) for x in (v0, e1, e2))
+    normal = np.cross(e1, e2)
+    normal /= np.linalg.norm(normal)
+    for u, v in ((1 / 3, 1 / 3), (0.2, 0.5), (0.6, 0.2)):
+        point = v0 + u * e1 + v * e2
+        for tilt in ((0.0, 0.0, 0.0), (1.5, 0.0, 0.0), (0.0, 0.0, 1.5)):
+            d = -(normal + np.asarray(tilt))
+            d /= np.linalg.norm(d)
+            ro.append(point - 0.5 * d)
+            rd.append(d)
+
+
 def duplicate_triangles(tri, order):
     """A lane split's edge for the binned leaves: exact duplicate triangles
     in one bin, whose hits must resolve to the lower slot. tri (K*16, 128)
     and order (K*128,) are a ClusterScene's tables as NumPy arrays. Returns
     (the bin b: the first whose 512 slots hold 512 distinct faces; a copy of
     tri in which slot b*512 + copy of each DUPLICATES pair holds the
-    triangle of slot b*512 + source; rays ro, rd (N, 3) f32, nine into each
-    source triangle: three points inside it, each from along its normal and
-    tilted toward x and toward z, so that the watertight shear takes
-    every axis)."""
+    triangle of slot b*512 + source; rays ro, rd (N, 3) f32, aimed_rays
+    into each source triangle)."""
     from pyrenderer_tpu_torch.accel.clusters import BIN_TRIS, LANE_TRIS, TRI_ROWS
 
     faces = order.reshape(-1, BIN_TRIS)
@@ -373,17 +406,29 @@ def duplicate_triangles(tri, order):
         cs_, ls = divmod(b * BIN_TRIS + src, LANE_TRIS)
         cd, ld = divmod(b * BIN_TRIS + dst, LANE_TRIS)
         rows[cd, :, ld] = rows[cs_, :, ls]
-        v0, e1, e2 = (rows[cs_, k:k + 3, ls].astype(np.float64) for k in (0, 3, 6))
-        normal = np.cross(e1, e2)
-        normal /= np.linalg.norm(normal)
-        for u, v in ((1 / 3, 1 / 3), (0.2, 0.5), (0.6, 0.2)):
-            point = v0 + u * e1 + v * e2
-            for tilt in ((0.0, 0.0, 0.0), (1.5, 0.0, 0.0), (0.0, 0.0, 1.5)):
-                d = -(normal + np.asarray(tilt))
-                d /= np.linalg.norm(d)
-                ro.append(point - 0.5 * d)
-                rd.append(d)
+        aimed_rays(*(rows[cs_, k:k + 3, ls] for k in (0, 3, 6)), ro, rd)
     return b, tri, np.asarray(ro, np.float32), np.asarray(rd, np.float32)
+
+
+# (source, copy) faces of whole_table_duplicates: neighbours (0/1), across a
+# warp's 32 lanes (31/32), across a tile of 256 or of 512 triangles
+# (255/256, 511/512) and the first and last faces; -1 is the last face
+WHOLE_DUPLICATES = ((0, 1), (31, 32), (255, 256), (511, 512), (0, -1))
+
+
+def whole_table_duplicates(table):
+    """The lane split's edge for the whole-table kernels: a copy of the
+    (9, T) table (T > 512, a NumPy array) in which each WHOLE_DUPLICATES
+    copy holds its source triangle, and aimed_rays into each source (ro, rd
+    (N, 3) f32). A ray whose closest hit is a source must report the
+    source, the lower face, never its copy."""
+    table = table.copy()
+    n_tris = table.shape[1]
+    ro, rd = [], []
+    for src, dst in WHOLE_DUPLICATES:
+        table[:, dst % n_tris] = table[:, src]
+        aimed_rays(table[0:3, src], table[3:6, src], table[6:9, src], ro, rd)
+    return table, np.asarray(ro, np.float32), np.asarray(rd, np.float32)
 
 
 def duplicate_set(cs, dev):
@@ -689,6 +734,283 @@ def cmd_binned(args) -> int:
     return 0
 
 
+# the whole-table kernels' bound, as chip_smoke.py counts it: fp32
+# operations of a Moeller-Trumbore test over the card's fp32 peak, bytes
+# over its memory rate (NVIDIA's H100 SXM data sheet, 700 W)
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+MT_OPS = 60
+# lanes per ray the whole-table kernels can take (pr_whole_table_g)
+WHOLE_LANES = (1, 2, 4, 8, 16)
+# the sets timed by `kernels whole`: chip_smoke.py phase 2's Cornell sets
+# and both scenes' bounce-1 wavefront and shadow rays
+WHOLE_TIMED = ("cornell random", "cornell dead lanes", "cornell camera",
+               "cornell per-ray t1", "cornell ragged", "cornell ragged per-ray t1",
+               "cornell bounce1", "cornell shadow1", "spheres bounce1", "spheres shadow1")
+
+
+def whole_scenes(dev):
+    """name -> (scene, camera, (9, T) table) of bench.py's "cornell" (36
+    triangles) and "spheres" (3,852) rows at their resolution, 1024x1024."""
+    from pyrenderer_tpu_torch.bench import load_bench_scene
+    from pyrenderer_tpu_torch.kernels import intersect as ki
+    from pyrenderer_tpu_torch.scene import to_device
+
+    out = {}
+    for name in ("cornell", "spheres"):
+        host, cam, res, _, _ = load_bench_scene(name)
+        scene, camera = to_device(host, cam._replace(resolution=(res, res)), dev)
+        out[name] = (scene, camera, ki.pack_triangles(scene.vertices, scene.faces))
+    return out
+
+
+def whole_wavefronts(scene, camera, dev):
+    """The bounce-1 wavefront and its shadow rays ((ro, rd, t1) each) of the
+    pbrt frame through the whole-table wrappers: the first 2^16 Morton
+    pixels of 1024x1024, 1 spp, seed 0, as chip_smoke.py phase 14 takes
+    them."""
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.core.integrator import TraceTables
+
+    cfg = RenderConfig(max_bounces=4, spp=1, seed=0, estimator="pbrt")
+    return wavefronts(scene, camera, TraceTables(scene, cfg, "cuda"), cfg,
+                      *morton_chunk(1024, dev), module="kernels")
+
+
+def whole_sets(dev, scenes, waves=None):
+    """label -> ((9, T) table, ro, rd, t1): chip_smoke.py phase 2's Cornell
+    sets, both scenes' bounce-1 wavefront (bounce1) and shadow rays
+    (shadow1; without `waves`, none), 65,536 random rays against the
+    spheres table, the
+    duplicates of whole_table_duplicates, and each table's launch edges:
+    N = 1, 31, 33 and 129, all rays dead, every third ray dead, and t1 on
+    the accept test's edges (t1 = 0, below t0, NaN, negative, inf)."""
+    from pyrenderer_tpu_torch.core.camera import generate_rays
+
+    cornell, spheres = scenes["cornell"][2], scenes["spheres"][2]
+    ro, rd = random_rays(N_RAYS, 0, dev)
+    lanes = torch.arange(N_RAYS, device=dev)
+    dead = torch.where(lanes % 3 == 0, 0.0, T_MAX).float()
+    half = torch.full((N_RAYS,), 0.5, device=dev)
+    cro, crd = generate_rays(scenes["cornell"][1], *morton_chunk(1024, dev), 0, 0)
+    rro, rrd = random_rays(100, 4, dev)
+    edge_t1 = torch.tensor([T_MAX, 0.0, T0 / 10, float("nan"), -1.0, float("inf")],
+                           device=dev).repeat(683)[:4096].contiguous()
+    dup, dro, drd = whole_table_duplicates(spheres.cpu().numpy())
+    sets = {
+        "cornell random": (cornell, ro, rd, T_MAX),
+        "cornell dead lanes": (cornell, ro, rd, dead),
+        "cornell camera": (cornell, cro.contiguous(), crd.contiguous(), T_MAX),
+        "cornell per-ray t1": (cornell, ro, rd, half),
+        "cornell ragged": (cornell, rro, rrd, T_MAX),
+        "cornell ragged per-ray t1": (cornell, rro, rrd, half[:100].contiguous()),
+        "spheres random": (spheres, ro, rd, T_MAX),
+        "duplicates": (torch.as_tensor(dup, device=dev), torch.as_tensor(dro, device=dev),
+                       torch.as_tensor(drd, device=dev), T_MAX),
+    }
+    for name, table in (("cornell", cornell), ("spheres", spheres)):
+        if waves is not None:
+            sets[f"{name} bounce1"] = (table, *waves[name][0])
+            sets[f"{name} shadow1"] = (table, *waves[name][1])
+        for n in (1, 31, 33, 129):
+            sets[f"{name} N={n}"] = (table, ro[:n], rd[:n], T_MAX)
+        sets[f"{name} all dead"] = (table, ro[:4096], rd[:4096], torch.zeros(4096, device=dev))
+        sets[f"{name} every third dead"] = (table, ro[:4096], rd[:4096],
+                                            dead[:4096].contiguous())
+        sets[f"{name} t1 edges"] = (table, ro[:4096], rd[:4096], edge_t1)
+    return sets
+
+
+def whole_bounds(table, ro, rd, t1):
+    """{"closest_hit": (ms, by), "occluded": (ms, by)}: the closest hit
+    tests every triangle for every live ray (t1 > T0), the any hit up to a
+    ray's first accepted triangle in table order; bytes: rays, table and t1
+    read once, the outputs written once."""
+    from pyrenderer_tpu_torch.core.intersect import _accept, _mt_terms
+    from pyrenderer_tpu_torch.kernels import intersect as ki
+
+    n, n_tris = ro.shape[0], table.shape[1]
+    t1v = torch.as_tensor(t1, dtype=torch.float32, device=ro.device).expand(n)
+    live = t1v > T0
+    ok = _accept(*_mt_terms(*ki._table_arrays(table, ro.dtype), ro, rd), T0, t1v)
+    first = torch.where(ok.any(dim=1), ok.int().argmax(dim=1) + 1, n_tris)
+    ins = 4 * (ro.numel() + rd.numel() + table.numel()) + (4 * n if torch.is_tensor(t1) else 0)
+    out = {}
+    for name, tests, out_bytes in (("closest_hit", int(live.sum()) * n_tris, 9 * n),
+                                   ("occluded", int(first[live].sum()), n)):
+        t_ops = tests * MT_OPS / PEAK_FP32 * 1e3
+        t_bytes = (ins + out_bytes) / PEAK_BYTES * 1e3
+        out[name] = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return out
+
+
+def whole_ptxas(log: str):
+    """The ptxas lines (registers, shared memory, spills) of csrc/intersect.cu's
+    closest_kernel and anyhit_kernel in `log`, each with its lanes per ray
+    (the template argument G, where the checkout has one)."""
+    out, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+            continue
+        m = re.search(r"(?<=\d)(closest|anyhit)_kernel(ILi(\d+)E)?", entry or "")
+        if m and ("Used" in line or "spill" in line):
+            tag = m.group(1) + "_kernel" + (f" G={m.group(3)}" if m.group(3) else "")
+            out.append(f"ptxas {tag}: {re.sub(r'^ptxas info *: *', '', line.strip())}")
+    return out
+
+
+def whole_run(table, ro, rd, t1, g=None):
+    """Both whole-table kernels on one set, through the wrappers (g None)
+    or at g lanes per ray (pr_whole_table_g, uncounted): (hit, t, tri,
+    occluded)."""
+    from pyrenderer_tpu_torch.kernels import build
+    from pyrenderer_tpu_torch.kernels import intersect as ki
+
+    if g is None:
+        hit, t, tri = ki.closest_hit(table, ro, rd, T0, t1)
+        return hit, t, tri, ki.occluded(table, ro, rd, T0, t1)
+    n = ro.shape[0]
+    t1v, t1s = ki._check_cuda_args(table, ro, rd, t1)
+    outs = (torch.empty(n, device=ro.device), torch.empty(n, dtype=torch.int32, device=ro.device),
+            torch.empty(n, dtype=torch.bool, device=ro.device),
+            torch.empty(n, dtype=torch.bool, device=ro.device))
+    for closest, (t, tri, hit) in ((1, outs[:3]), (0, (None, None, outs[3]))):
+        build.launch("pr_whole_table_g", ro.device, closest, g, table.data_ptr(),
+                     table.shape[1], ro.data_ptr(), rd.data_ptr(),
+                     None if t1v is None else t1v.data_ptr(), t1s, float(T0), n,
+                     None if t is None else t.data_ptr(), None if tri is None else tri.data_ptr(),
+                     hit.data_ptr())
+    return outs[2], outs[0], outs[1], outs[3]
+
+
+def whole_parity(sets, lanes, out_dir):
+    """Both kernels against the twins on every set, bit for bit (hit, t's
+    bits, face, occlusion), through the wrappers and at each of `lanes`;
+    prints one line per case and saves rays and results to
+    DIR/whole.pt. Returns the number of cases that differ."""
+    from pyrenderer_tpu_torch.kernels import intersect as ki
+
+    saved, bad = {}, 0
+    for label, (table, ro, rd, t1) in sets.items():
+        n = ro.shape[0]
+        t1v = torch.as_tensor(t1, dtype=torch.float32, device=ro.device).expand(n)
+        hit_r, t_r, tri_r = ki.closest_hit_ref(table, ro, rd, T0, t1)
+        occ_r = ki.occluded_ref(table, ro, rd, T0, t1)
+        saved[label] = {"rays": (table.cpu(), ro.cpu(), rd.cpu(), t1v.contiguous().cpu())}
+        for g in (None, *lanes):
+            hit, t, tri, occ = whole_run(table, ro, rd, t1, g)
+            torch.cuda.synchronize()
+            differ = ((hit != hit_r) | (t.view(torch.int32) != t_r.view(torch.int32))
+                      | (tri != tri_r) | (occ != occ_r))
+            bad += int(bool(differ.any()))
+            print(f"whole parity {label}, {'wrappers' if g is None else f'G={g}'}: n={n} "
+                  f"hits={int(hit_r.sum())} occluded={int(occ_r.sum())}; (hit, t bits, face, "
+                  f"occluded) differ from the twins on {int(differ.sum())} rays", flush=True)
+            if g is None:
+                saved[label]["kernels"] = (hit.cpu(), t.cpu(), tri.cpu(), occ.cpu())
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(saved, os.path.join(out_dir, "whole.pt"))
+    return bad
+
+
+def compare_whole(a, b):
+    """Per whole-table set, the rays on which two runs' kernels differ (hit,
+    t's bits, face or occlusion); returns True when none differs."""
+    same = True
+    for label in a:
+        if label not in b or not all(torch.equal(x, y) or (x.is_floating_point() and torch.equal(
+                x.view(torch.int32), y.view(torch.int32)))
+                for x, y in zip(a[label]["rays"], b[label]["rays"])):
+            print(f"compare whole {label}: the two runs traced different rays")
+            same = False
+            continue
+        (ha, ta, fa, oa), (hb, tb, fb, ob) = a[label]["kernels"], b[label]["kernels"]
+        diff = (ha != hb) | (ta.view(torch.int32) != tb.view(torch.int32)) | (fa != fb) | (oa != ob)
+        print(f"compare whole {label}: (hit, t bits, face, occluded) differ on "
+              f"{int(diff.sum())} of {ha.shape[0]} rays")
+        same &= not bool(diff.any())
+    return same
+
+
+def cmd_whole(args) -> int:
+    """``kernels whole``: both whole-table kernels alone (one launch of the
+    C entry point on outputs allocated beforehand), with their wrappers, and
+    at each of WHOLE_LANES where the checkout has pr_whole_table_g, on
+    WHOLE_TIMED; with --parity, whole_sets against the twins."""
+    import pyrenderer_tpu_torch
+    from pyrenderer_tpu_torch.kernels import build
+    from pyrenderer_tpu_torch.kernels import intersect as ki
+    from pyrenderer_tpu_torch.perf.kernelbench import graph_ms
+
+    dev = torch.device("cuda:0")
+    card = card_line()
+    package = os.path.dirname(os.path.abspath(pyrenderer_tpu_torch.__file__))
+    print(f"package {package}; {card}", flush=True)
+    t = time.perf_counter()
+    lib = build.library()
+    print(f"kernels built or loaded in {time.perf_counter() - t:.2f} s", flush=True)
+    for line in whole_ptxas(build.build_log()):
+        print(line)
+    lanes = WHOLE_LANES if hasattr(lib, "pr_whole_table_g") else ()
+    scenes = whole_scenes(dev)
+    waves = {name: whole_wavefronts(scene, camera, dev)
+             for name, (scene, camera, _) in scenes.items()}
+    sets = whole_sets(dev, scenes, waves)
+    if lanes:
+        print("lanes per ray of the entry points: " + ", ".join(
+            f"{name} T={t} G={lib.pr_whole_table_lanes(closest, t)}"
+            for t in (scenes[s][2].shape[1] for s in scenes)
+            for closest, name in ((1, "closest_hit"), (0, "occluded"))), flush=True)
+
+    cases, bounds = {}, {}
+    for label in WHOLE_TIMED:
+        table, ro, rd, t1 = sets[label]
+        n = ro.shape[0]
+        t1v, t1s = ki._check_cuda_args(table, ro, rd, t1)
+        t1p = None if t1v is None else t1v.data_ptr()
+        t_out = torch.empty(n, device=dev)
+        tri_out = torch.empty(n, dtype=torch.int32, device=dev)
+        hit_out = torch.empty(n, dtype=torch.bool, device=dev)
+        head = (table.data_ptr(), table.shape[1], ro.data_ptr(), rd.data_ptr(), t1p, t1s,
+                float(T0), n)
+        bounds[label] = whole_bounds(table, ro, rd, t1)
+        print(f"{label}: {n} rays, {int((torch.as_tensor(t1, device=dev).expand(n) > T0).sum())}"
+              f" live, T={table.shape[1]}; bounds " + ", ".join(
+                  f"{k} {v[0]:.6f} ms ({v[1]})" for k, v in bounds[label].items()), flush=True)
+        cases[(label, "closest_hit", "alone")] = lambda h=head, o=(t_out, tri_out, hit_out): \
+            build.launch("pr_closest_hit", dev, *h, *(x.data_ptr() for x in o))
+        cases[(label, "occluded", "alone")] = lambda h=head, o=hit_out: \
+            build.launch("pr_occluded", dev, *h, o.data_ptr())
+        cases[(label, "closest_hit", "wrapper")] = lambda s=sets[label]: \
+            ki.closest_hit(s[0], s[1], s[2], T0, s[3])
+        cases[(label, "occluded", "wrapper")] = lambda s=sets[label]: \
+            ki.occluded(s[0], s[1], s[2], T0, s[3])
+        for g in lanes:
+            for closest, name in ((1, "closest_hit"), (0, "occluded")):
+                cases[(label, name, f"G={g}")] = (
+                    lambda h=head, c=closest, g=g, o=(t_out, tri_out, hit_out): build.launch(
+                        "pr_whole_table_g", dev, c, g, *h, *(x.data_ptr() for x in o)))
+    times = {key: [] for key in cases}
+    for key in list(cases) + list(reversed(cases)):
+        times[key].append(graph_ms(cases[key], REPS))
+    result = {}
+    for (label, name, kind), ms in times.items():
+        value = float(np.median(ms))
+        entry = result.setdefault(label, {}).setdefault(name, {})
+        entry[f"{kind} ms"] = value
+        entry["bound_ms"], entry["bound_by"] = bounds[label][name]
+        print(f"{label} {name} {kind}: {value:.4f} ms (median of {len(ms)} graph replays of "
+              f"{REPS} calls; bound {bounds[label][name][0]:.6f} ms; {card})", flush=True)
+    bad = None
+    if args.parity:
+        bad = whole_parity(sets, lanes, args.out)
+        print(f"whole parity: {bad} cases differ from the twins", flush=True)
+    print(json.dumps({"package": package, "card": card, "device": torch.cuda.get_device_name(0),
+                      "whole": result, "parity_cases_differing": bad}))
+    return 0
+
+
 def compare_sweep(a, b):
     """Per sweep case, the rays on which two runs' kernels differ; returns
     True when none differs."""
@@ -715,10 +1037,12 @@ def compare_sweep(a, b):
 
 
 def cmd_compare(args) -> int:
-    """The files of `kernels --parity` (parity.pt) and `kernels binned
-    --parity` (binned.pt) that both directories hold, compared."""
+    """The files of `kernels --parity` (parity.pt), `kernels binned
+    --parity` (binned.pt) and `kernels whole --parity` (whole.pt) that both
+    directories hold, compared."""
     same = {}
-    for name, fn in (("parity.pt", compare_sweep), ("binned.pt", compare_binned)):
+    for name, fn in (("parity.pt", compare_sweep), ("binned.pt", compare_binned),
+                     ("whole.pt", compare_whole)):
         paths = [os.path.join(d, name) for d in args.dirs]
         if all(os.path.exists(p) for p in paths):
             same[name] = fn(*(torch.load(p) for p in paths))
@@ -735,10 +1059,18 @@ def cmd_profile(args) -> int:
 
     dev = torch.device("cuda:0")
     card = card_line()
-    scene, camera, cs = terrain(224, dev)
-    cfg = RenderConfig(max_bounces=4, spp=4, seed=0, estimator="reference")
-    tables = TraceTables(scene, cfg, args.backend, accel=cs)
-    px, py = morton_chunk(512, dev)
+    if args.backend == "cuda":
+        scene, camera, _ = whole_scenes(dev)[args.scene]
+        accel, res, spp = None, 1024, 16
+    else:
+        scene, camera, accel = terrain(224, dev)
+        res, spp = 512, 4
+    cfg = RenderConfig(max_bounces=4, spp=spp, seed=0, estimator=args.estimator)
+    tables = TraceTables(scene, cfg, args.backend, accel=accel)
+    px, py = morton_chunk(res, dev)
+    # chunk-samples per frame: chunks of 2^16 pixels x spp
+    per_frame = res * res // N_RAYS * spp
+    label = args.scene if args.backend == "cuda" else "terrain100k"
 
     def window(first):
         for s in range(first, first + SAMPLES):
@@ -784,16 +1116,19 @@ def cmd_profile(args) -> int:
         key = m.group(1) if m else "other kernels"
         ours[key] = ours.get(key, 0.0) + us
     report = {
+        "scene": label, "estimator": args.estimator, "chunk_samples_per_frame": per_frame,
         "backend": tables.backend, "card": card,
         "wall_ms_per_chunk_sample": wall, "wall_ms_windows": walls,
         "device_busy_ms_per_chunk_sample": busy_ms if device else None,
         "idle_share": 1.0 - busy_ms / wall if device else None,
         "device_ms_per_chunk_sample": {k: us / 1e3 / SAMPLES for k, us in
                                        sorted(ours.items(), key=lambda kv: -kv[1])},
+        "device_ms_per_frame": {k: us / 1e3 / SAMPLES * per_frame for k, us in
+                                sorted(ours.items(), key=lambda kv: -kv[1])},
         "host_calls_per_chunk_sample": {k: v / SAMPLES for k, v in host.items()},
         "device_events": len(device),
     }
-    print(f"profile terrain100k {tables.backend} ({card}): wall {wall:.3f} ms per "
+    print(f"profile {label} {args.estimator} {tables.backend} ({card}): wall {wall:.3f} ms per "
           f"chunk-sample (windows {', '.join(f'{w:.3f}' for w in walls)}), device busy "
           + (f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / wall:.4f}" if device
              else "not measured (the profiler saw no device event)"), flush=True)
@@ -805,20 +1140,23 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     k = sub.add_parser("kernels")
-    k.add_argument("which", nargs="?", default="sweep", choices=("sweep", "binned"))
+    k.add_argument("which", nargs="?", default="sweep", choices=("sweep", "binned", "whole"))
     k.add_argument("--parity", action="store_true")
     k.add_argument("--out", default=os.path.join("build", "clusterbench"))
     c = sub.add_parser("compare")
     c.add_argument("dirs", nargs=2)
     p = sub.add_parser("profile")
     p.add_argument("--backend", default="cluster",
-                   choices=("cluster", "cluster_binned", "cluster_streamed"))
+                   choices=("cluster", "cluster_binned", "cluster_streamed", "cuda"))
+    p.add_argument("--scene", default="spheres", choices=("cornell", "spheres"),
+                   help="the whole-table frame of --backend cuda")
+    p.add_argument("--estimator", default="reference", choices=("reference", "pbrt"))
     args = parser.parse_args(argv)
     if args.cmd != "compare" and not torch.cuda.is_available():
         print("no CUDA device: clusterbench runs on a GPU", file=sys.stderr)
         return 2
-    if args.cmd == "kernels" and args.which == "binned":
-        return cmd_binned(args)
+    if args.cmd == "kernels" and args.which != "sweep":
+        return {"binned": cmd_binned, "whole": cmd_whole}[args.which](args)
     return {"kernels": cmd_kernels, "compare": cmd_compare, "profile": cmd_profile}[args.cmd](args)
 
 

@@ -21,11 +21,26 @@ from pyrenderer_tpu_torch.scene import to_device
 torch.set_num_threads(2)
 
 
-@pytest.fixture(scope="module")
-def scenes(cornell_path):
-    host, camera, _ = load_tungsten(cornell_path, dtype=np.float32)
+SPHERES_JSON = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "scenes", "spheres.json")
+
+
+def _load(path):
+    host, camera, _ = load_tungsten(path, dtype=np.float32)
     scene_t, _ = to_device(host, camera, "cpu", torch.float32)
     return jax.tree.map(jnp.asarray, host), scene_t
+
+
+@pytest.fixture(scope="module")
+def scenes(cornell_path):
+    return _load(cornell_path)
+
+
+@pytest.fixture(scope="module")
+def spheres():
+    """The spheres scene: 3,852 triangles, above the TPU kernels' unrolled
+    64 (their fori_loop branch) and above a 512-triangle tile."""
+    return _load(SPHERES_JSON)
 
 
 def _random_rays(n, seed=0):
@@ -65,7 +80,18 @@ def test_twins_match_pallas_interpret(scenes, n, t1_case):
     ulp of the largest product; where that exceeds rtol 1e-5 (a hit at
     small t whose dot product cancels), the twin must equal the oracle
     bit for bit."""
-    scene_j, scene_t = scenes
+    _check_twins_against_interpret(*scenes, n, t1_case)
+
+
+@pytest.mark.parametrize("t1_case", ["scalar", "per_ray_half", "dead_lanes"])
+def test_twins_match_pallas_interpret_spheres(spheres, t1_case):
+    """As test_twins_match_pallas_interpret, on the spheres table (T =
+    3,852): the TPU kernels' fori_loop branch (pallas_intersect.py:95-105),
+    256 rays, the same tolerances."""
+    _check_twins_against_interpret(*spheres, 256, t1_case)
+
+
+def _check_twins_against_interpret(scene_j, scene_t, n, t1_case):
     ro, rd = _random_rays(n, seed=n)
     t1 = _t1_cases(n)[t1_case]
     table_j = pk.pack_triangles(scene_j.vertices, scene_j.faces)
@@ -94,6 +120,61 @@ def test_twins_match_pallas_interpret(scenes, n, t1_case):
     assert np.all(tri[~h] == -1) and np.all(t[~h] == 0)
     if t1_case == "dead_lanes":
         assert not h[np.arange(n) % 3 == 0].any()
+
+
+def test_duplicate_triangles_resolve_to_the_lower_face(spheres):
+    """Exact duplicate triangles where a lane split or a tile would separate
+    them (faces 0/1, 31/32, 255/256, 511/512, first/last; perf/clusterbench
+    whole_table_duplicates): the twin and the interpret-mode TPU kernel
+    both return the source, the lower face, on every ray aimed into one."""
+    from pyrenderer_tpu_torch.perf.clusterbench import WHOLE_DUPLICATES, whole_table_duplicates
+
+    _, scene_t = spheres
+    table = ki.pack_triangles(scene_t.vertices, scene_t.faces)
+    n_tris = table.shape[1]
+    assert n_tris > 512
+    dup, ro, rd = whole_table_duplicates(table.numpy())
+    h, t, tri = (x.numpy() for x in ki.closest_hit_ref(
+        torch.from_numpy(dup), torch.from_numpy(ro), torch.from_numpy(rd), 1e-5, 1e5))
+    h_j, t_j, tri_j = (np.asarray(x) for x in pk.closest_hit(
+        jnp.asarray(dup), jnp.asarray(ro), jnp.asarray(rd), 1e-5, 1e5, interpret=True))
+    sources = {src for src, _ in WHOLE_DUPLICATES}
+    # nine rays aimed into each source (a ray may find the scene in front)
+    aimed = np.repeat([src for src, _ in WHOLE_DUPLICATES], 9)
+    assert h.all() and h_j.all()
+    assert np.array_equal(tri, tri_j)
+    assert set(tri.tolist()) <= sources
+    assert (tri == aimed).mean() >= 0.8
+    copies = [dst % n_tris for _, dst in WHOLE_DUPLICATES]
+    assert not np.isin(tri, copies).any()
+    assert np.array_equal(ki.occluded_ref(torch.from_numpy(dup), torch.from_numpy(ro),
+                                          torch.from_numpy(rd), 1e-5, 1e5).numpy(), h)
+
+
+@pytest.mark.parametrize("dead_t1", [0.0, 1e-6, float("nan")])
+def test_dead_t1_misses(scenes, dead_t1):
+    """A ray with t1 = 0, t1 below t0 or t1 = NaN accepts no triangle under
+    t0 < t < t1 (the kernels skip it): a miss (tri = -1, t = 0, not
+    occluded) in the twin and in the interpret-mode TPU kernel, every other
+    ray as the interpret-mode kernel finds it."""
+    scene_j, scene_t = scenes
+    n = 300
+    ro, rd = _random_rays(n, seed=7)
+    dead = np.arange(n) % 3 == 0
+    t1 = np.where(dead, np.float32(dead_t1), np.float32(1e5)).astype(np.float32)
+    table = ki.pack_triangles(scene_t.vertices, scene_t.faces)
+    args = (torch.from_numpy(ro), torch.from_numpy(rd), 1e-5, torch.from_numpy(t1))
+    h, t, tri = (x.numpy() for x in ki.closest_hit_ref(table, *args))
+    o = ki.occluded_ref(table, *args).numpy()
+    table_j = pk.pack_triangles(scene_j.vertices, scene_j.faces)
+    args_j = (jnp.asarray(ro), jnp.asarray(rd), 1e-5, jnp.asarray(t1))
+    h_j, t_j, tri_j = (np.asarray(x) for x in pk.closest_hit(table_j, *args_j, interpret=True))
+    o_j = np.asarray(pk.occluded(table_j, *args_j, interpret=True))
+    for hit, tt, face, occ in ((h, t, tri, o), (h_j, t_j, tri_j, o_j)):
+        assert not hit[dead].any() and not occ[dead].any()
+        assert np.all(face[dead] == -1) and np.all(tt[dead] == 0)
+    assert h[~dead].any()
+    assert np.array_equal(h, h_j) and np.array_equal(o, o_j)
 
 
 def test_brute_matches_twin_and_keeps_its_miss_contract(scenes):
@@ -155,21 +236,35 @@ def test_kernel_module_imports_without_nvcc():
 
 
 @pytest.mark.cuda
-def test_kernels_match_twins_on_gpu(scenes):
-    """On a CUDA device: both kernels against their twins (run on the card
-    with `python -m pytest tests/test_torch_intersect.py -m cuda`)."""
+def test_kernels_match_twins_on_gpu(scenes, spheres):
+    """On a CUDA device: both kernels bit-equal to their twins on every ray
+    (hit, t's bits, face, occluded), against the Cornell (36 triangles) and
+    spheres (3,852) tables, and the spheres table with duplicates: 2^16
+    random rays with scalar and per-ray t1, N = 1, 31, 33 and 129, all
+    rays dead, every third ray dead (run on the card with
+    `python -m pytest tests/test_torch_intersect.py -m cuda`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    _, scene_t = scenes
+    from pyrenderer_tpu_torch.perf.clusterbench import whole_table_duplicates
+
     dev = torch.device("cuda")
-    ro, rd = (torch.from_numpy(a).to(dev) for a in _random_rays(1 << 16))
-    table = ki.pack_triangles(scene_t.vertices, scene_t.faces).to(dev)
-    for t1 in (1e5, torch.full((1 << 16,), 0.5, device=dev)):
-        h, t, tri = ki.closest_hit(table, ro, rd, 1e-5, t1)
-        h2, t2, tri2 = ki.closest_hit_ref(table, ro, rd, 1e-5, t1)
-        assert torch.equal(h, h2)
-        same = (tri == tri2) & h
-        assert float(same[h].float().mean()) >= 0.995
-        torch.testing.assert_close(t[same], t2[same], rtol=1e-5, atol=0.0)
-        assert torch.equal(ki.occluded(table, ro, rd, 1e-5, t1),
-                           ki.occluded_ref(table, ro, rd, 1e-5, t1))
+    n = 1 << 16
+    ro, rd = (torch.from_numpy(a).to(dev) for a in _random_rays(n))
+    tables = [ki.pack_triangles(s.vertices, s.faces).to(dev) for _, s in (scenes, spheres)]
+    dead = torch.where(torch.arange(n, device=dev) % 3 == 0, 0.0, 1e5).float()
+    cases = []
+    for table in tables:
+        cases += [(table, ro, rd, 1e5), (table, ro, rd, torch.full((n,), 0.5, device=dev)),
+                  (table, ro, rd, dead)]
+        cases += [(table, ro[:m], rd[:m], 1e5) for m in (1, 31, 33, 129)]
+        cases.append((table, ro[:4096], rd[:4096], torch.zeros(4096, device=dev)))
+    dup, dro, drd = whole_table_duplicates(tables[1].cpu().numpy())
+    cases.append((torch.from_numpy(dup).to(dev), torch.from_numpy(dro).to(dev),
+                  torch.from_numpy(drd).to(dev), 1e5))
+    for table, r_o, r_d, t1 in cases:
+        h, t, tri = ki.closest_hit(table, r_o, r_d, 1e-5, t1)
+        o = ki.occluded(table, r_o, r_d, 1e-5, t1)
+        h2, t2, tri2 = ki.closest_hit_ref(table, r_o, r_d, 1e-5, t1)
+        o2 = ki.occluded_ref(table, r_o, r_d, 1e-5, t1)
+        assert torch.equal(h, h2) and torch.equal(tri, tri2) and torch.equal(o, o2)
+        assert torch.equal(t.view(torch.int32), t2.view(torch.int32))
