@@ -67,10 +67,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit for bit, also on the leaves' launch edges (one pair, 33 pairs, a bin
    of more than 128, a last piece of one pair, all SENTINEL, dead rays) and
    on exact duplicate triangles in one bin (the lower slot must win; both
-   from perf/clusterbench.py); then the public binned closest_hit /
-   occluded, resident and streamed, against phase 6's sweep-twin results
-   (equal hit masks and occlusion, faces >= 0.999); the leak hunt through
-   the binned watertight path.
+   from perf/clusterbench.py); the prepass (with and without the words)
+   and every peel round after it, until no ray has a bit left, bit for bit
+   on their launch edges (clusterbench.prepass_edges: all rays dead, every
+   third dead, t1 exactly t0, one float below it, NaN, inf, negative; N =
+   1, 31, 33, 129) at W = 6 and 1, the peel on edge words (bit 31, full
+   words; clusterbench.edge_words) at W = 1, 6, 10, and terrain330k's table
+   (672 box rows, more than one staging pass) at W = 6, 1 and 10; then the
+   public binned closest_hit / occluded, resident and streamed, against
+   phase 6's sweep-twin results (equal hit masks and occlusion, faces >=
+   0.999); the leak hunt through the binned watertight path.
 11. The binned path through ProgressiveRenderer: phase 7's frame with
    backend "cluster_binned" and with "cluster_streamed". Checks a finite
    HDR, at least 4 passes x 4 chunks x 4 bounces x 2 queries launches of
@@ -80,7 +86,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    > 0.999 at rtol 1e-3, median |diff| 0); prints the three frames' Mrays/s.
    Then one CLI render with --backend cluster_binned (Cornell, 64x64).
 12. Timings on the bounce-1 wavefront: each binned kernel alone and its
-   twin, with ptxas's registers and spill of both leaves, and the binned
+   twin, with its bound and ptxas's registers and spill; the prepass also
+   at W = 10 with the words and the peel on the words it leaves (the
+   streamed path's calls), and the prepass on the shadow rays; the binned
    wrappers (glue included) against the sweep's.
 13. The four probe kernels of perf/kernelbench.py (csrc/kernelbench.cu:
    leaf, extract, cond, ctz) against their twins at the harness's shape
@@ -124,7 +132,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    from perf/clusterbench.walk (pass 1 stopping after 8 superclusters, the
    resume pass over the suspended rays).
 19. The chunked sweep: terrain330k (329,684 triangles, 3 chunks of at most
-   CHUNK_MAX_TRIS) through "cluster_chunked" and the monolithic "cluster":
+   CHUNK_MAX_TRIS; the scene and its ClusterScene built in phase 10)
+   through "cluster_chunked" and the monolithic "cluster":
    equal hit masks and occlusion on 65,536 random rays, faces equal except
    exact ties; the 512x512 2-spp frames (3 launches of each kernel per
    query against 1), > 99.9% of pixels close with a median |diff| of 0,
@@ -759,6 +768,74 @@ def compare_binned_edges(kb, cs, refs, dev):
     return err
 
 
+def check_prepass_peel(kb, cs, rays, label, ws):
+    """The prepass, with and without the words, and every peel round after
+    it until no ray has a bit left, against their twins bit for bit, at
+    each W of `ws`; returns the most peel rounds."""
+    most = 0
+    for w in ws:
+        for emit in (False, True):
+            for a, b in zip(kb.prepass(cs, rays, T0, w, emit),
+                            kb.prepass_ref(cs, rays, T0, w, emit)):
+                check(torch.equal(a, b), f"{label}, W={w}, words {emit}: prepass differs")
+        words = kb.prepass(cs, rays, T0, w, emit_words=True)[2]
+        rounds = 0
+        while bool((words != 0).any()):
+            out = kb.peel(words, w)
+            for a, b in zip(out, kb.peel_ref(words, w)):
+                check(torch.equal(a, b), f"{label}, W={w}: peel round {rounds + 1} differs")
+            words = out[2]
+            rounds += 1
+        most = max(most, rounds)
+    return most
+
+
+def compare_prepass_edges(kb, cl, cs, refs, dev):
+    """The prepass and the peel against their twins, bit for bit, on their
+    launch edges (perf/clusterbench.prepass_edges of phase 6's random rays:
+    all dead, every third dead, t1 exactly t0, t1 one float below t0, NaN,
+    inf, negative, N = 1, 31, 33, 129) at W = 6 and 1 (many peel rounds);
+    the peel on edge words (clusterbench.edge_words: bit 31, full words);
+    then terrain330k's table (more box rows than one staging pass holds) on
+    65,536 random rays at W = 6, 1 and 10 and its t1 = t0 set. Returns
+    terrain330k's (host scene, camera, ClusterScene on the card, build
+    seconds) for phase 19."""
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+    from pyrenderer_tpu_torch.perf import clusterbench as cb
+    from pyrenderer_tpu_torch.scene import procgen
+    from pyrenderer_tpu_torch.scene.tungsten import build_scene
+
+    ro, rd, t1 = refs["random, scalar t1"]["rays"]
+    for label, rays in cb.prepass_edges(cs, kc._prepare(cs, ro, rd, t1, sort=False)[0]).items():
+        rounds = check_prepass_peel(kb, cs, rays, f"prepass edge {label}", (6, 1))
+        print(f"prepass edge {label}: n={rays.shape[0]}, live {int((rays[:, 6] >= T0).sum())}; "
+              f"prepass and {rounds} peel rounds bit-equal to the twins", flush=True)
+    for w in (1, 6, 10):
+        words = torch.as_tensor(cb.edge_words(4096, cs.bin_box8.shape[0] // 32), device=dev)
+        rounds = 0
+        while bool((words != 0).any()):
+            out = kb.peel(words, w)
+            for a, b in zip(out, kb.peel_ref(words, w)):
+                check(torch.equal(a, b), f"peel edge words, W={w}: round {rounds + 1} differs")
+            words = out[2]
+            rounds += 1
+        print(f"peel edge words (bit 31, full words), W={w}: {rounds} rounds bit-equal",
+              flush=True)
+    host, host_cam, _ = build_scene(procgen.big_scene_data("terrain", res=406))
+    t = time.perf_counter()
+    cs330 = cl.build_clusters(host.vertices, host.faces).to(dev)
+    t_build = time.perf_counter() - t
+    n_rows = cs330.bin_box8.shape[0]
+    check(n_rows > 512, f"terrain330k has {n_rows} box rows: one staging pass")
+    rays = kc._prepare(cs330, ro, rd, t1, sort=False)[0]
+    rounds = check_prepass_peel(kb, cs330, rays, "terrain330k random", (6, 1, 10))
+    inside = cb.prepass_edges(cs330, rays)["t1 = t0, origins in bins"]
+    check_prepass_peel(kb, cs330, inside, "terrain330k t1 = t0", (6, 1))
+    print(f"terrain330k ({n_rows} box rows): prepass and up to {rounds} peel rounds bit-equal on "
+          f"{rays.shape[0]} random rays at W = 6, 1, 10 and on its t1 = t0 set", flush=True)
+    return host, host_cam, cs330, t_build
+
+
 def compare_binned_wrappers(kb, cl, cs, refs, label):
     """The public binned closest_hit / occluded, resident and streamed, W at
     its default and at 1, MT and watertight, against phase 6's sweep-twin
@@ -815,6 +892,7 @@ def binned_phases(dev, card, ctx):
         for w in (kb._W_DEFAULT, 1):
             err = np.maximum(err, compare_binned_kernels(kb, cs, rays, w, label))
     err[2:] = np.maximum(err[2:], compare_binned_edges(kb, cs, refs, dev))
+    ctx["terrain330k"] = compare_prepass_edges(kb, cl, cs, refs, dev)
     max_abs_err = dict(zip(names, (float(e) for e in err)))
     peels = {label: compare_binned_wrappers(kb, cl, cs, ref, label)
              for label, ref in refs.items()}
@@ -895,13 +973,14 @@ def binned_phases(dev, card, ctx):
     ms["binned_leaf_streamed"], plain_ms["binned_leaf_streamed"] = cuda_ms_pair(
         lambda: kb.leaf_streamed(cs, blocks, pair_ray, rays, T0, True),
         lambda: kb.leaf_streamed_ref(cs, blocks, pair_ray, rays, T0, True), twin_reps=2)
-    n_live = int((rays[:, 6] > T0).sum())
+    # the prepass tests every bin for each live ray (t1 >= t0) only
+    n_live = int((rays[:, 6] >= T0).sum())
     n_bins = cs.n_clusters // kb.BIN
     leaf_ops = n_real * kb.BIN * 128 * WT_OPS
     leaf_bytes = nbytes(pair_ray, rays, cs.tri) + 8 * n_real
     bounds = {
         "binned_prepass": bound(n_live * n_bins * SLAB_OPS,
-                                nbytes(rays, cs.bin_box, ids, ovf)),
+                                nbytes(rays, cs.bin_box8, ids, ovf)),
         "binned_peel": bound(N_RAYS * (words.shape[1] + w), 2 * nbytes(words) + nbytes(ids, ovf)),
         "binned_leaf": bound(leaf_ops, leaf_bytes + nbytes(sortd)),
         "binned_leaf_streamed": bound(leaf_ops, leaf_bytes + nbytes(blocks)),
@@ -913,8 +992,33 @@ def binned_phases(dev, card, ctx):
               f"rays, {n_live} live, {n_real} pairs, terrain100k, watertight, {card})",
               flush=True)
         for line in ptxas:
-            if line.startswith(f"ptxas {name}_kernel "):
+            if line.startswith((f"ptxas {name}_kernel ", f"ptxas {name}_kernel:")):
                 print(f"  {line}", flush=True)
+    # the other calls of the two candidate kernels on the binned paths: the
+    # streamed path's prepass (W = 10, with the words) and its first peel
+    # (round 2), and the shadow rays' prepass
+    s_rays = kc._prepare(cs, s_ro, s_rd, s_t1, sort=False)[0]
+    w10 = kb.W_SLOTS_STREAMED
+    words10 = kb.prepass(cs, rays, T0, w10, emit_words=True)[2]
+    ids10, ovf10, _ = kb.peel(words10, w10)
+    extra = {
+        f"binned_prepass, W={w10} with words (the streamed path)": (
+            lambda: kb.prepass(cs, rays, T0, w10, emit_words=True),
+            lambda: kb.prepass_ref(cs, rays, T0, w10, emit_words=True),
+            bound(n_live * n_bins * SLAB_OPS, nbytes(rays, cs.bin_box8, words10) + 4 * N_RAYS
+                  * w10 + N_RAYS)),
+        f"binned_peel, W={w10} on the streamed path's round-2 words": (
+            lambda: kb.peel(words10, w10), lambda: kb.peel_ref(words10, w10),
+            bound(N_RAYS * (words10.shape[1] + w10), 2 * nbytes(words10) + nbytes(ids10, ovf10))),
+        f"binned_prepass, W={w}, the bounce-1 shadow rays": (
+            lambda: kb.prepass(cs, s_rays, T0, w), lambda: kb.prepass_ref(cs, s_rays, T0, w),
+            bound(int((s_rays[:, 6] >= T0).sum()) * n_bins * SLAB_OPS,
+                  nbytes(s_rays, cs.bin_box8, ids, ovf))),
+    }
+    for name, (kernel_fn, twin_fn, (b_ms, b_by)) in extra.items():
+        k_ms, t_ms = cuda_ms_pair(kernel_fn, twin_fn)
+        print(f"{name}: kernel {k_ms:.4f} ms, plain {t_ms:.4f} ms, bound {b_ms:.6f} ms "
+              f"({b_by}) (terrain100k, {card})", flush=True)
     wrappers = {
         "closest, binned": lambda: kb.closest_hit(cs, b_ro, b_rd, T0, b_t1, watertight=True,
                                                   exact_t=False),
@@ -1248,13 +1352,11 @@ def accel_phases(dev, card, ctx):
     from pyrenderer_tpu_torch.scene.tungsten import build_scene
 
     phase("19 chunked sweep against the monolithic one (terrain330k)")
-    host, host_cam, _ = build_scene(procgen.big_scene_data("terrain", res=406))
+    # the scene and its ClusterScene from phase 10
+    host, host_cam, cs, t_cs = ctx["terrain330k"]
     t = time.perf_counter()
     cc = cl.build_chunked_clusters(host.vertices, host.faces).to(dev)
     t_cc = time.perf_counter() - t
-    t = time.perf_counter()
-    cs = cl.build_clusters(host.vertices, host.faces).to(dev)
-    t_cs = time.perf_counter() - t
     check(isinstance(cc, cl.ClusterChunks) and len(cc.chunks) == 3,
           "terrain330k does not make 3 chunks")
     print(f"terrain330k: {host.faces.shape[0]} triangles; {len(cc.chunks)} chunks of "

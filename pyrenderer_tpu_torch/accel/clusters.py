@@ -8,7 +8,8 @@ superclusters front to back, slab-tests their boxes and those of their 16
 children against each ray's running closest t, and tests the 128 triangles
 of every child it crosses. The kernels read compact copies of the two box
 tables (32 bytes a box instead of a 512-byte row), so that the 16 children
-of a supercluster are one 512-byte read.
+of a supercluster are one 512-byte read; the binned prepass reads the
+compact copy of the bin boxes likewise.
 
 The build runs in NumPy on the host (scene-load time) and returns tensors;
 the median split goes through the native C++ orderer (native/
@@ -93,6 +94,8 @@ class ClusterScene:
     #                           the copy the sweep kernels read
     super_cols8: torch.Tensor  # (S_pad, BOX_ROW) f32: super_cols' first 8
     #                            lanes, likewise
+    bin_box8: torch.Tensor    # (KB_pad32, BOX_ROW) f32: bin_box's first 8
+    #                           lanes, the copy the binned prepass reads
     order: torch.Tensor       # (K * 128,) i32: packed slot -> original face id
     world_lo: torch.Tensor    # (3,) f32 scene box corner (sort quantization)
     world_inv_span: torch.Tensor  # (3,) f32
@@ -273,6 +276,7 @@ def build_clusters(vertices, faces) -> ClusterScene:
         super_cols=torch.from_numpy(super_cols),
         child_box8=torch.from_numpy(np.ascontiguousarray(child[:, :BOX_ROW])),
         super_cols8=torch.from_numpy(np.ascontiguousarray(super_cols[:, :BOX_ROW])),
+        bin_box8=torch.from_numpy(np.ascontiguousarray(bin_box[:, :BOX_ROW])),
         order=torch.from_numpy(order_full),
         world_lo=torch.from_numpy(wlo.astype(np.float32)),
         world_inv_span=torch.from_numpy((1.0 / wspan).astype(np.float32)),

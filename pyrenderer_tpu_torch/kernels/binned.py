@@ -37,8 +37,9 @@ The leaf runs over the real pairs only: the one device-to-host read of a
 query (resident) or of a round (streamed), ``_count``, returns whether
 any ray overflowed together with the number of real pairs, and the sorted
 stream is cut to that prefix (the TPU's ``_tier_caps`` picked a static
-prefix for XLA's static shapes instead). Rays need no padding: one thread
-per ray (prepass, peel), one warp per pair (both leaves).
+prefix for XLA's static shapes instead). Rays need no padding: a CUDA
+block per span of rays, one warp per live ray (prepass) or per ray with
+bits left (peel), one warp per pair (both leaves).
 
 Each kernel wrapper (``prepass``, ``peel``, ``leaf``, ``leaf_streamed``)
 takes the device from its tensors: on a CUDA tensor it launches the kernel
@@ -57,6 +58,7 @@ import torch
 
 from pyrenderer_tpu_torch.accel.clusters import (
     BIN,
+    BOX_ROW,
     LANE_TRIS,
     MISS_T,
     TRI_ROWS,
@@ -98,6 +100,14 @@ MISS_KEY = (int(np.float32(MISS_T).view(np.int32)) << 32) | 0xFFFFFFFF
 # took 0.155 ms with runs of 16 against 0.179 (32), 0.221 (64) and 0.298
 # (128) (NVIDIA H100 80GB HBM3, 700 W; perf/clusterbench.py kernels binned).
 RUN_PAIRS = 16
+# rays per CUDA block of the prepass and of the peel (multiples of 8 up to
+# 128); each block packs its rays with work and gives its 4 warps one at a
+# time. On the terrain100k bounce-1 wavefront the prepass took 0.0154 ms at
+# a span of 32 against 0.0173 (16), 0.0165 (64) and 0.0190 (128), the peel
+# at W = 6 0.0065-0.0067 at 32 and 64 against 0.0070 at 128 (NVIDIA H100
+# 80GB HBM3, 700 W; perf/clusterbench.py kernels binned).
+PREPASS_SPAN = 32
+PEEL_SPAN = 64
 
 
 # ---------------------------------------------------------------------------
@@ -226,13 +236,17 @@ def prepass(cs: ClusterScene, rays, t0, w, emit_words=False):
         return prepass_ref(cs, rays, t0, w, emit_words)
     dev = rays.device
     _check_table(rays, torch.float32, "rays", dev)
-    _check_table(cs.bin_box, torch.float32, "ClusterScene.bin_box", dev)
-    n, n_words = rays.shape[0], cs.bin_box.shape[0] // 32
+    _check_table(cs.bin_box8, torch.float32, "ClusterScene.bin_box8", dev)
+    if cs.bin_box8.shape[1] != BOX_ROW or cs.bin_box8.shape[0] % 32 or \
+            cs.bin_box8.data_ptr() % 16 or rays.data_ptr() % 16:
+        raise ValueError(f"ClusterScene.bin_box8 must be (32 k, {BOX_ROW}), and it and the "
+                         "rays 16-byte aligned")
+    n, n_words = rays.shape[0], cs.bin_box8.shape[0] // 32
     ids = torch.empty((n, w), dtype=torch.int32, device=dev)
     ovf = torch.empty(n, dtype=torch.bool, device=dev)
     words = torch.empty((n, n_words), dtype=torch.int32, device=dev) if emit_words else None
-    build.launch("pr_binned_prepass", dev, cs.bin_box.data_ptr(), n_words, rays.data_ptr(),
-                 float(t0), n, w, ids.data_ptr(), ovf.data_ptr(),
+    build.launch("pr_binned_prepass", dev, cs.bin_box8.data_ptr(), n_words, rays.data_ptr(),
+                 float(t0), n, PREPASS_SPAN, w, ids.data_ptr(), ovf.data_ptr(),
                  words.data_ptr() if emit_words else None)
     prepass.launches += 1
     return (ids, ovf, words) if emit_words else (ids, ovf)
@@ -249,8 +263,8 @@ def peel(words, w):
     ids = torch.empty((n, w), dtype=torch.int32, device=dev)
     ovf = torch.empty(n, dtype=torch.bool, device=dev)
     left = torch.empty_like(words)
-    build.launch("pr_binned_peel", dev, words.data_ptr(), n_words, n, w, ids.data_ptr(),
-                 ovf.data_ptr(), left.data_ptr())
+    build.launch("pr_binned_peel", dev, words.data_ptr(), n_words, n, PEEL_SPAN, w,
+                 ids.data_ptr(), ovf.data_ptr(), left.data_ptr())
     peel.launches += 1
     return ids, ovf, left
 

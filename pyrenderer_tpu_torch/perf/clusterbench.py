@@ -23,15 +23,23 @@ PARITY_SETS, holds (t, slot) and occlusion against the plain twins, and
 saves the ray sets and every result to DIR for ``compare``.
 
 ``kernels binned`` does the same for the four binned kernels
-(kernels/binned.py) at W = 6 on the same wavefront and shadow rays: the
-prepass, the peel, each leaf with MT and watertight leaves (the streamed
-leaf also with the other runs per block of RUN_CAPS), each alone from CUDA
-graphs, then the binned wrappers, resident and streamed, with their glue
-(eager calls: each query reads the device); it prints the ptxas report of
-csrc/binned.cu. With --parity it runs both leaves on the pairs of every
-PARITY_SETS set at W = 6 and 1, on the launch edges (edge_streams) and on
-the duplicate triangles (duplicate_set), holds every key against the
-resident twin and saves the pairs and keys to DIR/binned.pt.
+(kernels/binned.py) on the same wavefront and shadow rays: the prepass at
+W = 6 with and without the words and at W = 10 with them (the streamed
+path's call), and at each span of PREPASS_SPANS where the checkout has
+PREPASS_SPAN; the peel at W = 6 on the prepass's words and at W = 10 on
+the streamed path's round-2 and round-3 words (each with its bound); each
+leaf at W = 6 with MT and watertight leaves (the streamed leaf also with
+the other runs per block of RUN_CAPS), each alone from CUDA graphs, then
+the binned wrappers, resident and streamed, with their glue (eager calls:
+each query reads the device); it prints the ptxas report of
+csrc/binned.cu. With --parity it runs the prepass and every peel round
+after it on every PARITY_SETS set (prepass_sets: W = 6 and 1, the bounce-1
+sets also at 10), on the launch edges (prepass_edges) and on terrain330k,
+against the twins, and saves their outputs to DIR/prepass.pt; then both
+leaves on the pairs of every PARITY_SETS set at W = 6 and 1, on the launch
+edges (edge_streams) and on the duplicate triangles (duplicate_set),
+holds every key against the resident twin and saves the pairs and keys
+to DIR/binned.pt.
 
 ``kernels whole`` times the two whole-table kernels (csrc/intersect.cu,
 kernels/intersect.py) at both shapes the frames give them: Cornell (36
@@ -49,8 +57,9 @@ wrappers' results to DIR/whole.pt.
 
 The kernels are driven only through names an older checkout of the port
 has too (kernels/cluster.py _check_cuda_args, _prepare, _sc_order,
-_unsort; kernels/binned.py prepass, peel, sort_pairs, blocks_for, leaf,
-leaf_streamed, leaf_ref, RUN_PAIRS or _THREADS; kernels/intersect.py
+_unsort; kernels/binned.py prepass, peel, their twins, sort_pairs,
+blocks_for, leaf, leaf_streamed, leaf_ref, RUN_PAIRS or _THREADS, and
+PREPASS_SPAN where it exists; kernels/intersect.py
 pack_triangles, closest_hit, occluded, their twins and _check_cuda_args;
 kernels/build.launch; perf/kernelbench.graph_ms, cuda_ms), and never
 through the wrappers' launch counts, so this file times and checks an
@@ -61,8 +70,8 @@ older checkout's kernels when that checkout comes first on the path:
     PYTHONPATH=. python pyrenderer_tpu_torch/perf/clusterbench.py compare A B
 
 ``compare`` counts, per ray set and configuration, the rays (or pairs) on
-which the two runs' kernels differ and on how many of them each run agrees
-with the twin.
+which the two runs' kernels differ and, for the leaves and the sweep, on
+how many of them each run agrees with the twin.
 
 ``profile`` runs chunk-samples of the terrain100k frame (512x512, 4
 bounces, the first 2^16-pixel chunk) through backend "cluster",
@@ -110,6 +119,16 @@ PARITY_SETS = ("random", "camera", "bounce1", "shadow1", "dead", "per_ray_t1", "
 # runs per block of the streamed leaf that `kernels binned` times beside
 # blocks_for's own (every one at most the 128 pairs an older kernel takes)
 RUN_CAPS = (16, 32, 64, 128)
+# rays per block of the prepass and of the peel that `kernels binned` times
+# (PREPASS_SPAN, PEEL_SPAN)
+PREPASS_SPANS = (16, 32, 64, 128)
+PEEL_SPANS = (32, 64, 128)
+# the kernels' bounds, as chip_smoke.py counts them: fp32 operations over
+# the card's fp32 peak, bytes over its memory rate (NVIDIA's H100 SXM data
+# sheet, 700 W); SLAB_OPS per slab test (the prepass)
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+SLAB_OPS = 26
 
 
 def card_line() -> str:
@@ -483,6 +502,75 @@ def edge_streams(kb, cs, rays):
 EDGE_STREAMS = ("one pair", "33 pairs", "the largest bin", "last piece of one pair",
                 "all SENTINEL", "dead rays")
 
+PREPASS_EDGES = ("all dead", "every third dead", "t1 = t0", "t1 = t0, origins in bins",
+                 "t1 below t0", "t1 NaN", "t1 inf", "t1 negative", "origins on bin corners",
+                 "N = 1", "N = 31", "N = 33", "N = 129")
+
+
+def edge_words(n, n_words):
+    """(n, n_words) int32 crossing words for the peel's edges, 16 rows each:
+    bit 31 (INT32_MIN) alone in the first or in the last word, every word
+    full (0xFFFFFFFF), the first or the last word full, bits 31 and 0 of the
+    first word with bit 31 of the last, fewer set bits than any W (0b101 in
+    the first word, bit 0 of the last), no bit; then random words (seed 5)."""
+    rs = np.random.RandomState(5)
+    words = rs.randint(-2 ** 31, 2 ** 31, size=(n, n_words), dtype=np.int64)
+    low = -2 ** 31
+    for k, (head, tail, rest) in enumerate(((low, 0, 0), (0, low, 0), (-1, -1, -1),
+                                            (-1, 0, 0), (0, -1, 0), (low + 1, low, 0),
+                                            (0b101, 0, 0), (0, 1, 0), (0, 0, 0))):
+        words[16 * k:16 * (k + 1)] = rest
+        words[16 * k:16 * (k + 1), 0] = head
+        words[16 * k:16 * (k + 1), -1] = tail
+    return words.astype(np.int32)
+
+
+def prepass_edges(cs, rays):
+    """label -> rays (N, 8) (kernels/cluster._prepare rows) of the launch
+    edges of the prepass and the peel, cut from the first 4,096 of `rays`:
+    every ray dead (t1 = 0); every third ray dead; t1 exactly T0 (live: a
+    box whose inside holds the origin crosses), and so again with the
+    origins at the centres of the real bins' boxes; t1 one float below T0
+    and NaN (both dead); t1 +inf and negative; origins on the real bins'
+    lower corners, every second ray with a subnormal x direction (its
+    reciprocal is infinite, so (b - o) * inv is NaN on those faces); N = 1,
+    31, 33 and 129 (no whole warp or block)."""
+    base = rays[:4096]
+    n = base.shape[0]
+    t0 = torch.tensor(T0, dtype=torch.float32)
+
+    def with_t1(t1):
+        out = base.clone()
+        out[:, 6] = t1
+        return out
+
+    third = base.clone()
+    third[::3, 6] = 0.0
+    # (a checkout before the compact copy has only bin_box)
+    box = getattr(cs, "bin_box8", cs.bin_box)[:, :6]
+    real = box[torch.isfinite(box).all(dim=1)]
+    inside = with_t1(t0)
+    centres = 0.5 * (real[:, 0:3] + real[:, 3:6])
+    inside[:, 0:3] = centres.repeat(-(-n // centres.shape[0]), 1)[:n]
+    corners = base.clone()
+    corners[:, 0:3] = real[:, 0:3].repeat(-(-n // real.shape[0]), 1)[:n]
+    corners[::2, 3] = 1e-40
+    sets = {
+        "all dead": with_t1(0.0),
+        "every third dead": third,
+        "t1 = t0": with_t1(t0),
+        "t1 = t0, origins in bins": inside,
+        "t1 below t0": with_t1(torch.nextafter(t0, torch.zeros(()))),
+        "t1 NaN": with_t1(float("nan")),
+        "t1 inf": with_t1(float("inf")),
+        "t1 negative": with_t1(-1.0),
+        "origins on bin corners": corners,
+    }
+    for k in (1, 31, 33, 129):
+        sets[f"N = {k}"] = base[:k].clone()
+    assert tuple(sets) == PREPASS_EDGES
+    return sets
+
 
 def walk_spread(cs, b1, s1):
     """Prints how the walk's leaf work spreads over the live rays of the
@@ -633,6 +721,92 @@ def check_binned_parity(kb, sets, out_dir):
     torch.save(saved, os.path.join(out_dir, "binned.pt"))
 
 
+def prepass_sets(kb, sets, dev):
+    """label -> (ClusterScene, rays (N, 8), Ws) of the prepass's and the
+    peel's parity: each ray set of `sets` (parity_sets) at W = 6 and 1, the
+    bounce-1 wavefront and shadow rays also at 10 (the streamed path's W),
+    the launch edges (prepass_edges of the "random" set) and 65,536 random
+    rays against terrain330k (more bins than one staging pass holds)."""
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+
+    out = {}
+    for label, (cs, ro, rd, t1) in sets.items():
+        ws = (6, 1, 10) if label in ("bounce1", "shadow1") else (6, 1)
+        out[label] = (cs, kc._prepare(cs, ro, rd, t1, sort=False)[0], ws)
+    cs, ro, rd, t1 = sets["random"]
+    for label, rays in prepass_edges(cs, kc._prepare(cs, ro, rd, t1, sort=False)[0]).items():
+        out[f"edge: {label}"] = (cs, rays, (6, 1))
+    _, _, cs330 = terrain(406, dev)
+    out["terrain330k random"] = (cs330, kc._prepare(cs330, ro, rd, t1, sort=False)[0], (6, 1))
+    return out
+
+
+def check_prepass_parity(kb, sets, out_dir):
+    """The prepass (with and without the words) and every peel round after
+    it, until no ray has bits left, against their twins on every set of
+    prepass_sets; prints one line per case and saves the outputs to
+    DIR/prepass.pt for ``compare`` (every round's ids and overflow flags,
+    the prepass's words and the last round's)."""
+    saved = {}
+    for label, (cs, rays, ws) in sets.items():
+        for w in ws:
+            ids, ovf, words = kb.prepass(cs, rays, T0, w, emit_words=True)
+            ids2, ovf2 = kb.prepass(cs, rays, T0, w)
+            ref = kb.prepass_ref(cs, rays, T0, w, emit_words=True)
+            same = (ids == ref[0]).all(dim=1) & (ovf == ref[1]) & (words == ref[2]).all(dim=1)
+            plain = torch.equal(ids2, ids) and torch.equal(ovf2, ovf)
+            for span in PREPASS_SPANS if hasattr(kb, "PREPASS_SPAN") else ():
+                out = with_span(kb, "PREPASS_SPAN", span,
+                                lambda: kb.prepass(cs, rays, T0, w, emit_words=True))()
+                plain &= all(torch.equal(x, y) for x, y in zip(out, (ids, ovf, words)))
+            entry = saved[(label, w)] = {"prepass": (ids.cpu(), ovf.cpu(), words.cpu()),
+                                         "rounds": []}
+            rounds_same, rounds = True, 0
+            while bool(ovf.any()) and rounds < 64:
+                out = kb.peel(words, w)
+                rounds_same &= all(torch.equal(x, y) for x, y in zip(out, kb.peel_ref(words, w)))
+                for span in PEEL_SPANS if hasattr(kb, "PEEL_SPAN") else ():
+                    other = with_span(kb, "PEEL_SPAN", span, lambda: kb.peel(words, w))()
+                    rounds_same &= all(torch.equal(x, y) for x, y in zip(out, other))
+                ids_p, ovf, words = out
+                entry["rounds"].append((ids_p.cpu(), ovf.cpu()))
+                rounds += 1
+            entry["last words"] = words.cpu()
+            print(f"prepass parity {label}, W={w}: n={rays.shape[0]}, live "
+                  f"{int((rays[:, 6] >= T0).sum())}, pairs {int((ids != kb.SENTINEL).sum())}, "
+                  f"overflow {int(ovf2.sum())}; rays equal to the twin {int(same.sum())}; "
+                  f"without words and at every span {'the same' if plain else 'DIFFERENT'}; "
+                  f"{rounds} peel "
+                  f"rounds {'equal' if rounds_same else 'DIFFERENT'} to the twin", flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(saved, os.path.join(out_dir, "prepass.pt"))
+
+
+def compare_prepass(a, b):
+    """Per prepass case, the rays on which two runs' prepass or peel rounds
+    differ; returns True when none does."""
+    same = True
+    for key in a:
+        tag = f"{key[0]}, W={key[1]}"
+        if key not in b or len(a[key]["rounds"]) != len(b[key]["rounds"]):
+            print(f"compare prepass {tag}: the two runs made different numbers of peel rounds")
+            same = False
+            continue
+        rows = [("prepass", a[key]["prepass"], b[key]["prepass"]),
+                ("last words", (a[key]["last words"],), (b[key]["last words"],))]
+        rows += [(f"peel round {k + 1}", x, y)
+                 for k, (x, y) in enumerate(zip(a[key]["rounds"], b[key]["rounds"]))]
+        differ = {}
+        for name, xs, ys in rows:
+            n = sum(int((x != y).reshape(x.shape[0], -1).any(dim=1).sum()) for x, y in zip(xs, ys))
+            if n:
+                differ[name] = n
+        print(f"compare prepass {tag}: rays that differ {differ or 0} "
+              f"({len(a[key]['rounds'])} peel rounds)")
+        same &= not differ
+    return same
+
+
 def compare_binned(a, b):
     """Per binned case, the pairs on which two runs' leaves differ; returns
     True when no key differs."""
@@ -658,10 +832,101 @@ def compare_binned(a, b):
     return same
 
 
+def prepass_bound(cs, rays, w, emit_words):
+    """(bound ms, "operations" or "bytes") of one prepass call, as
+    chip_smoke.py counts it: SLAB_OPS per (live ray, real bin) over the fp32
+    peak, and the rays, the compact box table and the outputs over the
+    memory rate."""
+    from pyrenderer_tpu_torch.accel.clusters import BIN
+
+    n, n_live = rays.shape[0], int((rays[:, 6] >= T0).sum())
+    n_bins = cs.n_clusters // BIN
+    n_words = -(-n_bins // 32)
+    nbytes = 4 * (rays.numel() + 8 * 32 * n_words + n * w + (n * n_words if emit_words else 0))
+    nbytes += n
+    return max((n_live * n_bins * SLAB_OPS / PEAK_FP32 * 1e3, "operations"),
+               (nbytes / PEAK_BYTES * 1e3, "bytes"))
+
+
+def peel_bound(words, w):
+    """(bound ms, "bytes"): the words read and written, the ids and the
+    overflow flags written, over the memory rate."""
+    n = words.shape[0]
+    return (4 * (2 * words.numel() + n * w) + n) / PEAK_BYTES * 1e3, "bytes"
+
+
+def prepass_note(kb, cs, rays, w):
+    """The live rays, pairs, overflow rays and peel rounds of one streamed
+    query's candidate stages at W = w and at W = 10."""
+    notes = []
+    for ww in (w, 10):
+        ids, ovf, words = kb.prepass(cs, rays, T0, ww, emit_words=True)
+        rounds, busy = 0, []
+        while bool(ovf.any()):
+            busy.append(int((words != 0).any(dim=1).sum()))
+            ids, ovf, words = kb.peel(words, ww)
+            rounds += 1
+        notes.append(f"W={ww}: peel rounds {rounds}, rays with bits left before each "
+                     f"{busy}")
+    return f"{int((rays[:, 6] >= T0).sum())} live rays; " + "; ".join(notes)
+
+
+def with_span(kb, name, span, fn):
+    """fn() with kernels/binned.py's `name` (PREPASS_SPAN or PEEL_SPAN) set
+    to `span` for the call."""
+    def call():
+        saved = getattr(kb, name)
+        setattr(kb, name, span)
+        try:
+            return fn()
+        finally:
+            setattr(kb, name, saved)
+    return call
+
+
+def prepass_cases(kb, cs, rays, query):
+    """(query, name) -> fn of the prepass and the peel as the binned paths
+    call them: the prepass at W = 6 with and without the words, at W = 10
+    with them (the streamed path's call) and, where the checkout has
+    PREPASS_SPAN, at every span of PREPASS_SPANS; the peel at W = 6 on the
+    W = 6 prepass's words and at W = 10 on the streamed path's round-2 and
+    round-3 words. Prints each case's bound."""
+    cases = {}
+    dead = rays.clone()
+    dead[:, 6] = 0.0
+    for w, emit, r in ((6, False, rays), (6, True, rays), (10, True, rays), (6, False, dead)):
+        name = f"prepass W={w}{' words' if emit else ''}{', every ray dead' if r is dead else ''}"
+        cases[(query, name)] = lambda w=w, emit=emit, r=r: kb.prepass(cs, r, T0, w, emit)
+        same = all(torch.equal(x, y) for x, y in zip(kb.prepass(cs, r, T0, w, emit),
+                                                     kb.prepass_ref(cs, r, T0, w, emit)))
+        print(f"  bound {name}: {prepass_bound(cs, r, w, emit)}; equal to the twin: {same}",
+              flush=True)
+    if hasattr(kb, "PREPASS_SPAN"):
+        for span in PREPASS_SPANS:
+            cases[(query, f"prepass W=6, span {span}")] = with_span(
+                kb, "PREPASS_SPAN", span, lambda: kb.prepass(cs, rays, T0, 6))
+    words6 = kb.prepass(cs, rays, T0, 6, emit_words=True)[2]
+    words10 = kb.prepass(cs, rays, T0, 10, emit_words=True)[2]
+    words10_3 = kb.peel(words10, 10)[2]
+    for name, words, w in (("peel W=6", words6, 6), ("peel W=10 round 2", words10, 10),
+                           ("peel W=10 round 3", words10_3, 10),
+                           ("peel W=6, no bit left", torch.zeros_like(words6), 6)):
+        cases[(query, name)] = lambda words=words, w=w: kb.peel(words, w)
+        same = all(torch.equal(x, y) for x, y in zip(kb.peel(words, w), kb.peel_ref(words, w)))
+        if hasattr(kb, "PEEL_SPAN") and name in ("peel W=6", "peel W=10 round 2"):
+            for span in PEEL_SPANS:
+                cases[(query, f"{name}, span {span}")] = with_span(
+                    kb, "PEEL_SPAN", span, lambda words=words, w=w: kb.peel(words, w))
+        print(f"  bound {name}: {peel_bound(words, w)} "
+              f"({int((words != 0).any(dim=1).sum())} rays with bits); equal to the twin: "
+              f"{same}", flush=True)
+    return cases
+
+
 def cmd_binned(args) -> int:
     """``kernels binned``: the four binned kernels alone and the binned
     wrappers with their glue, on the bounce-1 wavefront and its shadow
-    rays; with --parity, binned_sets against the twin."""
+    rays; with --parity, prepass_sets and binned_sets against the twins."""
     import pyrenderer_tpu_torch
     from pyrenderer_tpu_torch.accel.clusters import BIN
     from pyrenderer_tpu_torch.kernels import binned as kb
@@ -684,11 +949,12 @@ def cmd_binned(args) -> int:
     w = 6
     cases = {}
     for query, (ro, rd, t1) in (("wavefront", b1), ("shadow rays", s1)):
-        rays, sortd, pair_ray, blocks, words = binned_operands(kb, cs, ro, rd, t1, w)
+        rays, sortd, pair_ray, blocks, _ = binned_operands(kb, cs, ro, rd, t1, w)
         print(f"bounce-1 {query}: {int((t1 > T0).sum())} live rays, {sortd.shape[0]} pairs at "
               f"W={w}, {int((blocks[:, 0] >= 0).sum())} streamed blocks", flush=True)
-        cases[(query, "prepass")] = lambda rays=rays: kb.prepass(cs, rays, T0, w)
-        cases[(query, "peel")] = lambda words=words: kb.peel(words, w)
+        print(f"bounce-1 {query}, prepass and peel: {prepass_note(kb, cs, rays, w)}",
+              flush=True)
+        cases.update(prepass_cases(kb, cs, rays, query))
         for wt in (False, True):
             tag = "watertight" if wt else "MT"
             cases[(query, f"leaf {tag}")] = (
@@ -727,18 +993,15 @@ def cmd_binned(args) -> int:
         print(f"wrapper {key} (glue included, W at its default): {value:.4f} ms (median of "
               f"{len(ms)} means of eager calls; watertight, terrain100k; {card})", flush=True)
     if args.parity:
-        check_binned_parity(kb, binned_sets(kb, parity_sets(dev, cs, scene, camera, b1, s1),
-                                            dev), args.out)
+        sets = parity_sets(dev, cs, scene, camera, b1, s1)
+        check_prepass_parity(kb, prepass_sets(kb, sets, dev), args.out)
+        check_binned_parity(kb, binned_sets(kb, sets, dev), args.out)
     print(json.dumps({"package": package, "card": card, "device": torch.cuda.get_device_name(0),
                       "binned": result}))
     return 0
 
 
-# the whole-table kernels' bound, as chip_smoke.py counts it: fp32
-# operations of a Moeller-Trumbore test over the card's fp32 peak, bytes
-# over its memory rate (NVIDIA's H100 SXM data sheet, 700 W)
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
+# fp32 operations of a Moeller-Trumbore test (the whole-table kernels' bound)
 MT_OPS = 60
 # lanes per ray the whole-table kernels can take (pr_whole_table_g)
 WHOLE_LANES = (1, 2, 4, 8, 16)
@@ -1042,7 +1305,7 @@ def cmd_compare(args) -> int:
     directories hold, compared."""
     same = {}
     for name, fn in (("parity.pt", compare_sweep), ("binned.pt", compare_binned),
-                     ("whole.pt", compare_whole)):
+                     ("prepass.pt", compare_prepass), ("whole.pt", compare_whole)):
         paths = [os.path.join(d, name) for d in args.dirs]
         if all(os.path.exists(p) for p in paths):
             same[name] = fn(*(torch.load(p) for p in paths))

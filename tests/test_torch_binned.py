@@ -25,6 +25,7 @@ from pyrenderer_tpu_torch.perf import clusterbench as cb
 from pyrenderer_tpu_torch.render import cli
 from pyrenderer_tpu_torch.scene import procgen, to_device
 from pyrenderer_tpu_torch.scene.tungsten import build_scene
+from tests.torch_fixtures import private_jax_native_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
@@ -215,6 +216,90 @@ def test_peel_twin_matches_pallas_interpret(terrain96, w):
         np.testing.assert_array_equal(words.numpy(), _words_ray_major(words_j, 2))
         assert (ids.numpy() != kb.SENTINEL).any()
     np.testing.assert_array_equal(np.asarray(_words_lane(words.numpy())), np.asarray(words_j))
+
+
+# t1 of every ray of a dead-ray edge set; only "t1 = t0" and "t1 inf" are live
+# (t1 >= t0): the slab test accepts t_near <= min(t_far, t1) and t_near is
+# at least t0 or NaN, so no box crosses where !(t1 >= t0)
+DEAD_EDGES = {
+    "t1 = t0": np.float32(T0),
+    "t1 below t0": np.nextafter(np.float32(T0), np.float32(0)),
+    "t1 NaN": np.float32(np.nan),
+    "t1 inf": np.float32(np.inf),
+    "t1 zero": np.float32(0.0),
+    "t1 negative": np.float32(-1.0),
+}
+
+
+@pytest.mark.parametrize("emit_words", [False, True])
+@pytest.mark.parametrize("edge", list(DEAD_EDGES))
+def test_prepass_dead_ray_rule_matches_pallas_interpret(terrain96, edge, emit_words):
+    """The rule the prepass kernel skips rays by, !(t1 >= t0), against
+    prepass_ref and pb._prepass_call in interpret mode, bit for bit: with
+    t1 exactly t0 a ray whose origin lies inside a bin's box crosses it (so
+    the whole-table kernels' !(t1 > t0) would be wrong here); one float
+    below t0, NaN, 0 or negative, no ray has a candidate, an overflow or a
+    bit left. Half of the 300 origins are centres of real bins' boxes."""
+    _, _, cs, cs_j = terrain96
+    n = 300
+    ro, rd = _random_rays(n, 23)
+    box = cs.bin_box8[:, :6].numpy()
+    real = box[np.isfinite(box).all(axis=1)]
+    ro[::2] = (0.5 * (real[:, :3] + real[:, 3:]))[np.arange(n - n // 2) % real.shape[0]]
+    t1 = np.full(n, DEAD_EDGES[edge], np.float32)
+    out = kb.prepass_ref(cs, _port_rays(cs, ro, rd, t1), T0, 6, emit_words=emit_words)
+    lane, _ = _jax_lane(ro, rd, t1)
+    out_j = pb._prepass_call(cs_j, lane, T0, 6, True, emit_words=emit_words)
+    np.testing.assert_array_equal(out[0].numpy(), np.asarray(out_j[0])[:n])
+    np.testing.assert_array_equal(out[1].numpy(), np.asarray(out_j[1])[:n])
+    if emit_words:
+        np.testing.assert_array_equal(out[2].numpy(), _words_ray_major(out_j[2], 2)[:n])
+    crossed = out[0].numpy() != kb.SENTINEL
+    if t1[0] >= np.float32(T0):
+        assert crossed[::2].any(axis=1).all()
+    else:
+        assert not crossed.any() and not out[1].any()
+        assert not emit_words or not out[2].any()
+
+
+@pytest.mark.parametrize("w", [1, 6, 10])
+def test_peel_twin_matches_pallas_interpret_on_edge_words(terrain96, w):
+    """peel_ref bit-equal to pb._peel_call over three rounds on words with
+    bit 31 set (INT32_MIN, which the TPU kernel special-cases), full words,
+    and fewer set bits than W (clusterbench.edge_words)."""
+    _, _, _, cs_j = terrain96
+    words = torch.from_numpy(cb.edge_words(1024, 2))
+    words_j = _words_lane(words.numpy())
+    for k in range(3):
+        ids, ovf, words = kb.peel_ref(words, w)
+        ids_j, ovf_j, words_j = pb._peel_call(cs_j, words_j, w, True)
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(ids_j))
+        np.testing.assert_array_equal(ovf.numpy(), np.asarray(ovf_j))
+        np.testing.assert_array_equal(words.numpy(), _words_ray_major(words_j, 2))
+        if k == 0:   # bit 31 of either word is bin 31 or 63
+            assert (ids[:16, 0] == 31).all() and (ids[16:32, 0] == 63).all()
+            expect = ([0, 2] + [kb.SENTINEL] * w)[:w]   # word 0b101: fewer bits than W
+            assert (ids[96:112] == torch.tensor(expect, dtype=torch.int32)).all()
+
+
+@pytest.mark.parametrize("which", ["terrain64", "terrain96"])
+def test_bin_box8_is_bin_box_compact(which, terrain64, terrain96):
+    """The prepass kernel's compact box copy: bin_box's first BOX_ROW lanes
+    (the box in 0..5, zeros in 6..7, NaN boxes on the padding rows), a
+    multiple of 32 rows, contiguous; ClusterScene.to carries it."""
+    cs = (terrain64 if which == "terrain64" else terrain96)[2]
+    small = cs.bin_box8
+    assert small.shape == (cs.bin_box.shape[0], cl.BOX_ROW) and small.shape[0] % 32 == 0
+    assert small.dtype == torch.float32 and small.is_contiguous()
+    torch.testing.assert_close(small, cs.bin_box[:, :cl.BOX_ROW], rtol=0, atol=0,
+                               equal_nan=True)
+    assert not small[:, 6:].any()
+    kb_real = cs.n_clusters // cl.BIN
+    assert torch.isnan(small[kb_real:, :6]).all()
+    moved = cs.to(torch.device("meta"))
+    assert moved.bin_box8.device.type == "meta" and moved.bin_box8.shape == small.shape
+    back = cs.to(torch.device("cpu"))
+    torch.testing.assert_close(back.bin_box8, small, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("watertight", [False, True])
@@ -497,7 +582,10 @@ def test_render_image_binned_matches_cluster_and_jax(terrain64, images, backend)
 @pytest.mark.cuda
 def test_binned_kernels_match_twins_on_gpu(terrain96):
     """On a CUDA device: each binned kernel against its twin (bit for bit),
-    the leaves also on the launch edges (clusterbench.edge_streams) and the
+    the prepass and the peel also on their launch edges
+    (clusterbench.prepass_edges: dead rays of every kind, t1 exactly t0,
+    ragged N) and the peel on the edge words of the CPU test (bit 31, full
+    words), the leaves on theirs (clusterbench.edge_streams) and the
     duplicate triangles (clusterbench.duplicate_set), and both variants
     against the sweep twin (run on the card with
     `python -m pytest tests/test_torch_binned.py -m cuda`)."""
@@ -521,6 +609,19 @@ def test_binned_kernels_match_twins_on_gpu(terrain96):
                                kb.leaf_streamed_ref(scene, blocks, pair_ray, r, T0, wt)), label
             if scene is cs_d:
                 assert not torch.isin(kb.decode(keys)[2], torch.tensor(copies, device=dev)).any()
+    for label, r in cb.prepass_edges(cs, rays).items():
+        for w in (6, 1):
+            for emit in (False, True):
+                for a, b in zip(kb.prepass(cs, r, T0, w, emit), kb.prepass_ref(cs, r, T0, w, emit)):
+                    assert torch.equal(a, b), (label, w, emit)
+    edge_words = torch.from_numpy(cb.edge_words(1024, 2)).to(dev)
+    for w in (1, 6, 10):
+        words = edge_words
+        while bool((words != 0).any()):
+            out = kb.peel(words, w)
+            for a, b in zip(out, kb.peel_ref(words, w)):
+                assert torch.equal(a, b), w
+            words = out[2]
     for w in (6, 1):
         ids, ovf, words = kb.prepass(cs, rays, T0, w, emit_words=True)
         for a, b in zip((ids, ovf, words), kb.prepass_ref(cs, rays, T0, w, emit_words=True)):

@@ -18,6 +18,7 @@ from pyrenderer_tpu_torch.core import intersect as isect
 from pyrenderer_tpu_torch.scene import procgen, to_device
 from pyrenderer_tpu_torch.scene.tungsten import build_scene
 from tests.test_bvh import make_sphere_mesh
+from tests.torch_fixtures import private_jax_native_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 

@@ -18,6 +18,7 @@ from pyrenderer_tpu_torch.core import integrator as integ
 from pyrenderer_tpu_torch.kernels import cluster as kc
 from pyrenderer_tpu_torch.scene import procgen, to_device
 from pyrenderer_tpu_torch.scene.tungsten import build_scene
+from tests.torch_fixtures import private_jax_native_cache  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 
