@@ -91,9 +91,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    streamed path's calls), and the prepass on the shadow rays; the binned
    wrappers (glue included) against the sweep's.
 13. The four probe kernels of perf/kernelbench.py (csrc/kernelbench.cu:
-   leaf, extract, cond, ctz) against their twins at the harness's shape
-   (256 tiles of 128 rays), on every parameter of its lists, bit for bit;
-   each timed beside its twin, both replayed from CUDA graphs.
+   leaf, extract, cond, ctz) against their twins, bit for bit (+0 and -0
+   told apart), on every parameter of the harness's lists at its shape
+   (256 tiles of 128 rays), at N = 128, 384 and 38,400, at 256 rays in
+   rows 4 bytes past a 16-byte boundary, and on the edge sets of
+   perf/clusterbench.py probe_edges (ties in t, det == 0, zero
+   directions, origins on a vertex) at L and N of 0, 1, 7 and 9; each
+   timed at the harness's shape beside its twin, both replayed from CUDA
+   graphs, with its bound, its issue floor (the SASS instructions a test
+   of its loop, clusterbench sass_loops, at the card's maximum SM clock;
+   the phase fails if the SASS cannot be read or the leaf's, cond's or
+   ctz's loop is not found) and its ptxas line.
 14. The pbrt path: the CLI with its default estimator (pbrt), Cornell,
    1024x1024, 4 bounces, 16 spp, with exactly 16 x 16 x 4 launches of each
    whole-table kernel and no twin call; GPU against CPU images at 64x64
@@ -212,13 +220,11 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # fp32 operations per test, counted in the CUDA sources (each add,
 # multiply, compare, min, max, abs and select one operation, an IEEE
-# division one): a Moeller-Trumbore test (csrc/leaf.cuh, intersect.cu,
-# kernelbench.cu mt order), a watertight test without its rare compensated
-# fallback, a slab test, and one lane of kernelbench.cu's conditional leaf.
-MT_OPS = 60
+# division one): a watertight test without its rare compensated fallback
+# and a slab test (perf/clusterbench.py counts the Moeller-Trumbore test,
+# MT_OPS, and the probes' products, COND_OPS).
 WT_OPS = 75
 SLAB_OPS = 26
-COND_OPS = 6
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -1048,48 +1054,88 @@ def binned_phases(dev, card, ctx):
     return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bounds": bounds}
 
 
+def issue_floor(tests, per_test, dev, clock_mhz):
+    """ms the card takes at the least to issue `tests` x `per_test`
+    instructions: one instruction a lane and cycle, 128 lanes an SM, at the
+    SM clock `clock_mhz`."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return tests * per_test / (sms * 128 * clock_mhz * 1e6) * 1e3
+
+
+def max_sm_clock():
+    """The card's maximum SM clock in MHz (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def probe_phases(dev, card):
     """Phase 13 (the four probe kernels of csrc/kernelbench.cu); returns
     their kernel-line entries (phase 15 counts their launches)."""
+    from pyrenderer_tpu_torch.kernels import build
     from pyrenderer_tpu_torch.perf import kernelbench as kb
+    from pyrenderer_tpu_torch.perf.clusterbench import (probe_bound, probe_call, probe_params,
+                                                        probe_parity, probe_ptxas, probe_sets,
+                                                        probe_tests, sass_dump, sass_loops)
 
     phase(f"13 probe kernels against twins on the card ({kb.N_TILES} tiles x "
-          f"{kb.RAY_TILE} rays)")
+          f"{kb.RAY_TILE} rays; N = 128, 384, 38,400; offset rows; the edge sets)")
+    build.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        bad, err = probe_parity(kb, probe_sets(dev), tmp)
+    check(bad == 0, f"{bad} probe cases differ from their twins")
+    print("every probe bit-equal to its twin on every set", flush=True)
+
     rcol, tri = kb.inputs(kb.N_TILES, dev)
     n = rcol.shape[0]
-    cases = {
-        "kb_leaf": [(f"L={x}", (lambda x=x: kb.leaf(rcol, tri, x)),
-                     (lambda x=x: kb.leaf_ref(rcol, tri, x)), n * x * 128 * MT_OPS)
-                    for x in kb.LEAF_L],
-        "kb_extract": [(f"K={x}", (lambda x=x: kb.extract(rcol, x)),
-                        (lambda x=x: kb.extract_ref(rcol, x)), n * 8 * 2 * x)
-                       for x in kb.EXTRACT_K],
-        "kb_cond": [(f"N={x} taken={t}", (lambda x=x, t=t: kb.cond(rcol, tri, x, t)),
-                     (lambda x=x, t=t: kb.cond_ref(rcol, tri, x, t)),
-                     n * (x if t else 0) * 128 * COND_OPS)
-                    for t in (False, True) for x in kb.COND_N],
-        "kb_ctz": [(f"word={x & 0xFFFFFFFF:#x}", (lambda x=x: kb.ctz(rcol, tri, x)),
-                    (lambda x=x: kb.ctz_ref(rcol, tri, x)),
-                    n * len(kb.set_bits(x)) * 128 * COND_OPS)
-                   for x, _ in kb.CTZ_WORDS],
-    }
-    io_bytes = {"kb_extract": nbytes(rcol) + 4 * n}
-    err, ms, plain_ms, bounds = {}, {}, {}, {}
-    for name, params in cases.items():
-        err[name] = 0.0
-        for label, kernel_fn, twin_fn, ops in params:
-            out, ref = kernel_fn(), twin_fn()
-            torch.cuda.synchronize()
-            check(torch.equal(out, ref), f"{name} {label}: kernel differs from its twin")
-            err[name] = max(err[name], float((out - ref).abs().max()))
-            k_ms, t_ms = cuda_ms_pair(kernel_fn, twin_fn, twin_graph=True)
-            b = bound(ops, io_bytes.get(name, nbytes(rcol, tri) + 4 * n))
-            # the kernel line keeps the last, heaviest parameter of each list
-            ms[name], plain_ms[name], bounds[name] = k_ms, t_ms, b
-            print(f"{name} {label}: bit-equal to its twin; kernel {k_ms:.4f} ms, plain "
-                  f"{t_ms:.4f} ms, bound {b[0]:.6f} ms ({b[1]}) ({n} rays, {card})",
+    twins = {"leaf": lambda x: kb.leaf_ref(rcol, tri, x),
+             "extract": lambda x: kb.extract_ref(rcol, x),
+             "cond": lambda x: kb.cond_ref(rcol, tri, *x),
+             "ctz": lambda x: kb.ctz_ref(rcol, tri, x)}
+    # each kernel's loop in the SASS (instructions a test on its fast path)
+    # and its ptxas lines; the issue floor from them at the card's maximum
+    # SM clock. extract has no test loop, and so no floor.
+    tags = {probe: f"kb_{probe}_kernel" for probe in twins}
+    try:
+        loops = sass_loops(sass_dump(build.build()))
+    except RuntimeError as exc:
+        check(False, f"the probes' SASS could not be read: {exc}")
+    for probe in ("leaf", "cond", "ctz"):
+        check(loops.get(tags[probe]) is not None,
+              f"no loop with a test found in {tags[probe]}'s SASS: no issue floor")
+    ptxas = collections.defaultdict(list)
+    for line in probe_ptxas(build.build_log()):
+        tag, _, report = line[len("ptxas "):].partition(": ")
+        ptxas[tag].append(report)
+    clock = max_sm_clock()
+    ms, plain_ms, bounds = {}, {}, {}
+    params = probe_params("harness")
+    for probe, param in params:
+        name = f"kb_{probe}"
+        k_ms, t_ms = cuda_ms_pair(probe_call(kb, rcol, tri, probe, param),
+                                  lambda p=probe, x=param: twins[p](x), twin_graph=True)
+        b = probe_bound(probe, param, n)
+        # the kernel line keeps the last, heaviest parameter of each list
+        ms[name], plain_ms[name], bounds[name] = k_ms, t_ms, b
+        loop, tests = loops.get(tags[probe]), probe_tests(probe, param, n)
+        if probe == "extract":
+            floor = "no issue floor (no test loop)"
+        elif not tests:
+            floor = "issue floor 0 (no tests)"
+        else:
+            floor = (f"issue floor {issue_floor(tests, loop['per_test_fast'], dev, clock):.6f} "
+                     f"ms ({loop['per_test_fast']:.2f} SASS instructions a test at "
+                     f"{clock:.0f} MHz)")
+        print(f"{name} {param}: kernel {k_ms:.4f} ms, plain {t_ms:.4f} ms, bound "
+              f"{b[0]:.6f} ms ({b[1]}), {floor} ({n} rays, {card})", flush=True)
+        if (probe, param) == [x for x in params if x[0] == probe][-1]:
+            print(f"ptxas {tags[probe]}: "
+                  + ("; ".join(ptxas[tags[probe]]) or "not in this process's build log"),
                   flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bounds": bounds}
+    return {"max_abs_err": {f"kb_{p}": e for p, e in err.items()}, "ms": ms,
+            "plain_ms": plain_ms, "bounds": bounds}
 
 
 def metal_glass_cornell():

@@ -46,7 +46,10 @@ torch.cuda.synchronize().
 
 "calib_ns_per_leaf" is the leaf probe of perf/kernelbench.py at L = 64
 (calibrate()): ns per full-width 128 x 128 leaf on the same card in the
-same process, null on the CPU. bench.py's "vs_baseline" (value / 100
+same process, null on the CPU. The probe's kernel gives each ray 8 lanes:
+it reads about 37 ns on an H100, where the one-thread-a-ray kernel before
+it read about 67, so rows from either side of that change do not compare
+on it. bench.py's "vs_baseline" (value / 100
 against a TPU target) and its 820 ns normaliser (a TPU reading) are not
 carried over.
 """

@@ -2,7 +2,7 @@
 kernel timed alone and with its wrapper's glue, checked ray by ray or pair
 by pair, and the frame's device profile.
 
-    python -m pyrenderer_tpu_torch.perf.clusterbench kernels [sweep|binned|whole] [--parity] [--out DIR]
+    python -m pyrenderer_tpu_torch.perf.clusterbench kernels [sweep|binned|whole|probes] [--parity] [--out DIR]
     python -m pyrenderer_tpu_torch.perf.clusterbench compare DIR_A DIR_B
     python -m pyrenderer_tpu_torch.perf.clusterbench profile [--backend B] [--scene S] [--estimator E]
 
@@ -55,9 +55,22 @@ edges), through the wrappers and at every lane count, holds hit, t's bits,
 face and occlusion against the twins ray by ray and saves the rays and the
 wrappers' results to DIR/whole.pt.
 
+``kernels probes`` times the four probe kernels B9-B12 (csrc/kernelbench.cu,
+perf/kernelbench.py) through their wrappers at every parameter of the
+harness's lists at 256 tiles of 128 rays, each with its bound, and the SM
+clock that nvidia-smi reads meanwhile; it prints the ptxas report of the
+probe kernels, saves the library's SASS to DIR/probes.sass and prints
+each probe loop's instructions a test (sass_loops). With --parity it runs
+every probe on probe_sets (the harness's operands at 256, 1, 3 and 300
+tiles, the same at 2 tiles in rows that start 4 bytes past a 16-byte
+boundary, and the edge sets of probe_edges at PROBE_COUNTS), holds each
+output's bits against its twin's and saves the operands and the outputs
+to DIR/probes.pt.
+
 The kernels are driven only through names an older checkout of the port
 has too (kernels/cluster.py _check_cuda_args, _prepare, _sc_order,
-_unsort; kernels/binned.py prepass, peel, their twins, sort_pairs,
+_unsort; perf/kernelbench.py inputs, the four probes, their twins and
+its lists; kernels/binned.py prepass, peel, their twins, sort_pairs,
 blocks_for, leaf, leaf_streamed, leaf_ref, RUN_PAIRS or _THREADS, and
 PREPASS_SPAN where it exists; kernels/intersect.py
 pack_triangles, closest_hit, occluded, their twins and _check_cuda_args;
@@ -301,25 +314,37 @@ def run_kernels(cs, ro, rd, t1, sort, watertight):
     return _unsort(t, perm), _unsort(slot, perm), _unsort(occ, perm_o)
 
 
-def ptxas_report(log: str, source="cluster"):
-    """The ptxas lines (registers, spills) of the kernels of csrc/<source>.cu
-    ("cluster" or "binned") in `log`, each named by its kernel and its
-    template flags (leaves MT or watertight; the resume mode)."""
+def ptxas_lines(log: str, pattern, tag_fn):
+    """The ptxas lines (registers, shared memory, spills) in `log` of every
+    kernel whose entry line matches `pattern`, each as "ptxas <tag>:
+    <report>" with tag_fn(match) naming the kernel."""
     out, entry = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "'" in line else line
+            entry = line
             continue
-        name = re.search(rf"{source}_[a-z_]+?_kernel", entry or "")
-        if name and ("Used" in line or "spill" in line):
-            flags = re.findall(r"Lb([01])E", entry)
-            tag = name.group(0)
-            if flags:
-                tag += " watertight" if flags[0] == "1" else " MT"
-            if flags[1:] == ["1"]:
-                tag += " resume"
-            out.append(f"ptxas {tag}: {re.sub(r'^ptxas info *: *', '', line.strip())}")
+        m = re.search(pattern, entry or "")
+        if m and ("Used" in line or "spill" in line):
+            out.append(f"ptxas {tag_fn(m)}: {re.sub(r'^ptxas info *: *', '', line.strip())}")
     return out
+
+
+def _template_flags(m):
+    """A cluster or binned kernel's name with its template flags (leaves
+    MT or watertight; the resume mode)."""
+    flags = re.findall(r"Lb([01])E", m.string)
+    tag = m.group(0)
+    if flags:
+        tag += " watertight" if flags[0] == "1" else " MT"
+    if flags[1:] == ["1"]:
+        tag += " resume"
+    return tag
+
+
+def ptxas_report(log: str, source="cluster"):
+    """The ptxas lines of the kernels of csrc/<source>.cu ("cluster" or
+    "binned") in `log`, each named by its kernel and its template flags."""
+    return ptxas_lines(log, rf"{source}_[a-z_]+?_kernel", _template_flags)
 
 
 def parity_sets(dev, cs100, scene, camera, b1, s1):
@@ -1001,8 +1026,10 @@ def cmd_binned(args) -> int:
     return 0
 
 
-# fp32 operations of a Moeller-Trumbore test (the whole-table kernels' bound)
+# fp32 operations of a Moeller-Trumbore test (the whole-table kernels' and
+# the leaf probe's bound) and of a cond or ctz probe's product
 MT_OPS = 60
+COND_OPS = 6
 # lanes per ray the whole-table kernels can take (pr_whole_table_g)
 WHOLE_LANES = (1, 2, 4, 8, 16)
 # the sets timed by `kernels whole`: chip_smoke.py phase 2's Cornell sets
@@ -1108,19 +1135,12 @@ def whole_bounds(table, ro, rd, t1):
 
 
 def whole_ptxas(log: str):
-    """The ptxas lines (registers, shared memory, spills) of csrc/intersect.cu's
-    closest_kernel and anyhit_kernel in `log`, each with its lanes per ray
-    (the template argument G, where the checkout has one)."""
-    out, entry = [], None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line
-            continue
-        m = re.search(r"(?<=\d)(closest|anyhit)_kernel(ILi(\d+)E)?", entry or "")
-        if m and ("Used" in line or "spill" in line):
-            tag = m.group(1) + "_kernel" + (f" G={m.group(3)}" if m.group(3) else "")
-            out.append(f"ptxas {tag}: {re.sub(r'^ptxas info *: *', '', line.strip())}")
-    return out
+    """The ptxas lines of csrc/intersect.cu's closest_kernel and
+    anyhit_kernel in `log`, each with its lanes per ray (the template
+    argument G, where the checkout has one)."""
+    return ptxas_lines(log, r"(?<=\d)(closest|anyhit)_kernel(ILi(\d+)E)?",
+                       lambda m: m.group(1) + "_kernel" + (f" G={m.group(3)}" if m.group(3)
+                                                            else ""))
 
 
 def whole_run(table, ro, rd, t1, g=None):
@@ -1274,6 +1294,390 @@ def cmd_whole(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the probe kernels (csrc/kernelbench.cu, perf/kernelbench.py): B9-B12
+# ---------------------------------------------------------------------------
+
+# the probes' edges, each made from inputs(n_tiles) (probe_edges):
+#   ties                 columns that repeat another exactly, in every row
+#                        block (PROBE_TIES, dst <- src), half the rays aimed
+#                        at a repeated triangle: ties in t
+#   degenerate           e1 = 0 in PROBE_DEGENERATE (det == 0), half the
+#                        rays aimed at them
+#   zero direction       d = 0 on every other ray: every test misses
+#   origin on a vertex   each ray's origin on v0 of a triangle: the leaf's
+#                        t is 0, the cond's product exactly 0 (on the even
+#                        rays, at PROBE_VERTEX, the least product)
+PROBE_EDGES = ("ties", "degenerate", "zero direction", "origin on a vertex")
+# pairs a lane split separates (lanes 0/1, lanes 31/32 of a warp, the last
+# column) or keeps on one lane (5/13 and 2/18 at 8 lanes a ray), either order
+PROBE_TIES = ((0, 1), (5, 13), (2, 18), (0, 32), (31, 63), (100, 127), (70, 6))
+PROBE_DEGENERATE = (0, 7, 8, 63, 127)
+PROBE_VERTEX = 45
+# the ray counts the kernels are checked at besides the harness's 256 tiles
+# (N = 128, 384 and 38,400)
+PROBE_TILES = (1, 3, 300)
+# the loop counts of the edge checks: none, one, and one either side of 8
+PROBE_COUNTS = (0, 1, 7, 9)
+
+
+def _aim_probe(r, t, rays, cols):
+    """Point rays[i]'s direction at the centroid of triangle cols[i % len]
+    of row block i % 8 (float32 throughout)."""
+    for i in rays:
+        b = (i % 8) * 16
+        c = cols[i % len(cols)]
+        v0, e1, e2 = t[b:b + 3, c], t[b + 3:b + 6, c], t[b + 6:b + 9, c]
+        r[i, 3:6] = v0 + (e1 + e2) / np.float32(3) - r[i, 0:3]
+
+
+def probe_edges(n_tiles: int = 2, device="cpu"):
+    """label -> (rcol, tri) for each of PROBE_EDGES: the harness's operands
+    (perf/kernelbench.py inputs(n_tiles)) changed at the probes' edges."""
+    from pyrenderer_tpu_torch.perf.kernelbench import inputs
+
+    rcol, tri = inputs(n_tiles)
+    base_r, base_t = rcol.numpy(), tri.numpy()
+    n = base_r.shape[0]
+    out = {}
+    for label in PROBE_EDGES:
+        r, t = base_r.copy(), base_t.copy()
+        if label == "ties":
+            for src, dst in PROBE_TIES:
+                t[:, dst] = t[:, src]
+            _aim_probe(r, t, range(0, n, 2), [dst for _, dst in PROBE_TIES])
+        elif label == "degenerate":
+            for b in range(8):
+                t[b * 16 + 3:b * 16 + 6, list(PROBE_DEGENERATE)] = 0.0
+            _aim_probe(r, t, range(0, n, 2), PROBE_DEGENERATE)
+        elif label == "zero direction":
+            r[::2, 3:6] = 0.0
+        else:
+            # column PROBE_VERTEX's v0 in every row block: the least
+            # coordinates of any v0, so that from there no product is
+            # negative and the even rays' minimum is the 0 of that vertex
+            corner = np.stack([t[c::16].min() for c in range(3)])
+            t[0:3 + 7 * 16:16, PROBE_VERTEX] = corner[0]
+            t[1:3 + 7 * 16:16, PROBE_VERTEX] = corner[1]
+            t[2:3 + 7 * 16:16, PROBE_VERTEX] = corner[2]
+            for i in range(n):
+                b, c = (i % 8) * 16, (37 * i) % 128
+                r[i, 0:3] = corner if i % 2 == 0 else t[b:b + 3, c]
+        out[label] = (torch.as_tensor(r, device=device), torch.as_tensor(t, device=device))
+    return out
+
+
+# fp32 multiplies of one test in the SASS of each probe's loop: the leaf's
+# Moeller-Trumbore (c 6, det 3, q 6, three dots 9, t u v 3), the cond's
+# product (2); tests in a loop = its FMULs over these
+PROBE_FMULS = {"kb_leaf_kernel": 27, "kb_cond_kernel": 2, "kb_ctz_kernel": 2}
+
+
+def offset_rows(rcol):
+    """rcol's values in a contiguous view that starts 4 bytes past a
+    16-byte boundary (the wrappers take any contiguous rcol)."""
+    buf = torch.empty(rcol.numel() + 4, dtype=rcol.dtype, device=rcol.device)
+    start = (16 - buf.data_ptr() % 16) % 16 // 4 + 1
+    view = buf[start:start + rcol.numel()].view(rcol.shape)
+    view.copy_(rcol)
+    return view
+
+
+def probe_sets(dev):
+    """label -> (rcol, tri): the harness's operands at 256 tiles and at
+    PROBE_TILES, the same at 2 tiles in offset_rows, and the edge sets of
+    probe_edges (2 tiles)."""
+    from pyrenderer_tpu_torch.perf import kernelbench as kb
+
+    sets = {f"{n * kb.RAY_TILE} rays": kb.inputs(n, dev) for n in (kb.N_TILES,) + PROBE_TILES}
+    rcol, tri = kb.inputs(2, dev)
+    sets["256 rays, offset rows"] = (offset_rows(rcol), tri)
+    sets.update(probe_edges(2, dev))
+    return sets
+
+
+def probe_params(label):
+    """(probe, parameter) pairs run on a set: the harness's lists, and on
+    the edge sets PROBE_COUNTS for the leaf and the cond (taken or not)."""
+    from pyrenderer_tpu_torch.perf import kernelbench as kb
+
+    edge = label in PROBE_EDGES
+    leaves = PROBE_COUNTS if edge else kb.LEAF_L
+    conds = PROBE_COUNTS if edge else kb.COND_N
+    return ([("leaf", x) for x in leaves] + [("extract", x) for x in kb.EXTRACT_K]
+            + [("cond", (x, t)) for x in conds for t in (False, True)]
+            + [("ctz", w) for w, _ in kb.CTZ_WORDS])
+
+
+def probe_call(kb, rcol, tri, probe, param):
+    """A callable running one probe through its wrapper; it returns the
+    wrapper's (N, 1) output."""
+    return {"leaf": lambda: kb.leaf(rcol, tri, param),
+            "extract": lambda: kb.extract(rcol, param),
+            "cond": lambda: kb.cond(rcol, tri, *param),
+            "ctz": lambda: kb.ctz(rcol, tri, param)}[probe]
+
+
+def probe_tests(probe, param, n):
+    """The tests one probe call on n rays runs: ray-triangle tests (leaf),
+    products (cond taken, ctz per set bit), values a round (extract)."""
+    from pyrenderer_tpu_torch.perf import kernelbench as kb
+
+    per_ray = {"leaf": lambda: param * 128, "extract": lambda: 8 * param,
+               "cond": lambda: param[0] * 128 if param[1] else 0,
+               "ctz": lambda: len(kb.set_bits(param)) * 128}[probe]()
+    return n * per_ray
+
+
+def probe_bound(probe, param, n):
+    """(ms, by) of one probe call on n rays: its tests' fp32 operations
+    over 67 TFLOP/s (MT_OPS a leaf test, COND_OPS a cond or ctz product, 2
+    an extract value and round) or the rays, table and output over 3.35
+    TB/s, whichever is longer."""
+    ops = probe_tests(probe, param, n) * {"leaf": MT_OPS, "extract": 2}.get(probe, COND_OPS)
+    io = 4 * (8 * n + n + (0 if probe == "extract" else 128 * 128))
+    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, io / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def probe_ptxas(log: str):
+    """The ptxas lines of csrc/kernelbench.cu's kernels in `log`."""
+    return ptxas_lines(log, r"kb_[a-z_]+?_kernel", lambda m: m.group(0))
+
+
+def _op(text):
+    """The opcode of a SASS instruction, its predicate dropped."""
+    return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+
+
+def _branch_target(text, labels, fname):
+    """The address a BRA instruction jumps to (a label or an address), or
+    None for another instruction."""
+    if not _op(text).startswith("BRA"):
+        return None
+    m = re.search(r"(\.L_x_\d+)", text)
+    if m:
+        return labels.get((fname, m.group(1)))
+    m = re.findall(r"\b0x[0-9a-f]+\b", text)
+    return int(m[-1], 16) if m else None
+
+
+def _sass_functions(text):
+    """{mangled name: [(address, instruction, branch target or None)]} of a
+    cuobjdump -sass dump; a label (.L_x_N) stands for the address of the
+    instruction after it."""
+    funcs, name, labels, pending = {}, None, {}, []
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        if name is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                labels[(name, label)] = addr
+            pending = []
+            funcs[name].append((addr, m.group(2)))
+    return {fname: [(addr, text, _branch_target(text, labels, fname)) for addr, text in ins]
+            for fname, ins in funcs.items()}
+
+
+def sass_loops(text):
+    """For each probe kernel of a cuobjdump -sass dump (by name), its
+    innermost loop that holds a test (the shortest range of a backward
+    branch with at least PROBE_FMULS FMULs), or None where none is found:
+    {"instructions", "tests" (its FMULs over PROBE_FMULS), "slow" (instructions in ranges
+    that a forward branch skips and that hold a CALL: the IEEE
+    reciprocal's slow path), "per_test", "per_test_fast" (without them),
+    "ops" (opcode counts)}."""
+    out = {}
+    for fname, ins in _sass_functions(text).items():
+        m = re.search(r"kb_[a-z_]+?_kernel", fname)
+        if not m or m.group(0) not in PROBE_FMULS:
+            continue
+        tag = m.group(0)
+        per = PROBE_FMULS[tag]
+        index = {addr: k for k, (addr, _, _) in enumerate(ins)}
+        best = None
+        for k, (addr, _, target) in enumerate(ins):
+            if target is None or target > addr or target not in index:
+                continue
+            body = ins[index[target]:k + 1]
+            if (sum(_op(x) == "FMUL" for _, x, _ in body) >= per
+                    and (best is None or len(body) < len(best))):
+                best = body
+        if best is None:
+            out[tag] = None
+            continue
+        # the slow path: every range a forward branch skips that holds a
+        # CALL (nvcc's IEEE reciprocal falls back to a subroutine there)
+        skipped = set()
+        for k, (addr, _, tgt) in enumerate(best):
+            if tgt is not None and tgt > addr:
+                rng = [a for a, _, _ in best[k + 1:] if a < tgt]
+                if any(_op(x).startswith("CALL") for a, x, _ in best if a in rng):
+                    skipped.update(rng)
+        slow = len(skipped)
+        ops = {}
+        for _, x, _ in best:
+            op = _op(x).split(".")[0]
+            ops[op] = ops.get(op, 0) + 1
+        tests = max(ops.get("FMUL", 0) // per, 1)
+        out[tag] = {"instructions": len(best), "tests": tests, "slow": slow,
+                    "per_test": len(best) / tests, "per_test_fast": (len(best) - slow) / tests,
+                    "ops": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+    return out
+
+
+def sass_loop_report(text):
+    """sass_loops of a dump, one line per kernel."""
+    lines = []
+    for tag, loop in sass_loops(text).items():
+        if loop is None:
+            lines.append(f"sass {tag}: no loop with a test found")
+            continue
+        top = ", ".join(f"{k} {v}" for k, v in list(loop["ops"].items())[:12])
+        lines.append(f"sass {tag}: innermost loop {loop['instructions']} instructions, "
+                     f"{loop['tests']} tests, {loop['slow']} on the slow path; per test "
+                     f"{loop['per_test']:.2f} ({loop['per_test_fast']:.2f} without them); {top}")
+    return lines
+
+
+def sass_dump(lib_path):
+    """cuobjdump -sass of the built library (the toolkit's, beside nvcc);
+    raises RuntimeError if it fails."""
+    from pyrenderer_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({proc.returncode}): {proc.stderr.strip()[:300]}")
+    return proc.stdout
+
+
+def _bits(x):
+    """A float32 tensor's bits (+0 and -0, and NaNs, told apart)."""
+    return x.contiguous().view(torch.int32)
+
+
+def probe_parity(kb, sets, out_dir):
+    """Every probe at probe_params on every set, through its wrapper,
+    against its twin bit for bit; saves the operands and the outputs to
+    DIR/probes.pt. Returns the cases that differ and, per probe, the
+    largest |kernel - twin|."""
+    twins = {"leaf": kb.leaf_ref, "extract": kb.extract_ref, "cond": kb.cond_ref,
+             "ctz": kb.ctz_ref}
+    saved, bad, err = {}, 0, dict.fromkeys(twins, 0.0)
+    for label, (rcol, tri) in sets.items():
+        saved[label] = {"operands": (rcol.cpu(), tri.cpu())}
+        for probe, param in probe_params(label):
+            args = (rcol,) + (() if probe == "extract" else (tri,))
+            params = param if isinstance(param, tuple) else (param,)
+            ref = twins[probe](*args, *params)
+            out = probe_call(kb, rcol, tri, probe, param)()
+            torch.cuda.synchronize()
+            differ = int((_bits(out) != _bits(ref)).sum())
+            bad += int(differ > 0)
+            err[probe] = max(err[probe], float((out - ref).abs().max()))
+            if differ:
+                print(f"probe parity {label} {probe} {param}: differs from the twin on "
+                      f"{differ} rays ({int((out != ref).sum())} by value)", flush=True)
+            saved[label][(probe, param)] = out.cpu()
+        print(f"probe parity {label}: {rcol.shape[0]} rays, {len(probe_params(label))} "
+              f"parameters against the twins", flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(saved, os.path.join(out_dir, "probes.pt"))
+    return bad, err
+
+
+def compare_probes(a, b):
+    """Per probe set and parameter, the rays on which two runs' outputs
+    differ in their bits; returns True when none differs."""
+    same = True
+    for label in a:
+        if label not in b or not all(torch.equal(x, y) for x, y in
+                                     zip(a[label]["operands"], b[label]["operands"])):
+            print(f"compare probes {label}: the two runs used different operands")
+            same = False
+            continue
+        keys = [k for k in a[label] if k != "operands" and k in b[label]]
+        differ = {k: int((_bits(a[label][k]) != _bits(b[label][k])).sum()) for k in keys}
+        bad = {k: v for k, v in differ.items() if v}
+        print(f"compare probes {label}: {len(keys)} parameters, outputs differ on "
+              + (", ".join(f"{k} {v} rays" for k, v in bad.items()) if bad else "none"))
+        same &= not bad
+    return same
+
+
+def cmd_probes(args) -> int:
+    """``kernels probes``: B9-B12 at every parameter of the harness's lists
+    at 256 tiles, through their wrappers, from CUDA graphs in turns; ptxas
+    and SASS of the probe kernels; with --parity, probe_sets against the
+    twins."""
+    import pyrenderer_tpu_torch
+    from pyrenderer_tpu_torch.kernels import build
+    from pyrenderer_tpu_torch.perf import kernelbench as kb
+
+    dev = torch.device("cuda:0")
+    card = card_line()
+    package = os.path.dirname(os.path.abspath(pyrenderer_tpu_torch.__file__))
+    print(f"package {package}; {card}", flush=True)
+    t = time.perf_counter()
+    build.library()
+    print(f"kernels built or loaded in {time.perf_counter() - t:.2f} s", flush=True)
+    for line in probe_ptxas(build.build_log()):
+        print(line, flush=True)
+    sass = sass_dump(build.build())
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "probes.sass"), "w") as fh:
+        fh.write(sass)
+    for line in sass_loop_report(sass):
+        print(line, flush=True)
+    rcol, tri = kb.inputs(kb.N_TILES, dev)
+    n = rcol.shape[0]
+    cases = {(probe, param): probe_call(kb, rcol, tri, probe, param)
+             for probe, param in probe_params("harness")}
+    times = {key: [] for key in cases}
+    sampler = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                                "--format=csv,noheader,nounits", "-lms", "100"],
+                               stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        for key in list(cases) + list(reversed(cases)):
+            times[key].append(kb.graph_ms(cases[key], REPS))
+    finally:
+        sampler.terminate()
+    clocks = np.array([[float(x) for x in line.split(",")]
+                       for line in sampler.communicate()[0].splitlines() if "," in line])
+    if clocks.size:
+        print(f"SM clock while timing (nvidia-smi every 100 ms, {len(clocks)} readings): median "
+              f"{np.median(clocks[:, 0]):.0f} MHz, min {clocks[:, 0].min():.0f}, max "
+              f"{clocks[:, 0].max():.0f}; the card's maximum {clocks[0, 1]:.0f} MHz", flush=True)
+    result = {}
+    for (probe, param), ms in times.items():
+        value = float(np.median(ms))
+        b = probe_bound(probe, param, n)
+        result.setdefault(probe, {})[str(param)] = {"wrapper": value, "bound_ms": b[0]}
+        print(f"probe {probe} {param} wrapper: {value:.4f} ms (median of {len(ms)} graph "
+              f"replays of {REPS} calls; bound {b[0]:.6f} ms ({b[1]}); {n} rays; {card})",
+              flush=True)
+    bad = None
+    if args.parity:
+        bad, _ = probe_parity(kb, probe_sets(dev), args.out)
+        print(f"probe parity: {bad} cases differ from the twins", flush=True)
+    print(json.dumps({"package": package, "card": card, "device": torch.cuda.get_device_name(0),
+                      "probes": result, "parity_cases_differing": bad}))
+    return 0
+
+
 def compare_sweep(a, b):
     """Per sweep case, the rays on which two runs' kernels differ; returns
     True when none differs."""
@@ -1301,11 +1705,13 @@ def compare_sweep(a, b):
 
 def cmd_compare(args) -> int:
     """The files of `kernels --parity` (parity.pt), `kernels binned
-    --parity` (binned.pt) and `kernels whole --parity` (whole.pt) that both
-    directories hold, compared."""
+    --parity` (binned.pt, prepass.pt), `kernels whole --parity` (whole.pt)
+    and `kernels probes --parity` (probes.pt) that both directories hold,
+    compared."""
     same = {}
     for name, fn in (("parity.pt", compare_sweep), ("binned.pt", compare_binned),
-                     ("prepass.pt", compare_prepass), ("whole.pt", compare_whole)):
+                     ("prepass.pt", compare_prepass), ("whole.pt", compare_whole),
+                     ("probes.pt", compare_probes)):
         paths = [os.path.join(d, name) for d in args.dirs]
         if all(os.path.exists(p) for p in paths):
             same[name] = fn(*(torch.load(p) for p in paths))
@@ -1403,7 +1809,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="cmd", required=True)
     k = sub.add_parser("kernels")
-    k.add_argument("which", nargs="?", default="sweep", choices=("sweep", "binned", "whole"))
+    k.add_argument("which", nargs="?", default="sweep",
+                   choices=("sweep", "binned", "whole", "probes"))
     k.add_argument("--parity", action="store_true")
     k.add_argument("--out", default=os.path.join("build", "clusterbench"))
     c = sub.add_parser("compare")
@@ -1419,7 +1826,7 @@ def main(argv=None) -> int:
         print("no CUDA device: clusterbench runs on a GPU", file=sys.stderr)
         return 2
     if args.cmd == "kernels" and args.which != "sweep":
-        return {"binned": cmd_binned, "whole": cmd_whole}[args.which](args)
+        return {"binned": cmd_binned, "whole": cmd_whole, "probes": cmd_probes}[args.which](args)
     return {"kernels": cmd_kernels, "compare": cmd_compare, "profile": cmd_profile}[args.cmd](args)
 
 

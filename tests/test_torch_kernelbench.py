@@ -13,6 +13,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from pyrenderer_tpu_torch.perf import clusterbench as cb
 from pyrenderer_tpu_torch.perf import kernelbench as kb
 
 torch.set_num_threads(2)
@@ -126,6 +127,139 @@ def test_cond_twin_equals_pallas(operands, n_conds, taken):
     np.testing.assert_array_equal(out, ref)
 
 
+EDGE_LABELS = ("harness",) + cb.PROBE_EDGES
+
+
+@pytest.fixture(scope="module")
+def edge_sets():
+    """The harness's operands at 2 tiles and the four edge sets of
+    cb.probe_edges (256 rays each)."""
+    return dict(harness=kb.inputs(2, "cpu"), **cb.probe_edges(2, "cpu"))
+
+
+@pytest.mark.parametrize("n_leaves", cb.PROBE_COUNTS)
+@pytest.mark.parametrize("label", EDGE_LABELS)
+def test_leaf_twin_equals_pallas_on_edges(edge_sets, label, n_leaves):
+    """Ties in t, det == 0, zero directions, origins on a vertex, and L of
+    0, 1, 7 and 9: the same misses as interpret mode and t to rtol 1e-3
+    (XLA:CPU's FMAs), the float32 NumPy evaluation bit for bit."""
+    rcol, tri = edge_sets[label]
+    ref = _pallas(partial(kb_jax._leaf_kernel, n_leaves), rcol, tri)
+    out = kb.leaf_ref(rcol, tri, n_leaves).numpy()
+    np.testing.assert_array_equal(out, _leaf_np(rcol, tri, n_leaves))
+    np.testing.assert_array_equal(out < kb.MISS, ref < kb.MISS)
+    np.testing.assert_allclose(out, ref, rtol=1e-3, atol=0)
+    if n_leaves == 0:
+        assert (out == np.float32(kb.MISS)).all()
+    if label == "zero direction":
+        assert (out[::2] == np.float32(kb.MISS)).all()
+
+
+@pytest.mark.parametrize("taken", [False, True])
+@pytest.mark.parametrize("n_conds", cb.PROBE_COUNTS)
+@pytest.mark.parametrize("label", EDGE_LABELS)
+def test_cond_twin_equals_pallas_on_edges(edge_sets, label, n_conds, taken):
+    """The cond twin equals interpret mode on the edge sets at 0, 1, 7 and
+    9 branches, taken or not; the on-vertex set's even rays reach the exact
+    0 of their vertex."""
+    rcol, tri = edge_sets[label]
+    ref = _pallas(partial(kb_jax._cond_kernel, n_conds, taken), rcol, tri)
+    out = kb.cond_ref(rcol, tri, n_conds, taken).numpy()
+    np.testing.assert_array_equal(out, ref)
+    if label == "origin on a vertex" and taken and n_conds:
+        assert (out[::2] == 0).all()
+
+
+# A model of the kernels' lane split: G lanes share a ray and each keeps a
+# running minimum of its own tests (the leaf accepting t only below it),
+# and the lanes' minima meet at the end. csrc/kernelbench.cu relies on it
+# giving the serial loop's result bit for bit. The leaf's lane g takes
+# triangles g, g + G, ... of every leaf in that order (the kernel: G = 8);
+# the cond's lane l takes triangles l * 128 / G ... (l + 1) * 128 / G - 1
+# (the kernel: 32 lanes of 4 triangles, for each of a warp's rays).
+
+def _leaf_lanes(rcol, tri, n_leaves, g):
+    ox, oy, oz, dx, dy, dz = (rcol[:, c:c + 1] for c in range(6))
+    best = torch.full((rcol.shape[0], g), kb.MISS, dtype=rcol.dtype)
+    for j in range(n_leaves):
+        blk = kb._block(tri, j)
+        for k in range(0, 128, g):
+            v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (row[:, k:k + g] for row in blk)
+            cx = e1y * dz - e1z * dy
+            cy = e1z * dx - e1x * dz
+            cz = e1x * dy - e1y * dx
+            det = cx * e2x + cy * e2y + cz * e2z
+            inv = 1.0 / torch.where(det == 0, 1.0, det)
+            sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+            qx = sy * e2z - sz * e2y
+            qy = sz * e2x - sx * e2z
+            qz = sx * e2y - sy * e2x
+            t = -inv * (qx * e1x + qy * e1y + qz * e1z)
+            u = -inv * (qx * dx + qy * dy + qz * dz)
+            v = inv * (cx * sx + cy * sy + cz * sz)
+            ok = ((det.abs() > 0) & (t > 1e-4) & (t < best) & (u >= 0) & (u <= 1)
+                  & (v >= 0) & (1 - u - v >= 0))
+            best = torch.where(ok, t, best)
+    return best.amin(dim=1, keepdim=True)
+
+
+def _cond_lanes(rcol, tri, n_conds, taken, g):
+    o = [rcol[:, c:c + 1] for c in range(3)]
+    best = torch.full((rcol.shape[0], g), kb.MISS, dtype=rcol.dtype)
+    for j in range(n_conds if taken else 0):
+        blk = kb._block(tri, j)
+        p = ((blk[0] - o[0]) * (blk[1] - o[1]) * (blk[2] - o[2])).view(-1, g, 128 // g)
+        for k in range(128 // g):
+            best = torch.minimum(best, p[:, :, k])
+    return best.amin(dim=1, keepdim=True)
+
+
+LANES = (1, 2, 4, 8, 16, 32)
+
+
+@pytest.mark.parametrize("g", LANES)
+@pytest.mark.parametrize("label", EDGE_LABELS)
+def test_leaf_lane_split_equals_twin(edge_sets, label, g):
+    """The lane split of the leaf, lane minima with t accepted below the
+    lane's own, equals leaf_ref bit for bit (9 leaves: every row block, one
+    twice)."""
+    rcol, tri = edge_sets[label]
+    ref = kb.leaf_ref(rcol, tri, 9)
+    out = _leaf_lanes(rcol, tri, 9, g)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert (ref < kb.MISS).any()
+
+
+@pytest.mark.parametrize("g", LANES)
+@pytest.mark.parametrize("label", EDGE_LABELS)
+def test_cond_lane_split_equals_twin(edge_sets, label, g):
+    """The cond's lane minima equal cond_ref bit for bit (7 and 9
+    branches, taken; none when not taken)."""
+    rcol, tri = edge_sets[label]
+    for n_conds, taken in ((7, True), (9, True), (9, False)):
+        ref = kb.cond_ref(rcol, tri, n_conds, taken)
+        out = _cond_lanes(rcol, tri, n_conds, taken, g)
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+def test_edge_operands_are_edges(edge_sets):
+    """Each edge set holds its edge: exact repeats, e1 = 0, zero
+    directions, origins on a vertex."""
+    base_r, base_t = edge_sets["harness"]
+    _, tri = edge_sets["ties"]
+    for src, dst in cb.PROBE_TIES:
+        assert torch.equal(tri[:, src], tri[:, dst])
+    _, tri = edge_sets["degenerate"]
+    for b in range(8):
+        assert (tri[b * 16 + 3:b * 16 + 6, list(cb.PROBE_DEGENERATE)] == 0).all()
+    rcol, _ = edge_sets["zero direction"]
+    assert (rcol[::2, 3:6] == 0).all() and torch.equal(rcol[1::2], base_r[1::2])
+    rcol, tri = edge_sets["origin on a vertex"]
+    assert torch.equal(rcol[1, 0:3], tri[16:19, 37])
+    assert all(r.shape == (256, 8) and t.shape == (128, 128)
+               for r, t in edge_sets.values())
+
+
 @pytest.mark.parametrize("word", [w for w, _ in kb.CTZ_WORDS])
 def test_ctz_twin_equals_pallas(operands, word):
     rcol, tri = operands
@@ -213,23 +347,16 @@ def test_wrappers_reject_bad_operands_on_cuda_path(operands, bad):
 
 
 @pytest.mark.cuda
-def test_probe_kernels_match_twins_on_gpu(operands):
-    """On a CUDA device: each probe kernel equals its twin bit for bit on
-    every parameter of the harness's lists (run on the card with
-    `python -m pytest tests/test_torch_kernelbench.py -m cuda`)."""
+def test_probe_kernels_match_twins_on_gpu(tmp_path):
+    """On a CUDA device: each probe kernel's output has its twin's bits on
+    every parameter of the harness's lists at 256 tiles, 1, 3 and 300
+    tiles (N = 128, 384, 38,400), at 2 tiles in rows 4 bytes past a
+    16-byte boundary, and on the edge sets at 0, 1, 7 and 9 (run on the
+    card with `python -m pytest tests/test_torch_kernelbench.py -m cuda`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    rcol, tri = (x.cuda() for x in kb.inputs(kb.N_TILES, "cpu"))
-    for n_leaves in kb.LEAF_L:
-        assert torch.equal(kb.leaf(rcol, tri, n_leaves), kb.leaf_ref(rcol, tri, n_leaves))
-    for n_ext in kb.EXTRACT_K:
-        assert torch.equal(kb.extract(rcol, n_ext), kb.extract_ref(rcol, n_ext))
-    for n_conds in kb.COND_N:
-        for taken in (False, True):
-            assert torch.equal(kb.cond(rcol, tri, n_conds, taken),
-                               kb.cond_ref(rcol, tri, n_conds, taken))
-    for word, _ in kb.CTZ_WORDS:
-        assert torch.equal(kb.ctz(rcol, tri, word), kb.ctz_ref(rcol, tri, word))
+    bad, _ = cb.probe_parity(kb, cb.probe_sets(torch.device("cuda:0")), tmp_path)
+    assert bad == 0
 
 
 @pytest.mark.cuda
@@ -243,3 +370,90 @@ def test_graph_ms_counts_the_launches_that_ran():
     kb.graph_ms(lambda: kb.leaf(rcol, tri, 4), reps=5)
     assert kb.leaf.launches == 1 + 2 * 5 and kb.leaf.twin_calls == 0
     kb.reset_counters()
+
+
+# a cuobjdump -sass dump in the toolkit's format: an outer loop around an
+# inner one whose second half is a slow path with a CALL
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_114kb_cond_kernelEPKfS1_iiPf
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;          /* 0x00000a00ff017b82 */
+                                                                   /* 0x000fe40000000800 */
+.L_x_0:
+        /*0010*/                   ISETP.GE.AND P0, PT, R2, R3, PT ;
+.L_x_1:
+        /*0020*/                   LDS.128 R4, [R2+0x10] ;
+        /*0030*/                   FADD R5, R4, -R8 ;
+        /*0040*/                   FMUL R6, R5, R9 ;
+        /*0050*/                   FMUL R6, R6, R10 ;
+        /*0060*/                   FMNMX R7, R7, R6, PT ;
+        /*0070*/              @!P1 BRA `(.L_x_2) ;
+        /*0080*/                   BRA `(.L_x_3) ;
+.L_x_2:
+        /*0090*/                   MOV R4, R5 ;
+        /*00a0*/                   CALL.REL.NOINC `($_slow) ;
+.L_x_3:
+        /*00b0*/               @P2 BRA `(.L_x_1) ;
+        /*00c0*/               @P0 BRA `(.L_x_0) ;
+        /*00d0*/                   EXIT ;
+"""
+
+
+def test_sass_loops_reads_the_innermost_loop():
+    """sass_loops finds the shortest backward branch around a test, counts
+    its tests by FMULs and its slow-path block by the CALL in it."""
+    loops = cb.sass_loops(_SASS)
+    assert set(loops) == {"kb_cond_kernel"}
+    loop = loops["kb_cond_kernel"]
+    assert loop["instructions"] == 10 and loop["tests"] == 1 and loop["slow"] == 2
+    assert loop["per_test"] == 10 and loop["per_test_fast"] == 8
+    assert loop["ops"]["FMUL"] == 2 and loop["ops"]["BRA"] == 3
+    assert cb.sass_loop_report(_SASS)[0].startswith("sass kb_cond_kernel: innermost loop 10")
+
+
+def test_probe_sets_and_parameters():
+    """kernels probes --parity runs the harness's lists on the harness's
+    operands at 256, 1, 3 and 300 tiles and at 2 tiles in offset rows, and
+    the edge counts on the edge sets; its bounds are chip_smoke.py phase
+    13's."""
+    sets = cb.probe_sets("cpu")
+    assert {k: v[0].shape[0] for k, v in sets.items()} == {
+        "32768 rays": 32768, "128 rays": 128, "384 rays": 384, "38400 rays": 38400,
+        "256 rays, offset rows": 256, "ties": 256, "degenerate": 256, "zero direction": 256, "origin on a vertex": 256}
+    harness, edge = cb.probe_params("32768 rays"), cb.probe_params("ties")
+    assert ("leaf", 64) in harness and ("cond", (64, True)) in harness
+    assert [x for p, x in edge if p == "leaf"] == [0, 1, 7, 9]
+    assert len([x for p, x in edge if p == "cond"]) == 8
+    assert cb.probe_bound("leaf", 64, 32768) == (32768 * 64 * 128 * 60 / 67e12 * 1e3,
+                                                 "operations")
+    assert cb.probe_bound("cond", (64, False), 32768)[1] == "bytes"
+
+
+@pytest.mark.parametrize("change", ["value", "sign of zero"])
+def test_compare_probes_finds_a_difference(change):
+    """compare finds a ray on which two runs' outputs differ, by value or
+    only in the sign of a zero."""
+    rcol, tri = kb.inputs(1, "cpu")
+    out = kb.cond_ref(rcol, tri, 4, True)
+    out[5] = 0.0
+    a = {"x": {"operands": (rcol, tri), ("cond", (4, True)): out}}
+    b = {"x": {"operands": (rcol, tri), ("cond", (4, True)): out.clone()}}
+    assert cb.compare_probes(a, b)
+    if change == "value":
+        b["x"][("cond", (4, True))][3] = 1.0
+    else:
+        b["x"][("cond", (4, True))][5] = -0.0
+    assert not cb.compare_probes(a, b)
+
+
+def test_offset_rows_start_off_a_16_byte_boundary():
+    """probe_sets' offset rows: the same values, contiguous, 4 bytes past a
+    16-byte boundary; the wrappers' operand check accepts them and the
+    twins give the aligned rows' results."""
+    rcol, tri = kb.inputs(2, "cpu")
+    view = cb.offset_rows(rcol)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous() and torch.equal(view, rcol)
+    assert kb._check(view, tri) == 256
+    assert torch.equal(kb.cond_ref(view, tri, 9, True), kb.cond_ref(rcol, tri, 9, True))
+    assert torch.equal(kb.leaf_ref(view, tri, 2), kb.leaf_ref(rcol, tri, 2))
