@@ -96,12 +96,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    (256 tiles of 128 rays), at N = 128, 384 and 38,400, at 256 rays in
    rows 4 bytes past a 16-byte boundary, and on the edge sets of
    perf/clusterbench.py probe_edges (ties in t, det == 0, zero
-   directions, origins on a vertex) at L and N of 0, 1, 7 and 9; each
+   directions, origins on a vertex) at L and N of 0, 1, 7 and 9; on every
+   one of these sets the extract also at K of 0, 1, 7 and 9 and the ctz at
+   words 0, 0x80000000 and 0x80000001 (clusterbench probe_params); each
    timed at the harness's shape beside its twin, both replayed from CUDA
-   graphs, with its bound, its issue floor (the SASS instructions a test
-   of its loop, clusterbench sass_loops, at the card's maximum SM clock;
-   the phase fails if the SASS cannot be read or the leaf's, cond's or
-   ctz's loop is not found) and its ptxas line.
+   graphs, with its bound, its ptxas line and its floor at the card's
+   maximum SM clock: for the leaf, cond and ctz the issue floor (the SASS
+   instructions a test of its loop, clusterbench sass_loops), for the
+   extract the latency floor (K x the cycles of one round's dependent
+   chain, read off the round's SASS, clusterbench round_cycles, with each
+   instruction's latency measured on the card by perf/latency.cu); the
+   phase fails if the SASS cannot be read, a probe's loop is not found,
+   the extract's round adds acc to fewer than 16 values a lane, or the
+   latencies cannot be measured.
 14. The pbrt path: the CLI with its default estimator (pbrt), Cornell,
    1024x1024, 4 bounces, 16 spp, with exactly 16 x 16 x 4 launches of each
    whole-table kernel and no twin call; GPU against CPU images at 64x64
@@ -1054,14 +1061,6 @@ def binned_phases(dev, card, ctx):
     return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bounds": bounds}
 
 
-def issue_floor(tests, per_test, dev, clock_mhz):
-    """ms the card takes at the least to issue `tests` x `per_test`
-    instructions: one instruction a lane and cycle, 128 lanes an SM, at the
-    SM clock `clock_mhz`."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return tests * per_test / (sms * 128 * clock_mhz * 1e6) * 1e3
-
-
 def max_sm_clock():
     """The card's maximum SM clock in MHz (nvidia-smi clocks.max.sm)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -1076,9 +1075,10 @@ def probe_phases(dev, card):
     their kernel-line entries (phase 15 counts their launches)."""
     from pyrenderer_tpu_torch.kernels import build
     from pyrenderer_tpu_torch.perf import kernelbench as kb
-    from pyrenderer_tpu_torch.perf.clusterbench import (probe_bound, probe_call, probe_params,
-                                                        probe_parity, probe_ptxas, probe_sets,
-                                                        probe_tests, sass_dump, sass_loops)
+    from pyrenderer_tpu_torch.perf.clusterbench import (latency_report, probe_bound, probe_call,
+                                                        probe_floor, probe_params, probe_parity,
+                                                        probe_ptxas, probe_sets, probe_tests,
+                                                        sass_dump, sass_loops)
 
     phase(f"13 probe kernels against twins on the card ({kb.N_TILES} tiles x "
           f"{kb.RAY_TILE} rays; N = 128, 384, 38,400; offset rows; the edge sets)")
@@ -1094,17 +1094,22 @@ def probe_phases(dev, card):
              "extract": lambda x: kb.extract_ref(rcol, x),
              "cond": lambda x: kb.cond_ref(rcol, tri, *x),
              "ctz": lambda x: kb.ctz_ref(rcol, tri, x)}
-    # each kernel's loop in the SASS (instructions a test on its fast path)
-    # and its ptxas lines; the issue floor from them at the card's maximum
-    # SM clock. extract has no test loop, and so no floor.
+    # each kernel's loop in the SASS (instructions a test on its fast path;
+    # the extract's: a round) and its ptxas lines; the floors from them at
+    # the card's maximum SM clock
     tags = {probe: f"kb_{probe}_kernel" for probe in twins}
     try:
         loops = sass_loops(sass_dump(build.build()))
+        lat, lines = latency_report(dev)
     except RuntimeError as exc:
-        check(False, f"the probes' SASS could not be read: {exc}")
-    for probe in ("leaf", "cond", "ctz"):
+        check(False, f"the probes' SASS or the latencies could not be read: {exc}")
+    for probe in twins:
         check(loops.get(tags[probe]) is not None,
-              f"no loop with a test found in {tags[probe]}'s SASS: no issue floor")
+              f"no loop with a test found in {tags[probe]}'s SASS: no floor")
+    fadds = loops[tags["extract"]]["ops"].get("FADD", 0) / loops[tags["extract"]]["tests"]
+    check(fadds >= 16, f"the extract's round has {fadds} FADDs a lane: acc hoisted out of the max")
+    for line in lines:
+        print(line, flush=True)
     ptxas = collections.defaultdict(list)
     for line in probe_ptxas(build.build_log()):
         tag, _, report = line[len("ptxas "):].partition(": ")
@@ -1119,15 +1124,13 @@ def probe_phases(dev, card):
         b = probe_bound(probe, param, n)
         # the kernel line keeps the last, heaviest parameter of each list
         ms[name], plain_ms[name], bounds[name] = k_ms, t_ms, b
-        loop, tests = loops.get(tags[probe]), probe_tests(probe, param, n)
-        if probe == "extract":
-            floor = "no issue floor (no test loop)"
-        elif not tests:
+        if probe != "extract" and not probe_tests(probe, param, n):
             floor = "issue floor 0 (no tests)"
         else:
-            floor = (f"issue floor {issue_floor(tests, loop['per_test_fast'], dev, clock):.6f} "
-                     f"ms ({loop['per_test_fast']:.2f} SASS instructions a test at "
-                     f"{clock:.0f} MHz)")
+            floor = probe_floor(loops, lat, probe, param, n, clock)[1]
+            if probe == "extract":
+                floor += (f", {fadds:.0f} FADDs a lane and round; it holds at that clock, the "
+                          f"card's maximum")
         print(f"{name} {param}: kernel {k_ms:.4f} ms, plain {t_ms:.4f} ms, bound "
               f"{b[0]:.6f} ms ({b[1]}), {floor} ({n} rays, {card})", flush=True)
         if (probe, param) == [x for x in params if x[0] == probe][-1]:

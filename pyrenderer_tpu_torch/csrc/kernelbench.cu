@@ -1,6 +1,6 @@
 // Microbenchmark probes for Hopper (sm_90a): the four kernels of
 // perf/kernelbench.py, each measuring one cost that shaped the traversal
-// kernels (the leaf's speed of light, a block-wide reduction, a uniform
+// kernels (the leaf's speed of light, a chain of reductions, a uniform
 // branch, a bit loop).
 //
 // Replaces the TPU kernels of perf/kernelbench.py:
@@ -10,13 +10,11 @@
 //   pr_kb_cond    -> _cond_kernel    (perf/kernelbench.py:162)
 //   pr_kb_ctz     -> _ctz_kernel     (perf/kernelbench.py:206)
 //
-// extract and ctz run one block of 128 threads per 128-ray tile, one thread
-// per ray (N / 128 blocks: 256 at the harness's shape, under two blocks per
-// SM of the card's 132); ctz stages the rows it reads of the (128, 128)
-// triangle table -- 8 row blocks x 9 rows x 128 floats = 36,864 bytes -- in
-// static shared memory, and every thread of a block then reads the same
-// triangle in the same cycle (a broadcast). leaf and cond have designs of
-// their own, described beside each.
+// Each kernel has a design of its own for this card, described beside it:
+// the leaf gives a ray 8 lanes; the cond and the ctz run lanes over
+// triangles, 16 rays a warp, with only rows 0-2 of the table's row blocks
+// staged in shared memory; the extract runs one warp per 128-ray tile, its
+// 1,024 values in registers, with no shared memory and no barrier.
 //
 // Nothing here may be folded away by the compiler, or the probe measures
 // nothing: the loop counts (n_leaves, n_ext, n_conds), the branch's
@@ -39,30 +37,11 @@
 
 namespace {
 
-constexpr int kThreads = 128;     // rays per tile = threads per block
+constexpr int kThreads = 128;     // rays per tile = triangles per row block
 constexpr int kBlocks = 8;        // row blocks of the table (j % 8)
 constexpr int kRows = 9;          // rows read per block: v0 | e1 | e2
 constexpr int kBlockStride = 16;  // table rows per block
 constexpr float kMiss = 3.0e38f;
-
-// Stage rows (b * 16 + r), b < 8, r < 9, of the (128, 128) table (ctz).
-__device__ __forceinline__ void stage_table(const float* __restrict__ tri,
-                                            float (*s)[kRows][kThreads]) {
-  for (int b = 0; b < kBlocks; ++b)
-    for (int r = 0; r < kRows; ++r)
-      s[b][r][threadIdx.x] = tri[(b * kBlockStride + r) * kThreads + threadIdx.x];
-}
-
-// One conditional leaf of _ctz_kernel: the min over the block's 128 lanes
-// of (v0x - ox)(v0y - oy)(v0z - oz). (The cond kernel, which asked the same
-// question of a branch, has its own below.)
-__device__ __forceinline__ float cond_leaf(const float (*b)[kThreads],
-                                           float ox, float oy, float oz) {
-  float m = kMiss;
-  for (int k = 0; k < kThreads; ++k)
-    m = fminf(m, (b[0][k] - ox) * (b[1][k] - oy) * (b[2][k] - oz));
-  return m;
-}
 
 // ---------------------------------------------------------------------------
 // leaf (B9): n_leaves unconditional Moeller-Trumbore leaves of 128 triangles.
@@ -210,38 +189,104 @@ kb_leaf_kernel(const float* __restrict__ rcol, const float* __restrict__ tri,
   if (g == 0) out[i] = t_best;
 }
 
-// extract: n_ext dependent block-wide reductions. Round j takes the max over
-// the tile's 128 x 8 values of (rcol + acc) -- each thread's 8 values, then
-// warp shuffles, then one step through shared memory -- and feeds
-// acc += max * 1e-20 into round j + 1, so no two rounds can be merged or
-// hoisted. Bound on this card: latency, not arithmetic or bytes (2,048
-// operations and 4.5 KB per tile and round): each round is a chain of
-// five shuffles and a barrier; the probe measures that chain, the GPU's
-// counterpart of the TPU's vector -> scalar move.
-__global__ void __launch_bounds__(kThreads)
-kb_extract_kernel(const float* __restrict__ rcol, int n_ext,
-                  float* __restrict__ out) {
-  __shared__ float part[2][kThreads / 32];
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  float r[8];
-  for (int c = 0; c < 8; ++c) r[c] = rcol[8 * i + c];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// ---------------------------------------------------------------------------
+// extract (B10): n_ext dependent reductions per 128-ray tile. Round j takes
+// the max over the tile's 128 x 8 values of (rcol + acc) and feeds acc +=
+// max * 1e-20 into round j + 1, so no two rounds can be merged.
+//
+// Bound on this card: latency. The rounds of a tile form one dependent
+// chain, and at the harness's 256 tiles 256 chains leave the 132 SMs'
+// schedulers nearly idle (2,048 operations and 4.5 KB a tile and round: the
+// 0.00100 ms ops bound at K = 128 says nothing). The kernel's time is K x
+// the latency of one round: its floor (PERF.md section 2) is the round's
+// dependent chain read off its SASS, with each instruction's latency
+// measured on the card (perf/clusterbench.py round_cycles, perf/latency.cu).
+//
+// The design: one warp a tile, no shared memory and no barrier. Lane l
+// holds float4s l + 32 q, q < 8, of the tile's 1,024 contiguous floats
+// (coalesced; rows that are not 16-byte aligned take scalar loads of the
+// same values into the same registers) for all K rounds. A round adds acc
+// to the lane's 32 values, reduces them with a max tree (max_fold), then
+// across the warp with one REDUX on order-preserving integer keys.
+//
+// Every round adds acc to all 1,024 values and reduces all of them: 32
+// FADDs a lane and round in the SASS (chip_smoke.py checks the count).
+// Rounding is monotone, so max(r + acc) would equal max(r) + acc bit for
+// bit, and a kernel that reduced the tile once and then ran K scalar steps
+// would have the twin's bits and measure nothing. It must not be written so.
+//
+// Measured alone (CUDA-graph replay, one H100 80GB HBM3 at 700 W, SM clock
+// 1,980 MHz, PERF.md; the kernel this replaced in brackets: one thread a
+// ray, five shuffles, a block barrier and four shared loads a round): K =
+// 128 0.0122-0.0125 ms (0.0187-0.0188), 1.2x its 156-cycle latency floor;
+// K = 32 0.0043-0.0044 (0.0060-0.0065). Dropped: five shuffles in place of
+// the REDUX (K = 128 0.0176), two warps a tile of 16 values a lane meeting
+// through shared memory and a 64-thread named barrier (0.0188 with the
+// REDUX, 0.0248 with shuffles). ptxas: 59 registers, no shared memory, no
+// spill (replaced: 29 registers).
+constexpr int kExtractValues = kThreads * 8;   // a tile's values
+constexpr int kExtractLane = kExtractValues / 32;   // values a lane
+constexpr int kExtractQuads = kExtractLane / 4;     // float4s a lane
+
+// The order-preserving map from a float's bits to an unsigned (flip every
+// bit of a negative value, set the sign bit of a non-negative one): for
+// non-NaN a and b, a < b iff key(a) < key(b), and -0 < +0. Its inverse is
+// ordered_value. perf/kernelbench.py ordered_key is its NumPy mirror.
+__device__ __forceinline__ unsigned ordered_key(float x) {
+  const unsigned b = __float_as_uint(x);
+  return b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
+}
+
+__device__ __forceinline__ float ordered_value(unsigned k) {
+  return __uint_as_float(k ^ ((unsigned)((int)~k >> 31) | 0x80000000u));
+}
+
+// t[0] = the max of t[0 .. 2H - 1], by halves: t[k] = max(t[k], t[k + h])
+// for h = H, H / 2, ..., 1 (a tree of depth log2(2H)).
+template <int H>
+__device__ __forceinline__ void max_fold(float* t) {
+#pragma unroll
+  for (int k = 0; k < H; ++k) t[k] = fmaxf(t[k], t[k + H]);
+  if constexpr (H > 1) max_fold<H / 2>(t);
+}
+
+__global__ void __launch_bounds__(32)
+kb_extract_kernel(const float* __restrict__ rcol, int n_ext, float* __restrict__ out) {
+  const int lane = threadIdx.x;
+  const float* tile = rcol + (int64_t)blockIdx.x * kExtractValues;
   float acc = 0.0f;
-  for (int j = 0; j < n_ext; ++j) {
-    float m = r[0] + acc;
-    for (int c = 1; c < 8; ++c) m = fmaxf(m, r[c] + acc);
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    // two buffers: a warp that runs ahead into round j + 1 writes the
-    // other one, and cannot reach round j + 2 before every warp has passed
-    // round j + 1's barrier (and so finished reading round j)
-    if (lane == 0) part[j & 1][warp] = m;
-    __syncthreads();
-    float s = part[j & 1][0];
-    for (int w = 1; w < kThreads / 32; ++w) s = fmaxf(s, part[j & 1][w]);
-    acc = acc + s * 1e-20f;
+  // K = 0 reads nothing, as in the kernel this replaced (its compiler sank
+  // the loads under the loop's guard)
+  if (n_ext > 0) {
+    float v[kExtractLane];
+    if ((reinterpret_cast<uintptr_t>(tile) & 15u) == 0) {
+#pragma unroll
+      for (int q = 0; q < kExtractQuads; ++q) {
+        const float4 f = reinterpret_cast<const float4*>(tile)[lane + 32 * q];
+        v[4 * q] = f.x;
+        v[4 * q + 1] = f.y;
+        v[4 * q + 2] = f.z;
+        v[4 * q + 3] = f.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < kExtractQuads; ++q)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[4 * q + c] = tile[4 * (lane + 32 * q) + c];
+    }
+#pragma unroll 1
+    for (int j = 0; j < n_ext; ++j) {
+      float t[kExtractLane];
+#pragma unroll
+      for (int k = 0; k < kExtractLane; ++k) t[k] = v[k] + acc;
+      max_fold<kExtractLane / 2>(t);
+      // fmaxf's bits on every non-NaN value: a -0 never reaches the max,
+      // since acc starts at +0 and (-0) + (+0) = +0
+      const float s = ordered_value(__reduce_max_sync(0xffffffffu, ordered_key(t[0])));
+      acc = acc + s * 1e-20f;
+    }
   }
-  out[i] = 0.0f + acc;
+  for (int r = lane; r < kThreads; r += 32) out[(int64_t)blockIdx.x * kThreads + r] = 0.0f + acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -353,25 +398,104 @@ kb_cond_kernel(const float* __restrict__ rcol, const float* __restrict__ tri,
   if (lane < R) out[first + lane] = mine;
 }
 
-// ctz: one conditional leaf per set bit of the runtime 32-bit `word`, at
-// row block (bit index % 8), lowest bit first: c = __ffs(bits) - 1, then
-// bits &= bits - 1 (the TPU's 31 - clz(bits & -bits)). Bound on this card:
-// arithmetic, 6 operations per ray, lane and set bit; the probe measures
-// what the bit loop adds to it.
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// ctz (B12): one conditional leaf per set bit of the runtime 32-bit `word`,
+// at row block (bit index % 8), lowest bit first: c = __ffs(bits) - 1, then
+// bits &= bits - 1 (the TPU's 31 - clz(bits & -bits)). The word is a kernel
+// argument, so the loop is uniform and costs no divergence.
+//
+// Bound on this card when the word is not 0: issued instructions, as B11's
+// (6 fp32 operations a product, N * popcount(word) * 128 products).
+//
+// The design is B11's: lanes over triangles, R = kCondRays rays a warp, 128
+// rays a block, each lane testing triangles 4 l .. 4 l + 3 of the bit's row
+// block (three float4 loads) against the warp's R origins held in
+// registers. Only the row blocks the word's bits select are staged (rows
+// 0-2 of each, at most 12,288 bytes): block b is read iff some set bit c
+// has c % 8 == b. The R rays' 32 lane minima meet after the last bit in 16
+// shuffles (min_halve at d = 16, 8, 4, 2, then one exchange at d = 1: each
+// ray's minimum still takes 5 steps, but a lane sends one value a step for
+// all the rays it keeps); word 0 skips that step. The result is the serial
+// loop's, as B11's (fminf is exact; the order could only pick between a +0
+// and a -0 that tie, and on every operand set checked on the card the
+// outputs have the twin's bits).
+//
+// Measured alone (CUDA-graph replay, one H100 80GB HBM3 at 700 W, SM clock
+// 1,980 MHz, PERF.md; the kernel this replaced in brackets: one thread a
+// ray, 36,864 bytes staged, broadcast scalar shared loads, 7.25 SASS
+// instructions a test): 32 bits 0.0329-0.0331 ms (0.0444-0.0447), 1.3x its
+// issue floor at 6.17 SASS instructions a test; 8 bits 0.0101-0.0102
+// (0.0129-0.0130); 1 bit 0.0035 in five runs of five (0.0036-0.0037).
+// Dropped: B11's 5 x 16 shuffles (32 bits 0.0320-0.0323, 1 bit
+// 0.0038-0.0042: above the replaced kernel), all row blocks staged (no
+// faster at 32 bits), the origins loaded before the staging barrier (1%
+// faster at 32 bits only), one float4 origin load a ray (1 bit 0.0038).
+// ptxas: 100 registers, 12,288 bytes of shared memory, no spill
+// (replaced: 80, 36,864).
+
+// One step of the warp's exchange of K rays' minima m[0 .. K-1]: the lanes
+// with bit d set keep rays K/2 .. K-1 (moved to m[0 .. K/2-1]), the others
+// rays 0 .. K/2-1, each taking the minimum of its own and lane (l ^ d)'s.
+template <int K>
+__device__ __forceinline__ void min_halve(float* m, int lane, int d) {
+  const bool upper = (lane & d) != 0;
+#pragma unroll
+  for (int i = 0; i < K / 2; ++i) {
+    const float send = upper ? m[i] : m[i + K / 2];
+    const float keep = upper ? m[i + K / 2] : m[i];
+    m[i] = fminf(keep, __shfl_xor_sync(0xffffffffu, send, d));
+  }
+}
+
+__global__ void __launch_bounds__(kCondThreads)
 kb_ctz_kernel(const float* __restrict__ rcol, const float* __restrict__ tri,
               uint32_t word, float* __restrict__ out) {
-  __shared__ float s[kBlocks][kRows][kThreads];
-  stage_table(tri, s);
-  __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const float ox = rcol[8 * i], oy = rcol[8 * i + 1], oz = rcol[8 * i + 2];
-  float t_best = kMiss;
-  for (uint32_t bits = word; bits != 0u; bits &= bits - 1u) {
-    const int c = __ffs((int)bits) - 1;
-    t_best = fminf(t_best, cond_leaf(s[c % kBlocks], ox, oy, oz));
+  constexpr int R = kCondRays;
+  static_assert(R == 16, "min_halve's steps are written for 16 rays a warp");
+  __shared__ __align__(16) float s[kBlocks][3][kThreads];
+  const uint32_t used = (word | word >> 8 | word >> 16 | word >> 24) & 0xffu;
+#pragma unroll
+  for (int q = 0; q < kBlocks * 3 * kThreads / kCondThreads; ++q) {
+    const int row = q * (kCondThreads / kThreads) + threadIdx.x / kThreads;
+    const int k = threadIdx.x % kThreads;
+    if ((used >> (row / 3)) & 1u)
+      s[row / 3][row % 3][k] = tri[(row / 3 * kBlockStride + row % 3) * kThreads + k];
   }
-  out[i] = t_best;
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const int64_t first = (int64_t)blockIdx.x * kCondSpan + threadIdx.x / 32 * R;
+  float ox[R], oy[R], oz[R], m[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float* row = rcol + 8 * (first + r);
+    ox[r] = row[0];
+    oy[r] = row[1];
+    oz[r] = row[2];
+    m[r] = kMiss;
+  }
+  for (uint32_t bits = word; bits != 0u; bits &= bits - 1u) {
+    const int b = (__ffs((int)bits) - 1) & (kBlocks - 1);
+    const float4 x = reinterpret_cast<const float4*>(s[b][0])[lane];
+    const float4 y = reinterpret_cast<const float4*>(s[b][1])[lane];
+    const float4 z = reinterpret_cast<const float4*>(s[b][2])[lane];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      m[r] = fminf(m[r], (x.x - ox[r]) * (y.x - oy[r]) * (z.x - oz[r]));
+      m[r] = fminf(m[r], (x.y - ox[r]) * (y.y - oy[r]) * (z.y - oz[r]));
+      m[r] = fminf(m[r], (x.z - ox[r]) * (y.z - oy[r]) * (z.z - oz[r]));
+      m[r] = fminf(m[r], (x.w - ox[r]) * (y.w - oy[r]) * (z.w - oz[r]));
+    }
+  }
+  float mine = kMiss;
+  if (word != 0u) {
+    min_halve<16>(m, lane, 16);
+    min_halve<8>(m, lane, 8);
+    min_halve<4>(m, lane, 4);
+    min_halve<2>(m, lane, 2);
+    mine = fminf(m[0], __shfl_xor_sync(0xffffffffu, m[0], 1));
+  }
+  // lanes 2 r and 2 r + 1 hold ray r's minimum
+  if (lane % 2 == 0) out[first + lane / 2] = mine;
 }
 
 inline unsigned int n_tiles(int64_t n) { return (unsigned int)(n / kThreads); }
@@ -392,7 +516,7 @@ int pr_kb_leaf(const void* rcol, const void* tri, int64_t n, int n_leaves,
 
 int pr_kb_extract(const void* rcol, int64_t n, int n_ext, void* out,
                   void* stream) {
-  kb_extract_kernel<<<n_tiles(n), kThreads, 0, (cudaStream_t)stream>>>(
+  kb_extract_kernel<<<n_tiles(n), 32, 0, (cudaStream_t)stream>>>(
       (const float*)rcol, n_ext, (float*)out);
   return (int)cudaGetLastError();
 }
@@ -406,7 +530,7 @@ int pr_kb_cond(const void* rcol, const void* tri, int64_t n, int n_conds,
 
 int pr_kb_ctz(const void* rcol, const void* tri, int64_t n, uint32_t word,
               void* out, void* stream) {
-  kb_ctz_kernel<<<n_tiles(n), kThreads, 0, (cudaStream_t)stream>>>(
+  kb_ctz_kernel<<<(unsigned int)(n / kCondSpan), kCondThreads, 0, (cudaStream_t)stream>>>(
       (const float*)rcol, (const float*)tri, word, (float*)out);
   return (int)cudaGetLastError();
 }

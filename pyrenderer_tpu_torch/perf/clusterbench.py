@@ -57,15 +57,20 @@ wrappers' results to DIR/whole.pt.
 
 ``kernels probes`` times the four probe kernels B9-B12 (csrc/kernelbench.cu,
 perf/kernelbench.py) through their wrappers at every parameter of the
-harness's lists at 256 tiles of 128 rays, each with its bound, and the SM
-clock that nvidia-smi reads meanwhile; it prints the ptxas report of the
-probe kernels, saves the library's SASS to DIR/probes.sass and prints
-each probe loop's instructions a test (sass_loops). With --parity it runs
-every probe on probe_sets (the harness's operands at 256, 1, 3 and 300
-tiles, the same at 2 tiles in rows that start 4 bytes past a 16-byte
-boundary, and the edge sets of probe_edges at PROBE_COUNTS), holds each
-output's bits against its twin's and saves the operands and the outputs
-to DIR/probes.pt.
+harness's lists at 256 tiles of 128 rays, each with its bound, its floor
+(probe_floor) and the SM clock that nvidia-smi reads meanwhile; it prints
+the ptxas report of the probe kernels, saves the library's SASS to
+DIR/probes.sass, prints each probe loop's instructions a test
+(sass_loops), and measures the latency of each instruction class on a
+reduction's chain with perf/latency.cu (built on its own; latency_report),
+from which the extract's latency floor is read off its round's SASS
+(round_cycles). With --parity it runs every probe on probe_sets (the
+harness's operands at 256, 1, 3 and 300 tiles, the same at 2 tiles in
+rows that start 4 bytes past a 16-byte boundary, and the edge sets of
+probe_edges at PROBE_COUNTS; on every set the extract also at
+PROBE_COUNTS and the ctz at PROBE_WORDS), holds each output's bits
+against its twin's and saves the operands and the outputs to
+DIR/probes.pt.
 
 The kernels are driven only through names an older checkout of the port
 has too (kernels/cluster.py _check_cuda_args, _prepare, _sc_order,
@@ -1319,6 +1324,9 @@ PROBE_VERTEX = 45
 PROBE_TILES = (1, 3, 300)
 # the loop counts of the edge checks: none, one, and one either side of 8
 PROBE_COUNTS = (0, 1, 7, 9)
+# the ctz words of the parity checks besides the harness's: none, bit 31
+# alone and with bit 0 (the kernel's __ffs takes an int)
+PROBE_WORDS = (0, 0x1, 0xF0F0, 0x80000000, 0x80000001, -1)
 
 
 def _aim_probe(r, t, rays, cols):
@@ -1369,8 +1377,10 @@ def probe_edges(n_tiles: int = 2, device="cpu"):
 
 # fp32 multiplies of one test in the SASS of each probe's loop: the leaf's
 # Moeller-Trumbore (c 6, det 3, q 6, three dots 9, t u v 3), the cond's
-# product (2); tests in a loop = its FMULs over these
-PROBE_FMULS = {"kb_leaf_kernel": 27, "kb_cond_kernel": 2, "kb_ctz_kernel": 2}
+# and the ctz's product (2), the extract's round (max * 1e-20: its "test"
+# is a round); tests in a loop = its FMULs over these
+PROBE_FMULS = {"kb_leaf_kernel": 27, "kb_extract_kernel": 1, "kb_cond_kernel": 2,
+               "kb_ctz_kernel": 2}
 
 
 def offset_rows(rcol):
@@ -1398,15 +1408,21 @@ def probe_sets(dev):
 
 def probe_params(label):
     """(probe, parameter) pairs run on a set: the harness's lists, and on
-    the edge sets PROBE_COUNTS for the leaf and the cond (taken or not)."""
+    the edge sets PROBE_COUNTS for the leaf and the cond (taken or not).
+    On every parity set (any label but "harness", the timing list) the
+    extract also runs at PROBE_COUNTS and the ctz at PROBE_WORDS."""
     from pyrenderer_tpu_torch.perf import kernelbench as kb
 
     edge = label in PROBE_EDGES
     leaves = PROBE_COUNTS if edge else kb.LEAF_L
     conds = PROBE_COUNTS if edge else kb.COND_N
-    return ([("leaf", x) for x in leaves] + [("extract", x) for x in kb.EXTRACT_K]
+    exts, words = list(kb.EXTRACT_K), [w for w, _ in kb.CTZ_WORDS]
+    if label != "harness":
+        exts += [x for x in PROBE_COUNTS if x not in exts]
+        words += [w for w in PROBE_WORDS if w not in words]
+    return ([("leaf", x) for x in leaves] + [("extract", x) for x in exts]
             + [("cond", (x, t)) for x in conds for t in (False, True)]
-            + [("ctz", w) for w, _ in kb.CTZ_WORDS])
+            + [("ctz", w) for w in words])
 
 
 def probe_call(kb, rcol, tri, probe, param):
@@ -1497,7 +1513,7 @@ def sass_loops(text):
     {"instructions", "tests" (its FMULs over PROBE_FMULS), "slow" (instructions in ranges
     that a forward branch skips and that hold a CALL: the IEEE
     reciprocal's slow path), "per_test", "per_test_fast" (without them),
-    "ops" (opcode counts)}."""
+    "ops" (opcode counts), "body" (the loop's instructions, in order)}."""
     out = {}
     for fname, ins in _sass_functions(text).items():
         m = re.search(r"kb_[a-z_]+?_kernel", fname)
@@ -1533,7 +1549,8 @@ def sass_loops(text):
         tests = max(ops.get("FMUL", 0) // per, 1)
         out[tag] = {"instructions": len(best), "tests": tests, "slow": slow,
                     "per_test": len(best) / tests, "per_test_fast": (len(best) - slow) / tests,
-                    "ops": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+                    "ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+                    "body": [x for _, x, _ in best]}
     return out
 
 
@@ -1562,6 +1579,213 @@ def sass_dump(lib_path):
     if proc.returncode != 0:
         raise RuntimeError(f"cuobjdump failed ({proc.returncode}): {proc.stderr.strip()[:300]}")
     return proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# the extract probe's latency floor (PERF.md section 2): each instruction's
+# latency on the card (perf/latency.cu, one warp, clock64 around a chain of
+# LATENCY_CHAIN dependent instructions) and a round's dependent chain read
+# off the probe loop's SASS (round_cycles)
+# ---------------------------------------------------------------------------
+
+LATENCY_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "latency.cu")
+LATENCY_CHAIN = 256
+# perf/latency.cu's kinds, in the order of its kind argument
+LATENCY_KINDS = ("fadd", "fmul", "fadd+fmax", "shfl", "redux", "key", "lds", "sts+lds", "bar")
+# the opcode class each chain's cycles solve for, in order: every other
+# class on a chain is solved by an earlier one ("INT": every integer or
+# move instruction, the key map's shr/or/xor and REDUX's move back)
+LATENCY_SOLVE = (("key", "INT"), ("fadd", "FADD"), ("fmul", "FMUL"), ("shfl", "SHFL"),
+                 ("lds", "LDS"), ("fadd+fmax", "FMNMX"), ("redux", "REDUX"),
+                 ("sts+lds", "STS"), ("bar", "BAR"))
+LATENCY_CLASSES = tuple(cls for _, cls in LATENCY_SOLVE if cls != "INT")
+
+
+def latency_class(text):
+    """The latency class of a SASS instruction: its opcode for the classes
+    the chains measure, "INT" for any other."""
+    op = _op(text).split(".")[0]
+    return op if op in LATENCY_CLASSES else "INT"
+
+
+def latency_library():
+    """perf/latency.cu built on its own (nvcc, the kernels' flags) into the
+    kernels' build directory; returns its path."""
+    import hashlib
+
+    from pyrenderer_tpu_torch.kernels import build
+
+    with open(LATENCY_SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(build.NVCC_FLAGS).encode()).hexdigest()
+    out = os.path.join(str(build.BUILD_DIR), f"liblatency_{digest[:16]}.so")
+    if not os.path.exists(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.{os.getpid()}"
+        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-shared", "-o", tmp, LATENCY_SOURCE]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on perf/latency.cu:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+def chain_cycles(dev, reps=5):
+    """{kind: cycles} of each LATENCY_KINDS chain on the card, the least of
+    `reps` launches (one warp; each launch's second pass)."""
+    import ctypes
+
+    lib = ctypes.CDLL(latency_library())
+    p = ctypes.c_void_p
+    lib.pr_latency.argtypes = [ctypes.c_int, p, p, p, p]
+    lib.pr_latency.restype = ctypes.c_int
+    # x = 1, y = 1 (adds grow x by 1, products keep it), z = 0.5
+    inp = torch.tensor([1.0] * 64 + [0.5] * 32, dtype=torch.float32, device=dev)
+    out = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.empty(32, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    result = {}
+    for kind, name in enumerate(LATENCY_KINDS):
+        best = None
+        for _ in range(reps):
+            err = lib.pr_latency(kind, inp.data_ptr(), out.data_ptr(), sink.data_ptr(), stream)
+            if err != 0:
+                raise RuntimeError(f"pr_latency({name}) failed with cudaError_t {err}")
+            torch.cuda.synchronize(dev)
+            c = int(out.item())
+            best = c if best is None else min(best, c)
+        result[name] = best
+    return result
+
+
+def chain_ops(text):
+    """{kind: {class: count}} of each latency chain in a cuobjdump -sass dump
+    of the latency library: the instructions of the chain's timed loop that
+    occur LATENCY_CHAIN times or more, by latency class."""
+    out = {}
+    for fname, ins in _sass_functions(text).items():
+        m = re.search(r"lat_kernelILi(\d+)E", fname)
+        if not m:
+            continue
+        index = {addr: k for k, (addr, _, _) in enumerate(ins)}
+        loops = [ins[index[tgt]:k + 1] for k, (addr, _, tgt) in enumerate(ins)
+                 if tgt is not None and tgt <= addr and tgt in index]
+        counts = {}
+        for _, x, _ in max(loops, key=len) if loops else ():
+            op = _op(x)
+            counts[op] = counts.get(op, 0) + 1
+        classes = {}
+        for op, n in counts.items():
+            if n >= LATENCY_CHAIN:
+                cls = latency_class(op)
+                classes[cls] = classes.get(cls, 0) + n
+        out[LATENCY_KINDS[int(m.group(1))]] = classes
+    return out
+
+
+def chain_latencies(cycles, ops):
+    """{class: cycles} of each latency class: LATENCY_SOLVE in order, each
+    chain's cycles less its instructions of classes already known, over
+    its instructions of the class it solves."""
+    lat = {}
+    for kind, cls in LATENCY_SOLVE:
+        chain = ops.get(kind, {})
+        if chain.get(cls, 0) == 0 or any(c not in lat for c in chain if c != cls):
+            raise RuntimeError(f"latency chain {kind}: cannot solve for {cls} from the "
+                               f"instructions {chain}")
+        known = sum(lat[c] * n for c, n in chain.items() if c != cls)
+        lat[cls] = (cycles[kind] - known) / chain[cls]
+    return lat
+
+
+_NO_DEST = ("ST", "STS", "STG", "STL", "RED", "BAR", "BRA", "EXIT", "NOP", "WARPSYNC", "BSSY",
+            "BSYNC", "DEPBAR", "MEMBAR", "CALL", "RET", "YIELD")
+
+
+def _operand_regs(operand, width=1):
+    """The registers an operand names (R, UR, P, UP; RZ and PT are none);
+    a destination of a .64 or .128 instruction spans 2 or 4 registers."""
+    regs = []
+    for kind, num in re.findall(r"\b(U?R|U?P)(\d+)\b", operand):
+        regs += [f"{kind}{int(num) + k}" for k in range(width if kind.endswith("R") else 1)]
+    return regs
+
+
+def sass_deps(text):
+    """(destinations, sources) of a SASS instruction, as register names."""
+    m = re.match(r"^@!?(U?P\w+)\s+", text)
+    srcs = [m.group(1)] if m else []
+    body = text[m.end():] if m else text
+    op, _, rest = body.partition(" ")
+    operands = [x.strip() for x in rest.split(",")] if rest.strip() else []
+    base = op.split(".")[0]
+    width = 4 if ".128" in op else 2 if ".64" in op else 1
+    if base in _NO_DEST or not operands:
+        n_dest = 0
+    elif base == "SHFL":
+        n_dest = 2
+    else:
+        # the first operand, and the predicates that follow it (ISETP's
+        # second, IADD3's carry)
+        n_dest = 1
+        while n_dest < len(operands) and re.fullmatch(r"U?P(\d|T)", operands[n_dest]):
+            n_dest += 1
+    dests = [r for x in operands[:n_dest] for r in _operand_regs(x, width)]
+    srcs += [r for x in operands[n_dest:] for r in _operand_regs(x)]
+    return dests, srcs
+
+
+def round_cycles(body, lat, rounds=8):
+    """Cycles a trip of a loop takes on one warp: the SASS `body` issued in
+    order, one instruction a cycle at most, each when its sources are
+    ready; a result is ready its class's latency (lat, chain_latencies)
+    after issue; a BAR issues after the shared stores before it complete,
+    and nothing issues before the BAR's latency has passed. The steady
+    state of `rounds` trips (the mean of the later half): the floor of a
+    loop whose trips form one dependent chain."""
+    ready, t, stores, released, finish = {}, -1, 0, 0, []
+    for _ in range(rounds):
+        end = 0
+        for text in body:
+            cls = latency_class(text)
+            dests, srcs = sass_deps(text)
+            issue = max([t + 1, released] + [ready.get(r, 0) for r in srcs])
+            if cls == "BAR":
+                issue = max(issue, stores)
+                released = issue + lat["BAR"]
+            elif cls == "STS":
+                stores = max(stores, issue + lat["STS"])
+            t = issue
+            for r in dests:
+                ready[r] = issue + lat[cls]
+                end = max(end, ready[r])
+        finish.append(max(end, t + 1, released))
+    half = rounds // 2
+    return (finish[-1] - finish[half - 1]) / (rounds - half)
+
+
+def extract_floor(loops, lat, n_ext, clock_mhz):
+    """(ms, cycles a round) of the extract probe's latency floor at n_ext
+    rounds: n_ext x round_cycles of its loop in the SASS (sass_loops; a
+    trip of an unrolled loop runs its "tests" rounds) at the SM clock
+    clock_mhz."""
+    loop = loops["kb_extract_kernel"]
+    cyc = round_cycles(loop["body"], lat) / loop["tests"]
+    return n_ext * cyc / (clock_mhz * 1e6) * 1e3, cyc
+
+
+def latency_report(dev):
+    """(lat, lines): chain_latencies on this card and one line per class;
+    builds and disassembles perf/latency.cu."""
+    cycles = chain_cycles(dev)
+    ops = chain_ops(sass_dump(latency_library()))
+    lat = chain_latencies(cycles, ops)
+    lines = [f"latency {kind}: {cycles[kind]} cycles for {LATENCY_CHAIN} steps of "
+             + " + ".join(f"{n // LATENCY_CHAIN} {c}" for c, n in ops[kind].items())
+             for kind in LATENCY_KINDS]
+    lines.append("latency per instruction (cycles, one warp): "
+                 + ", ".join(f"{cls} {v:.2f}" for cls, v in lat.items()))
+    return lat, lines
 
 
 def _bits(x):
@@ -1618,6 +1842,24 @@ def compare_probes(a, b):
     return same
 
 
+def probe_floor(loops, lat, probe, param, n, clock_mhz):
+    """(ms or None, text) of one probe call's floor at the SM clock
+    clock_mhz: the extract's latency floor (extract_floor), the others'
+    issue floor (tests x the SASS instructions a test of their loop on the
+    fast path over 132 SMs x 128 lanes x the clock)."""
+    loop = loops.get(f"kb_{probe}_kernel")
+    if clock_mhz is None or loop is None:
+        return None, "no floor (no SM clock or no loop in the SASS)"
+    if probe == "extract":
+        ms, cyc = extract_floor(loops, lat, param, clock_mhz)
+        return ms, (f"latency floor {ms:.6f} ms ({cyc:.1f} cycles a round, {loop['per_test']:.1f} "
+                    f"SASS instructions a round, at {clock_mhz:.0f} MHz)")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms = probe_tests(probe, param, n) * loop["per_test_fast"] / (sms * 128 * clock_mhz * 1e6) * 1e3
+    return ms, (f"issue floor {ms:.6f} ms ({loop['per_test_fast']:.2f} SASS instructions a test "
+                f"at {clock_mhz:.0f} MHz)")
+
+
 def cmd_probes(args) -> int:
     """``kernels probes``: B9-B12 at every parameter of the harness's lists
     at 256 tiles, through their wrappers, from CUDA graphs in turns; ptxas
@@ -1642,6 +1884,10 @@ def cmd_probes(args) -> int:
         fh.write(sass)
     for line in sass_loop_report(sass):
         print(line, flush=True)
+    loops = sass_loops(sass)
+    lat, lines = latency_report(dev)
+    for line in lines:
+        print(line, flush=True)
     rcol, tri = kb.inputs(kb.N_TILES, dev)
     n = rcol.shape[0]
     cases = {(probe, param): probe_call(kb, rcol, tri, probe, param)
@@ -1657,24 +1903,29 @@ def cmd_probes(args) -> int:
         sampler.terminate()
     clocks = np.array([[float(x) for x in line.split(",")]
                        for line in sampler.communicate()[0].splitlines() if "," in line])
+    clock = None
     if clocks.size:
+        clock = clocks[0, 1]
         print(f"SM clock while timing (nvidia-smi every 100 ms, {len(clocks)} readings): median "
               f"{np.median(clocks[:, 0]):.0f} MHz, min {clocks[:, 0].min():.0f}, max "
-              f"{clocks[:, 0].max():.0f}; the card's maximum {clocks[0, 1]:.0f} MHz", flush=True)
+              f"{clocks[:, 0].max():.0f}; the card's maximum {clock:.0f} MHz", flush=True)
     result = {}
     for (probe, param), ms in times.items():
         value = float(np.median(ms))
         b = probe_bound(probe, param, n)
-        result.setdefault(probe, {})[str(param)] = {"wrapper": value, "bound_ms": b[0]}
+        floor, note = probe_floor(loops, lat, probe, param, n, clock)
+        result.setdefault(probe, {})[str(param)] = {"wrapper": value, "bound_ms": b[0],
+                                                    "floor_ms": floor}
         print(f"probe {probe} {param} wrapper: {value:.4f} ms (median of {len(ms)} graph "
-              f"replays of {REPS} calls; bound {b[0]:.6f} ms ({b[1]}); {n} rays; {card})",
-              flush=True)
+              f"replays of {REPS} calls; bound {b[0]:.6f} ms ({b[1]}); {note}; {n} rays; "
+              f"{card})", flush=True)
     bad = None
     if args.parity:
         bad, _ = probe_parity(kb, probe_sets(dev), args.out)
         print(f"probe parity: {bad} cases differ from the twins", flush=True)
     print(json.dumps({"package": package, "card": card, "device": torch.cuda.get_device_name(0),
-                      "probes": result, "parity_cases_differing": bad}))
+                      "probes": result, "latency_cycles": lat, "sm_clock_max_mhz": clock,
+                      "parity_cases_differing": bad}))
     return 0
 
 

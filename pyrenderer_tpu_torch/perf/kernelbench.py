@@ -8,8 +8,8 @@ kernel in csrc/kernelbench.cu:
 
   leaf     L unconditional Moeller-Trumbore leaves of 128 rays x 128
            triangles per tile: the speed of light of leaf work
-  extract  K dependent block-wide reductions per tile (the TPU's vector ->
-           scalar move)
+  extract  K dependent reductions of each 128-ray tile's values (the TPU's
+           vector -> scalar move)
   cond     N uniform branches per tile over one conditional leaf each,
            always taken or never taken
   ctz      a loop over the set bits of a 32-bit word, one conditional leaf
@@ -77,6 +77,22 @@ def set_bits(word: int):
         out.append((bits & -bits).bit_length() - 1)
         bits &= bits - 1
     return out
+
+
+def ordered_key(x):
+    """NumPy mirror of csrc/kernelbench.cu ordered_key: float32 values to
+    uint32 keys in the same order (every bit of a negative value flipped,
+    the sign bit of a non-negative one set; -0 below +0), for non-NaN
+    values. The extract kernel reduces these keys with one REDUX."""
+    b = np.asarray(x, np.float32).view(np.uint32)
+    return b ^ ((b.view(np.int32) >> 31).view(np.uint32) | np.uint32(0x80000000))
+
+
+def ordered_value(key):
+    """The inverse of ordered_key: uint32 keys back to float32 values."""
+    k = np.asarray(key, np.uint32)
+    return (k ^ (((~k).view(np.int32) >> 31).view(np.uint32) | np.uint32(0x80000000))
+            ).view(np.float32)
 
 
 # ---------------------------------------------------------------------------

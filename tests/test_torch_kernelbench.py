@@ -351,8 +351,10 @@ def test_probe_kernels_match_twins_on_gpu(tmp_path):
     """On a CUDA device: each probe kernel's output has its twin's bits on
     every parameter of the harness's lists at 256 tiles, 1, 3 and 300
     tiles (N = 128, 384, 38,400), at 2 tiles in rows 4 bytes past a
-    16-byte boundary, and on the edge sets at 0, 1, 7 and 9 (run on the
-    card with `python -m pytest tests/test_torch_kernelbench.py -m cuda`)."""
+    16-byte boundary, and on the edge sets at 0, 1, 7 and 9; on every set
+    the extract also at K of 0, 1, 7 and 9 and the ctz at words 0,
+    0x80000000 and 0x80000001 (run on the card with `python -m pytest
+    tests/test_torch_kernelbench.py -m cuda`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     bad, _ = cb.probe_parity(kb, cb.probe_sets(torch.device("cuda:0")), tmp_path)
@@ -428,6 +430,209 @@ def test_probe_sets_and_parameters():
     assert cb.probe_bound("leaf", 64, 32768) == (32768 * 64 * 128 * 60 / 67e12 * 1e3,
                                                  "operations")
     assert cb.probe_bound("cond", (64, False), 32768)[1] == "bytes"
+    # every parity set also holds the extract at the edge counts and the
+    # ctz at bit 31 and word 0; the timing list stays the harness's
+    for params in (harness, edge, cb.probe_params("256 rays, offset rows")):
+        assert sorted(x for p, x in params if p == "extract") == [0, 1, 7, 8, 9, 32, 128]
+        assert [x for p, x in params if p == "ctz"] == [0x1, 0xF0F0, -1, 0, 0x80000000,
+                                                      0x80000001]
+    timing = cb.probe_params("harness")
+    assert [x for p, x in timing if p == "extract"] == list(kb.EXTRACT_K)
+    assert [x for p, x in timing if p == "ctz"] == [w for w, _ in kb.CTZ_WORDS]
+
+
+# ---------------------------------------------------------------------------
+# the extract (B10) and ctz (B12) kernels' orders, and their edge checks
+# against the JAX package
+# ---------------------------------------------------------------------------
+
+def _jax_word(word):
+    """A 32-bit word as the JAX kernel takes it (jnp.int32(word)): bit 31
+    as the sign."""
+    word &= 0xFFFFFFFF
+    return word - (1 << 32) if word >= 1 << 31 else word
+
+
+@pytest.mark.parametrize("word", cb.PROBE_WORDS)
+@pytest.mark.parametrize("label", EDGE_LABELS)
+def test_ctz_twin_equals_pallas_on_edges(edge_sets, label, word):
+    """ctz_ref equals _ctz_kernel in interpret mode bit for bit on the edge
+    sets at word 0, bit 0, the harness's 8 bits, bit 31 alone and with bit
+    0, and all 32 bits (a product has no multiply-add for XLA:CPU to
+    contract, so no tolerance is needed)."""
+    rcol, tri = edge_sets[label]
+    ref = _pallas(partial(kb_jax._ctz_kernel, _jax_word(word)), rcol, tri)
+    out = kb.ctz_ref(rcol, tri, word).numpy()
+    np.testing.assert_array_equal(out.view(np.int32), ref.view(np.int32))
+    assert (out == np.float32(kb.MISS)).all() == (word == 0)
+    if label == "origin on a vertex" and word:
+        assert (out[::2] == 0).all()
+
+
+@pytest.mark.parametrize("n_ext", cb.PROBE_COUNTS)
+@pytest.mark.parametrize("label", EDGE_LABELS)
+def test_extract_twin_equals_pallas_on_edges(edge_sets, label, n_ext):
+    """extract_ref equals the float32 NumPy evaluation of _extract_kernel
+    bit for bit and interpret mode to rtol 1e-3 (XLA:CPU contracts acc +
+    s * 1e-20 into an FMA) on the edge sets at K of 0, 1, 7 and 9."""
+    rcol, _ = edge_sets[label]
+    ref = _pallas(partial(kb_jax._extract_kernel, n_ext), rcol)
+    out = kb.extract_ref(rcol, n_ext).numpy()
+    np.testing.assert_array_equal(out, _extract_np(rcol, n_ext))
+    np.testing.assert_allclose(out, ref, rtol=1e-3, atol=0)
+    assert (out > 0).all() == (n_ext > 0)
+
+
+# A model of the ctz kernel's lanes over triangles: lane l keeps a running
+# minimum of triangles 4 l .. 4 l + 3 of each set bit's row block, lowest
+# bit first; the lanes' minima meet in a butterfly (lane l takes the min of
+# its own and lane l ^ d's at d = 16, 8, 4, 2, 1), and ray r of a warp's R
+# reads lane 32 / R * r (min_halve: lanes 2 r and 2 r + 1 at R = 16).
+
+def _ctz_lanes(rcol, tri, word, rays=16):
+    n = rcol.shape[0]
+    o = [rcol[:, c:c + 1] for c in range(3)]
+    best = torch.full((n, 32), kb.MISS, dtype=rcol.dtype)
+    for c in kb.set_bits(word):
+        blk = kb._block(tri, c)
+        p = ((blk[0] - o[0]) * (blk[1] - o[1]) * (blk[2] - o[2])).view(-1, 32, 4)
+        for k in range(4):
+            best = torch.minimum(best, p[:, :, k])
+    if word & 0xFFFFFFFF:
+        lanes = torch.arange(32)
+        for d in (16, 8, 4, 2, 1):
+            best = torch.minimum(best, best[:, lanes ^ d])
+    lane = 32 // rays * (torch.arange(n) % rays)
+    return best[torch.arange(n), lane].unsqueeze(1)
+
+
+@pytest.mark.parametrize("word", cb.PROBE_WORDS)
+@pytest.mark.parametrize("label", EDGE_LABELS)
+def test_ctz_lane_split_equals_twin(edge_sets, label, word):
+    """The ctz kernel's order (lanes over triangles, 16 rays a warp, the
+    lowest bit first, the lanes' exchange) gives ctz_ref's bits, +0 and -0
+    told apart, on every edge set and word."""
+    rcol, tri = edge_sets[label]
+    ref = kb.ctz_ref(rcol, tri, word)
+    for rays in (16, 32):
+        out = _ctz_lanes(rcol, tri, word, rays)
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+# A model of the extract kernel's grouping: lane l of warp w holds float4s
+# w * 32 Q + l + 32 q (q < Q) of the tile's 1,024 floats, 4 Q values; a
+# round adds acc to each, reduces them with the kernel's max tree (t[k] =
+# max(t[k], t[k + h]), h halving), then across the warp (one REDUX on the
+# ordered keys, or a butterfly of shuffles), then across the tile's warps
+# in order, and adds max * 1e-20 to acc.
+
+def _extract_lanes(rcol, n_ext, per_lane=32, cross="redux"):
+    r = rcol.numpy().reshape(-1, kb.RAY_TILE * 8)
+    warps, quads = r.shape[1] // (32 * per_lane), per_lane // 4
+    w, lane, q, c = np.meshgrid(range(warps), range(32), range(quads), range(4),
+                                indexing="ij")
+    idx = (4 * (w * 32 * quads + lane + 32 * q) + c).reshape(warps, 32, per_lane)
+    vals = r[:, idx]                                      # (tiles, warps, 32, per_lane)
+    lanes = np.arange(32)
+    acc = np.zeros(r.shape[0], np.float32)
+    for _ in range(n_ext):
+        t = vals + acc[:, None, None, None]
+        h = per_lane // 2
+        while h:
+            t = np.maximum(t[..., :h], t[..., h:2 * h])
+            h //= 2
+        m = t[..., 0]                                     # (tiles, warps, 32)
+        if cross == "redux":
+            m = kb.ordered_value(kb.ordered_key(m).max(axis=2))
+        else:
+            for d in (16, 8, 4, 2, 1):
+                m = np.maximum(m, m[..., lanes ^ d])
+            m = m[..., 0]
+        s = m[:, 0]
+        for u in range(1, warps):
+            s = np.maximum(s, m[:, u])
+        acc = acc + s * np.float32(1e-20)
+    return np.repeat(acc[:, None], kb.RAY_TILE, axis=0)
+
+
+@pytest.mark.parametrize("n_ext", sorted(set(cb.PROBE_COUNTS) | set(kb.EXTRACT_K)))
+@pytest.mark.parametrize("label", EDGE_LABELS)
+def test_extract_lane_split_equals_twin(edge_sets, label, n_ext):
+    """The extract kernel's grouping (32 values a lane, or 16 in two warps a
+    tile) with either cross-lane step gives extract_ref's bits on every
+    edge set at every K of PROBE_COUNTS and of the harness's list."""
+    rcol, _ = edge_sets[label]
+    ref = kb.extract_ref(rcol, n_ext).numpy().view(np.int32)
+    for per_lane in (32, 16):
+        for cross in ("redux", "shuffle"):
+            out = _extract_lanes(rcol, n_ext, per_lane, cross)
+            np.testing.assert_array_equal(out.view(np.int32), ref)
+
+
+def test_ordered_key_is_monotone_and_round_trips(edge_sets):
+    """ordered_key (the NumPy mirror of the extract kernel's map) is a
+    bijection that sorts like the floats, -0 below +0, on +-0, +-subnormals,
+    +-normals, +-inf and every value of the edge sets."""
+    tiny = np.finfo(np.float32).tiny
+    special = np.array([0.0, 1e-45, tiny / 2, tiny, 1.0, np.finfo(np.float32).max, np.inf],
+                       np.float32)
+    vals = np.concatenate([special, -special] + [x.numpy().ravel() for r, t in
+                                                  edge_sets.values() for x in (r, t)])
+    keys = kb.ordered_key(vals)
+    assert keys.dtype == np.uint32
+    np.testing.assert_array_equal(kb.ordered_value(keys).view(np.uint32), vals.view(np.uint32))
+    order = np.argsort(keys, kind="stable")
+    assert (np.diff(vals[order]) >= 0).all()
+    assert kb.ordered_key(np.float32(-0.0)) < kb.ordered_key(np.float32(0.0))
+    assert (np.diff(np.sort(kb.ordered_key(special))) > 0).all()
+
+
+_LAT = {"INT": 4, "FADD": 4, "FMUL": 4, "FMNMX": 4, "SHFL": 20, "REDUX": 30, "LDS": 30,
+        "STS": 10, "BAR": 20}
+
+
+def test_sass_deps_reads_destinations_and_sources():
+    assert cb.sass_deps("SHFL.BFLY PT, R6, R4, 0x10, 0x1f") == (["R6"], ["R4"])
+    assert cb.sass_deps("ISETP.NE.AND P0, PT, R11, RZ, PT") == (["P0"], ["R11"])
+    assert cb.sass_deps("LDS.64 R4, [R2+0x8]") == (["R4", "R5"], ["R2"])
+    assert cb.sass_deps("@!P0 BRA `(.L_x_0)") == ([], ["P0"])
+    assert cb.sass_deps("STS [R3], R4") == ([], ["R3", "R4"])
+    assert cb.sass_deps("REDUX.MAX UR4, R5") == (["UR4"], ["R5"])
+    assert cb.sass_deps("FMNMX R4, R4, -R6.reuse, !PT") == (["R4"], ["R4", "R6"])
+
+
+def test_round_cycles_follows_the_dependent_chain():
+    """round_cycles: a round of two adds, a max, a shuffle, a max, a
+    multiply and the add that feeds the next round (the loop's compare
+    issued first, as the compiler places it) is 4 + 1 + 4 + 20 + 4 + 4 + 4
+    cycles a round; a shared store, a barrier and a load after it add the
+    store's, the barrier's and the load's latencies."""
+    body = ["ISETP.NE.AND P0, PT, R11, RZ, PT", "FADD R4, R2, R10", "FADD R5, R3, R10",
+            "FMNMX R4, R4, R5, !PT", "SHFL.BFLY PT, R6, R4, 0x10, 0x1f",
+            "FMNMX R4, R4, R6, !PT", "FMUL R7, R4, 1.0000000200408773e-20",
+            "FADD R10, R10, R7", "@P0 BRA `(.L_x_0)"]
+    assert cb.round_cycles(body, _LAT) == 41
+    shared = body[:6] + ["STS [R12], R4", "BAR.SYNC.DEFER_BLOCKING 0x0", "LDS R4, [R12]"] + body[6:]
+    assert cb.round_cycles(shared, _LAT) == 41 + 10 + 20 + 30
+    loops = {"kb_extract_kernel": {"body": body, "tests": 1}}
+    ms, cyc = cb.extract_floor(loops, _LAT, 128, 2000)
+    assert cyc == 41 and ms == pytest.approx(128 * 41 / 2e9 * 1e3)
+    # a loop unrolled by two: two rounds a trip
+    loops = {"kb_extract_kernel": {"body": body[1:8] + body, "tests": 2}}
+    assert cb.extract_floor(loops, _LAT, 128, 2000)[1] == 41
+
+
+def test_chain_latencies_solve_each_class_in_order():
+    """chain_latencies takes each chain's cycles less its known
+    instructions' over its new class's count."""
+    ops = {"key": {"INT": 512}, "fadd": {"FADD": 256}, "fmul": {"FMUL": 256},
+           "shfl": {"SHFL": 256}, "lds": {"LDS": 256}, "fadd+fmax": {"FADD": 256, "FMNMX": 256},
+           "redux": {"REDUX": 256, "INT": 256}, "sts+lds": {"STS": 256, "LDS": 256},
+           "bar": {"BAR": 256}}
+    cycles = {k: sum(_LAT[c] * n for c, n in v.items()) for k, v in ops.items()}
+    assert cb.chain_latencies(cycles, ops) == pytest.approx(_LAT)
+    with pytest.raises(RuntimeError):
+        cb.chain_latencies(cycles, dict(ops, lds={}))
 
 
 @pytest.mark.parametrize("change", ["value", "sign of zero"])
