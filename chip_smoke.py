@@ -160,8 +160,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    both estimators, each within rtol 1e-5 of the same frame with the
    per-query sort, with the launches of phase 7, and all four Mrays/s.
 
+22. Gradients on the card: the sum of dist/render.render_field over every
+   pixel, differentiated by torch autograd w.r.t. vertices, albedo and
+   emission in float32: (a) Cornell, reference, 256x256, 4 spp, 4 bounces,
+   backend "cuda" (B1/B2); (b) Cornell, pbrt, 6 bounces (Russian roulette
+   from bounce 4), the reddest albedo grey as the example sets it; (c)
+   terrain8k (8,204 triangles), pbrt, 64x64, 2 spp, 4 bounces, backend
+   "cluster" (B3/B4). Each forward and backward is a counting window with
+   exactly spp x bounces launches of each kernel (one chunk), none in the
+   backward. Every gradient finite, the albedo's non-zero; (a) and (b)
+   against the same loss with backend "brute" on the card: images equal
+   bit for bit (the same hit decisions) and each gradient within relative
+   L2 1e-5; (c) against the CPU twins: at least 99.9% of the pixels'
+   radiance agrees (rtol 1e-4) and the albedo and emission gradients of
+   the whole loss are within relative L2 1e-3; printed beside them, the
+   same over the agreeing pixels only and the vertex entries' share
+   within rtol 1e-3 there.
+23. Training: examples/invrender.recover at its defaults (48x48, 4 spp,
+   3 bounces, 80 steps, albedo lr 30) on the card as one counting window
+   (81 fields x 12 launches of each whole-table kernel): the loss falls at
+   least 10x, the albedo's max error is below 0.05, vertices and emission
+   come back bit-identical; then one train_step at Cornell 1024x1024 (16
+   chunks of 2^16, 1 spp, 4 bounces, reference, all three parameters
+   trained; 64 launches of each kernel): its wall, the same step split
+   into each chunk's forward and backward (synchronised), the device's
+   idle share (torch.profiler's busy union against the unprofiled step;
+   the phase fails if the profiler sees no device event) and the peak
+   memory (torch.cuda.max_memory_allocated, with what the
+   step added to the memory allocated before it).
+
 Every main-path run above (the frames of phases 3, 7, 11, 14 and 17-21,
-the CLI runs, the bench rows and the harness) is a counting window: every
+the CLI runs, the bench rows, the harness and the gradient and training
+runs of phases 22-23) is a counting window: every
 wrapper's counts are zeroed just before it and read just after. The line
 before the last is a JSON object with one entry per kernel: its launches
 summed over those windows, its largest difference from the twin, its time
@@ -473,6 +503,7 @@ def main() -> int:
     entry_point_phases(dev, card)
     rounds = resume_phases(dev, card, ctx)
     accel_phases(dev, card, ctx)
+    gradient_phases(dev, card)
     for entries in (large, binned, probes, rounds):
         max_abs_err.update(entries["max_abs_err"])
         ms.update(entries["ms"])
@@ -1520,6 +1551,208 @@ ROUNDS = dict(CLUSTER, cluster_closest_hit=2, cluster_closest_suspend=1,
 BENCH_ROWS = (("cornell", "reference", WHOLE_TABLE, {}), ("cornell", "pbrt", WHOLE_TABLE, {}),
               ("spheres", "pbrt", WHOLE_TABLE, {}), ("terrain100k", "reference", CLUSTER, {}),
               ("terrain100k", "reference", ROUNDS, {"BENCH_ROUNDS": "2"}))
+
+
+PARAMS = ("vertices", "albedo", "emission")
+
+
+def field_graph(scene, cam, cfg, backend="auto", accel=None):
+    """(image, params): the radiance of every pixel of `cam` as a function
+    of fresh leaves (vertices, albedo, emission) that require grad, through
+    dist/render.render_field (backend "auto", the entry point a user calls)
+    or render_block with an explicit backend."""
+    from pyrenderer_tpu_torch.core.integrator import render_block
+    from pyrenderer_tpu_torch.dist.render import pixel_grid, render_field
+
+    params = [getattr(scene, k).detach().clone().requires_grad_() for k in PARAMS]
+    s = scene._replace(**dict(zip(PARAMS, params)))
+    px, py = pixel_grid(cam)
+    if backend == "auto":
+        return render_field(s, cam, cfg, px, py, accel=accel), params
+    return render_block(s, cam, cfg, cfg.seed, cfg.spp, px, py, backend=backend,
+                        accel=accel), params
+
+
+def grads_of(loss, params):
+    return torch.autograd.grad(loss, params, retain_graph=True, allow_unused=True,
+                               materialize_grads=True)
+
+
+def image_and_grads(scene, cam, cfg, backend="auto"):
+    """(image, gradients of its sum w.r.t. (vertices, albedo, emission))."""
+    img, params = field_graph(scene, cam, cfg, backend)
+    return img.detach(), grads_of(img.sum(), params)
+
+
+def rel_l2(a, b) -> float:
+    """|a - b| / |b| (L2); 0 when both are 0."""
+    num = float(torch.linalg.vector_norm((a - b).double()))
+    den = float(torch.linalg.vector_norm(b.double()))
+    return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+
+
+def check_grads(grads, label):
+    for k, g in zip(PARAMS, grads):
+        check(bool(torch.isfinite(g).all()), f"{label}: a {k} gradient is not finite")
+    check(float(grads[1].abs().sum()) > 0, f"{label}: the albedo gradient is zero")
+
+
+def gradient_phases(dev, card):
+    """Phases 22-23: gradients through the kernels on the card, then
+    training (the inverse-rendering example and one train_step's
+    timing)."""
+    from pyrenderer_tpu_torch.accel import clusters as cl
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.dist.render import CHUNK, pixel_grid, render_field, train_step
+    from pyrenderer_tpu_torch.examples import invrender
+    from pyrenderer_tpu_torch.perf.clusterbench import device_busy
+    from pyrenderer_tpu_torch.scene import load_tungsten, procgen, to_device
+    from pyrenderer_tpu_torch.scene.tungsten import build_scene
+
+    phase("22 gradients on the card: d(sum of the image)/d(vertices, albedo, emission)")
+    host, host_cam, _ = load_tungsten(SCENE)
+    grey = host.albedo.copy()
+    grey[int(np.argmax(grey[:, 0] - grey[:, 1]))] = [0.5, 0.5, 0.5]
+    cases = (("(a) Cornell, reference, 4 bounces", host,
+              RenderConfig(max_bounces=4, spp=4, seed=0, estimator="reference")),
+             ("(b) Cornell, pbrt, 6 bounces (Russian roulette), the reddest albedo grey",
+              host._replace(albedo=grey),
+              RenderConfig(max_bounces=6, spp=4, seed=0, estimator="pbrt")))
+    for label, h, cfg in cases:
+        scene, cam = to_device(h, host_cam._replace(resolution=(256, 256)), dev)
+        per = cfg.spp * cfg.max_bounces  # one chunk of 2^16 pixels
+        ((img_k, g_k), _), t_k = timed(lambda: counted(
+            lambda: image_and_grads(scene, cam, cfg),
+            f"{label}, 256x256, {cfg.spp} spp, backend cuda",
+            {"closest_hit": per, "occluded": per}))
+        (img_b, g_b), t_b = timed(lambda: image_and_grads(scene, cam, cfg, "brute"))
+        check_grads(g_k, label)
+        n_diff = int((img_k != img_b).any(dim=-1).sum())
+        rels = [rel_l2(a, b) for a, b in zip(g_k, g_b)]
+        print(f"{label}: forward+backward {t_k:.3f} s (kernels), {t_b:.3f} s (brute); "
+              f"pixels whose radiance differs from brute's: {n_diff}; relative L2 of the "
+              f"gradients against brute's (vertices, albedo, emission): "
+              + ", ".join(f"{r:.3g}" for r in rels) + f"; |g| "
+              + ", ".join(f"{float(torch.linalg.vector_norm(g)):.6g}" for g in g_k)
+              + f" ({card})", flush=True)
+        check(n_diff == 0, f"{label}: the kernels' image differs from brute's on {n_diff} "
+              "pixels (hit decisions differ)")
+        check(max(rels) <= 1e-5, f"{label}: gradients differ from brute's: {rels}")
+
+    label = "(c) terrain8k, pbrt, 4 bounces"
+    host8, cam8, _ = build_scene(procgen.big_scene_data("terrain", res=64))
+    cam64 = cam8._replace(resolution=(64, 64))
+    cfg = RenderConfig(max_bounces=4, spp=2, seed=0, estimator="pbrt")
+    check(host8.faces.shape[0] == 8204, f"terrain8k has {host8.faces.shape[0]} triangles")
+    cs = cl.build_clusters(host8.vertices, host8.faces)
+    per = cfg.spp * cfg.max_bounces
+    scene, cam = to_device(host8, cam64, dev)
+    (img_g, p_g), _ = counted(lambda: field_graph(scene, cam, cfg, accel=cs.to(dev)),
+                              f"{label}, 64x64, {cfg.spp} spp, backend cluster (forward)",
+                              {"cluster_closest_hit": per, "cluster_occluded": per})
+    g_g, _ = counted(lambda: grads_of(img_g.sum(), p_g), f"{label} (backward)", {})
+    check_grads(g_g, label)
+    t = time.perf_counter()
+    img_c, p_c = field_graph(*to_device(host8, cam64, "cpu"), cfg, accel=cs)
+    g_c = grads_of(img_c.sum(), p_c)
+    t_cpu = time.perf_counter() - t
+    keep = torch.isclose(img_g.detach().cpu(), img_c.detach(), rtol=1e-4, atol=1e-6).all(dim=-1)
+    g_gm = [g.cpu() for g in grads_of(img_g[keep.to(dev)].sum(), p_g)]
+    g_cm = grads_of(img_c[keep].sum(), p_c)
+    rel_all = [rel_l2(a.cpu(), b) for a, b in zip(g_g, g_c)]
+    rel_keep = [rel_l2(a, b) for a, b in zip(g_gm, g_cm)]
+    close = float(torch.isclose(g_gm[0], g_cm[0], rtol=1e-3, atol=0).float().mean())
+    print(f"{label}: CPU twins {t_cpu:.1f} s; {int(keep.sum())} of {keep.numel()} pixels agree "
+          f"with the CPU's (rtol 1e-4); relative L2 of the gradients against the CPU's "
+          f"(vertices, albedo, emission), every pixel: "
+          + ", ".join(f"{r:.3g}" for r in rel_all) + "; the pixels that agree: "
+          + ", ".join(f"{r:.3g}" for r in rel_keep)
+          + f"; vertex entries within rtol 1e-3 there: {close:.4f} ({card})", flush=True)
+    check(keep.float().mean() >= 0.999, f"{label}: the GPU and CPU images disagree on "
+          f"{int((~keep).sum())} pixels")
+    check(max(rel_all[1:]) <= 1e-3, f"{label}: albedo/emission gradients differ: {rel_all}")
+
+    phase("23 training on the card: examples/invrender at its defaults, then one train_step "
+          "at 1024x1024")
+    fields = 80 + 1  # a target and 80 steps, one chunk each
+    per = 4 * 3
+    out, _ = counted(lambda: invrender.recover(dev, log=lambda line: print(line, flush=True)),
+                     "invrender (48x48, 4 spp, 3 bounces, 80 steps, albedo lr 30)",
+                     {"closest_hit": fields * per, "occluded": fields * per})
+    err = float(np.abs(out["albedo"] - out["true_albedo"]).max())
+    print(f"invrender: loss {out['loss0']:.4e} -> {out['loss']:.4e} "
+          f"({out['loss0'] / out['loss']:.1f}x), albedo max err {err:.5f} ({card})", flush=True)
+    check(out["loss"] < out["loss0"] / 10, "invrender: the loss did not fall 10x")
+    check(err < 0.05, f"invrender: albedo max err {err}")
+    check(torch.equal(out["params"][0], out["params0"][0])
+          and torch.equal(out["params"][2], out["params0"][2]),
+          "invrender: vertices or emission moved")
+
+    res = 1024
+    cfg = RenderConfig(max_bounces=4, spp=1, seed=0, estimator="reference")
+    scene, cam = to_device(host, host_cam._replace(resolution=(res, res)), dev)
+    px, py = pixel_grid(cam)
+    n_chunks = px.shape[0] // CHUNK
+    with torch.no_grad():
+        target = render_field(scene._replace(albedo=torch.as_tensor(grey, device=dev)), cam,
+                              cfg, px, py)
+    params = (scene.vertices, scene.albedo, scene.emission)
+    lr = (1e-4, 1.0, 1.0)
+    per = n_chunks * cfg.spp * cfg.max_bounces
+
+    def step():
+        return train_step(params, scene, cam, cfg, target, px, py, lr)
+
+    counted(step, f"train_step warm-up ({res}x{res}, {n_chunks} chunks)",
+            {"closest_hit": per, "occluded": per})
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    (loss, new), t_step = timed(lambda: counted(step, f"train_step ({res}x{res})",
+                                                {"closest_hit": per, "occluded": per})[0])
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(p).all()) for p in new),
+          "train_step: loss or params not finite")
+    # the same step split: each chunk's forward (render and loss, with the
+    # graph) and its backward, each ending in a sync
+    t_fwd = t_bwd = 0.0
+    for start in range(0, px.shape[0], CHUNK):
+        sl = slice(start, start + CHUNK)
+        leaves = [p.detach().requires_grad_() for p in params]
+        s = scene._replace(**dict(zip(PARAMS, leaves)))
+        t0 = time.perf_counter()
+        part = torch.sum((render_field(s, cam, cfg, px[sl], py[sl]) - target[sl]) ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(part / target.numel(), leaves, allow_unused=True,
+                            materialize_grads=True)
+        torch.cuda.synchronize()
+        t_fwd += t1 - t0
+        t_bwd += time.perf_counter() - t1
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t
+    busy_us, _, n_events = device_busy(prof.events())
+    check(n_events > 0, "train_step: torch.profiler saw no device activity")
+    idle = f"{1.0 - busy_us / 1e6 / t_step:.4f}"
+    print(f"train_step {res}x{res} ({n_chunks} chunks of 2^16, {cfg.spp} spp, "
+          f"{cfg.max_bounces} bounces, reference, all three params): step {t_step * 1e3:.1f} ms; "
+          f"split by chunk: forward {t_fwd * 1e3:.1f} ms, backward {t_bwd * 1e3:.1f} ms "
+          f"(backward/forward {t_bwd / t_fwd:.3f}); device busy {busy_us / 1e3:.1f} ms of "
+          f"{t_prof * 1e3:.1f} ms profiled, idle share {idle} (against the unprofiled step); "
+          f"peak memory {peak / 2**30:.3f} GiB, {(peak - base) / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB allocated before the step ({card})", flush=True)
+
+
+def timed(fn):
+    """(fn(), wall seconds), the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
 
 
 def entry_point_phases(dev, card):

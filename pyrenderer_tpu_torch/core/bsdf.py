@@ -35,8 +35,9 @@ def reflect(v, n):
 def refract(uv, n, eta_ratio):
     """Snell refraction of unit vector uv about n (reference
     core/bsdf_taichi.py:18-24)."""
-    cos_theta = torch.clamp(_dot(-uv, n), max=1.0)
+    cos_theta = sampling.minimum(_dot(-uv, n), 1.0)
     r_out_perp = eta_ratio[..., None] * (uv + cos_theta[..., None] * n)
+    # abs at 0 (gradient 0 here, 1 in jnp) meets safe_sqrt's 0-gradient guard
     par_len = -sampling.safe_sqrt((1.0 - _dot(r_out_perp, r_out_perp)).abs())
     return r_out_perp + par_len[..., None] * n
 
@@ -66,11 +67,16 @@ def point_in_unit_sphere(u1, u2, u3):
 def lambert_sample(nrm, u1, u2):
     """Cosine-weighted wi in the frame of nrm; returns (wi, pdf)."""
     wi = sampling.rotate_z_to(nrm, sampling.cosine_sample_hemisphere(u1, u2))
+    # abs at 0 (gradient 0 here, 1 in jnp): the pdf reaches the loss only
+    # squared, in the next bounce's power heuristic, whose derivative is 0
+    # at a zero pdf
     pdf = _dot(nrm, wi).abs() * INV_PI
     return wi, pdf
 
 
 def lambert_pdf(nrm, wi):
+    # torch.clamp, not jnp.maximum's tie rule: at n.wi == 0 the only
+    # caller's lane is no NEE candidate, so no gradient reaches the tie
     return torch.clamp(_dot(nrm, wi), min=0.0) * INV_PI
 
 
@@ -89,7 +95,7 @@ def dielectric_sample(rd, nrm, ior, u_choice):
     front = _dot(rd, nrm) < 0
     n_eff = torch.where(front[..., None], nrm, -nrm)
     eta = torch.where(front, 1.0 / ior, ior)
-    cos_theta = torch.clamp(_dot(-rd, n_eff), max=1.0)
+    cos_theta = sampling.minimum(_dot(-rd, n_eff), 1.0)
     sin_theta = sampling.safe_sqrt(1.0 - cos_theta * cos_theta)
     cannot_refract = eta * sin_theta > 1.0
     do_reflect = cannot_refract | (u_choice < schlick(cos_theta, eta))
@@ -101,4 +107,4 @@ def power_heuristic(pf, pg):
     """Two-sample power heuristic (reference core/tracing.py:18)."""
     f2 = pf * pf
     g2 = pg * pg
-    return f2 / torch.clamp(f2 + g2, min=1e-20)
+    return f2 / sampling.maximum(f2 + g2, 1e-20)

@@ -48,8 +48,18 @@ bounce 0, beta*cos after), the throughput update is
 attenuation*cos/pdf*(1/pi) with the 0/0 guard collapsing to zero, and NEE
 adds emissive*cos1*cos2/dist^2 without area pdf or 1/pi.
 
-The hit selection is discrete and detached; the hit geometry is then
-re-derived from the face id in differentiable torch, as in the JAX path.
+Gradients (torch autograd; dist/render.py's train_step takes them): the
+image is differentiable w.r.t. the scene's vertices, albedo and emission
+through the hit geometry re-derived from the face id (t, the hit point,
+the normal), the packed face and light rows (core/bsdf.py's shading, the
+light point, its normal and its area pdf, light_area_pdf) and the bounce
+directions sampled from them. Detached, as the JAX package detaches them
+with stop_gradient: the hit ids and hit masks, the visibility of the
+shadow rays, and the shadow rays' origins, directions and extents. Every
+kernel wrapper detaches its inputs, so backward launches no kernel. Where
+torch's gradient convention at a tie differs from JAX's (clamp against
+maximum, max(dim) against jnp.max, abs at 0), the code follows JAX's or
+the tie carries no gradient (the comments say which).
 """
 
 from __future__ import annotations
@@ -208,7 +218,10 @@ def check_supported(cfg: RenderConfig) -> None:
 def light_area_pdf(scene: Scene):
     """(T,) area-measure pdf of sampling each light face via the uniform
     prim -> uniform face -> uniform area chain: 1 / (L * nf * area).
-    Zero on non-light faces."""
+    Zero on non-light faces. Each prim scatters its nf real faces only:
+    light_faces pads a shorter row by repeating a face, and index_put
+    would pass the gradient to every copy (the JAX package's scatter
+    passes it to one)."""
     v = scene.vertices
     f = scene.faces
     e1 = v[f[:, 1]] - v[f[:, 0]]
@@ -218,9 +231,9 @@ def light_area_pdf(scene: Scene):
     nfaces = scene.light_nfaces.tolist()
     pdf = torch.zeros(f.shape[0], dtype=v.dtype, device=v.device)
     for li in range(n_lights):  # tiny
-        faces = scene.light_faces[li]
+        faces = scene.light_faces[li, :nfaces[li]]
         pdf = pdf.index_put(
-            (faces,), 1.0 / (n_lights * nfaces[li] * torch.clamp(area[faces], min=1e-12)))
+            (faces,), 1.0 / (n_lights * nfaces[li] * sampling.maximum(area[faces], 1e-12)))
     return pdf
 
 
@@ -507,7 +520,9 @@ def trace_reference(
         pdf = cos_wi.abs() * INV_PI
 
         # tracing.py:145-149: attenuation*cos/pdf*(1/pi); 0/0 when n.wi == 0
-        # collapses to exactly 0
+        # collapses to exactly 0. The abs and the clamp need not follow
+        # jnp's gradient at n.wi == 0 (1 for abs, half for maximum): that
+        # lane's new_beta is the constant 0
         safe_pdf = torch.where(pdf == 0, 1.0, pdf)
         scale = torch.clamp(cos_wi, min=0.0) / safe_pdf * INV_PI
         new_beta = torch.where((cos_wi != 0)[:, None], albedo * scale[:, None], 0.0)
@@ -519,7 +534,7 @@ def trace_reference(
         p2, n2, em, _ = _sample_light_point(
             scene, tables, pixel_id, sample_id, bounce, seed, dtype)
         to_light = p2 - p
-        dist_sq = torch.clamp(_dot(to_light, to_light), min=1e-12)
+        dist_sq = sampling.maximum(_dot(to_light, to_light), 1e-12)
         dist = torch.sqrt(dist_sq)
         w = to_light / dist[:, None]
         shadow_t1 = torch.where(alive, dist.detach() * (1.0 - cfg.shadow_eps), 0.0)

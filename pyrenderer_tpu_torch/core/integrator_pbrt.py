@@ -20,8 +20,12 @@ ref/scalar_pbrt.py) draws them:
   uniform2(U_LIGHT_U) -> (u, v)   light point
   uniform(U_RR)      -> rr
 
-The hit selection goes through the kernels with detached inputs; the hit
-geometry is then re-derived from the face row in differentiable torch.
+The gradient contract is core/integrator.py's: vertices, albedo and
+emission are differentiable through the re-derived hit geometry, the face
+and light rows and the light pdf (the MIS weights included); the hit ids,
+the visibility and the shadow rays' extents are detached. The Russian
+roulette's continuation probability splits its gradient among tied
+channels and at its clip bounds as jnp.max and jnp.clip do.
 """
 
 from __future__ import annotations
@@ -125,9 +129,9 @@ def trace_pbrt(
 
         # ---- emission with MIS against the light sampler ----
         cos_l = _dot(-rd, nrm)
-        dist_sq_hit = torch.clamp(t * t, min=1e-12)
+        dist_sq_hit = sampling.maximum(t * t, 1e-12)
         # pdf of having sampled this point by NEE, in solid angle
-        pdf_light_sa = hit_pdf_a * dist_sq_hit / torch.clamp(cos_l, min=1e-6)
+        pdf_light_sa = hit_pdf_a * dist_sq_hit / sampling.maximum(cos_l, 1e-6)
         if bounce == 0:
             w_mis = torch.ones_like(cos_l)
         else:
@@ -143,7 +147,7 @@ def trace_pbrt(
         p2, n2, em, pdf_a = _sample_light_point(
             scene, tables, pixel_id, sample_id, bounce, seed, dtype)
         to_light = p2 - p
-        dist_sq = torch.clamp(_dot(to_light, to_light), min=1e-12)
+        dist_sq = sampling.maximum(_dot(to_light, to_light), 1e-12)
         dist = torch.sqrt(dist_sq)
         wl = to_light / dist[:, None]
         cos_surf = _dot(nrm, wl)
@@ -152,10 +156,10 @@ def trace_pbrt(
         shadow_t1 = torch.where(nee_candidate, dist.detach() * (1.0 - cfg.shadow_eps), 0.0)
         occ = _any_hit(scene, tables, cfg, p.detach(), wl.detach(), shadow_t1, sort=sort)
         n_rays = n_rays + alive.sum(dtype=torch.float32)
-        pdf_nee_sa = pdf_a * dist_sq / torch.clamp(cos_light, min=1e-6)
+        pdf_nee_sa = pdf_a * dist_sq / sampling.maximum(cos_light, 1e-6)
         w_nee = bsdf.power_heuristic(pdf_nee_sa, bsdf.lambert_pdf(nrm, wl))
         contrib = albedo * INV_PI * em * (
-            w_nee * cos_surf / torch.clamp(pdf_nee_sa, min=1e-12))[:, None]
+            w_nee * cos_surf / sampling.maximum(pdf_nee_sa, 1e-12))[:, None]
         radiance = radiance + torch.where((nee_candidate & (~occ))[:, None], beta * contrib, 0.0)
 
         # ---- BSDF sampling ----
@@ -186,7 +190,10 @@ def trace_pbrt(
         # made only there)
         if bounce >= cfg.russian_roulette_start:
             u_rr = rng.uniform(seed, pixel_id, sample_id, bounce, rng.U_RR, dtype)
-            p_cont = torch.clamp(beta.max(dim=-1).values, 0.05, 1.0)
+            # amax splits the gradient among tied channels, as jnp.max
+            # does (max(dim) gives it all to one), and the bounds split a
+            # tie as jnp.clip does
+            p_cont = sampling.minimum(sampling.maximum(torch.amax(beta, dim=-1), 0.05), 1.0)
             survive = u_rr < p_cont
             beta = torch.where((alive & survive)[:, None],
                                beta * (1.0 / p_cont)[:, None], beta)

@@ -10,9 +10,13 @@ reference renderer so images line up:
 
 Vectors are (..., 3) tensors. The square roots and normalisations use
 double-``where`` guards so that neither value nor gradient is NaN at 0.
+``maximum`` and ``minimum`` against a constant keep the JAX package's
+gradient at a tie, where ``torch.clamp`` does not.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -28,8 +32,28 @@ def safe_sqrt(x):
     return torch.where(nonpos, 0.0, torch.sqrt(torch.where(nonpos, 1.0, x)))
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(c: float, dtype):
+    """c as a 0-d CPU tensor of `dtype`: a binary op takes it as a scalar
+    on any device, with no copy and no fill launch."""
+    return torch.tensor(c, dtype=dtype)
+
+
+def maximum(x, c: float):
+    """max(x, c) for a constant c, the value of torch.clamp(x, min=c) with
+    the gradient of jnp.maximum: at x == c half of it reaches x (clamp
+    passes all of it)."""
+    return torch.maximum(x, _constant(c, x.dtype))
+
+
+def minimum(x, c: float):
+    """min(x, c) for a constant c, with jnp.minimum's gradient (as maximum)."""
+    return torch.minimum(x, _constant(c, x.dtype))
+
+
 def safe_normalize(v):
-    """v / |v| with NaN-free value AND gradient at |v| == 0 (0 there)."""
+    """v / |v| with NaN-free value AND gradient at |v| == 0 (0 there). The
+    JAX package's takes a ``fallback`` that none of its callers passes."""
     ss = torch.sum(v * v, dim=-1, keepdim=True)
     zero = ss == 0
     inv = 1.0 / torch.sqrt(torch.where(zero, 1.0, ss))

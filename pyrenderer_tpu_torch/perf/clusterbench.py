@@ -5,6 +5,7 @@ by pair, and the frame's device profile.
     python -m pyrenderer_tpu_torch.perf.clusterbench kernels [sweep|binned|whole|probes] [--parity] [--out DIR]
     python -m pyrenderer_tpu_torch.perf.clusterbench compare DIR_A DIR_B
     python -m pyrenderer_tpu_torch.perf.clusterbench profile [--backend B] [--scene S] [--estimator E]
+    python -m pyrenderer_tpu_torch.perf.clusterbench frames [--out DIR]
 
 ``kernels`` builds terrain100k (scene/procgen.py terrain res=224, 100,364
 triangles) and records the integrator's bounce-1 wavefront and its NEE
@@ -103,6 +104,11 @@ the kernels defined in an anonymous namespace (the port's, and a few of
 PyTorch's) and for all the others together, per chunk-sample and per frame
 (the bench row's chunks x spp), and the host's kernel launches and stream
 syncs.
+
+``frames`` renders the Cornell box (render_image, 1024x1024, 2 spp, seed
+0) with each estimator and depth of FRAMES and saves the images to
+DIR/frames.pt, so that ``compare`` shows whether a change moved a forward
+frame by a single bit (run it for a parent checkout as ``kernels`` is).
 
 Runs on a GPU only; every time names the card (nvidia-smi's name and
 power limit).
@@ -1954,21 +1960,74 @@ def compare_sweep(a, b):
     return worst == 0
 
 
+# (estimator, bounces) of the Cornell frames of ``frames``: the main path,
+# the pbrt path, and pbrt with Russian roulette (from bounce 4)
+FRAMES = (("reference", 4), ("pbrt", 4), ("pbrt", 8))
+
+
+def cmd_frames(args) -> int:
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.core.integrator import render_image
+
+    scene, camera, _ = whole_scenes(torch.device("cuda:0"))["cornell"]
+    out = {}
+    for estimator, bounces in FRAMES:
+        cfg = RenderConfig(max_bounces=bounces, spp=2, seed=0, estimator=estimator)
+        out[f"{estimator} {bounces}"] = render_image(scene, camera, cfg).cpu()
+    os.makedirs(args.out, exist_ok=True)
+    torch.save(out, os.path.join(args.out, "frames.pt"))
+    print(json.dumps({"frames": {k: float(v.mean()) for k, v in out.items()},
+                      "card": card_line()}))
+    return 0
+
+
+def compare_frames(a, b):
+    """Per frame, the pixels on which two runs differ in any bit; True when
+    none does."""
+    same = True
+    for label in a:
+        diff = (a[label].view(torch.int32) != b[label].view(torch.int32)).any(dim=-1)
+        print(f"compare frames {label}: {int(diff.sum())} of {diff.numel()} pixels differ")
+        same = same and not bool(diff.any())
+    return same
+
+
 def cmd_compare(args) -> int:
     """The files of `kernels --parity` (parity.pt), `kernels binned
-    --parity` (binned.pt, prepass.pt), `kernels whole --parity` (whole.pt)
-    and `kernels probes --parity` (probes.pt) that both directories hold,
-    compared."""
+    --parity` (binned.pt, prepass.pt), `kernels whole --parity` (whole.pt),
+    `kernels probes --parity` (probes.pt) and `frames` (frames.pt) that both
+    directories hold, compared."""
     same = {}
     for name, fn in (("parity.pt", compare_sweep), ("binned.pt", compare_binned),
                      ("prepass.pt", compare_prepass), ("whole.pt", compare_whole),
-                     ("probes.pt", compare_probes)):
+                     ("probes.pt", compare_probes), ("frames.pt", compare_frames)):
         paths = [os.path.join(d, name) for d in args.dirs]
         if all(os.path.exists(p) for p in paths):
             same[name] = fn(*(torch.load(p) for p in paths))
     print(json.dumps({"compare": args.dirs, "files": sorted(same),
                       "identical": bool(same) and all(same.values())}))
     return 0
+
+
+def device_busy(events):
+    """(busy us, us by kernel name, the number of device events) of a
+    torch.profiler trace's events: busy is the union of the kernels'
+    intervals on the card."""
+    from torch.autograd import DeviceType
+
+    device = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                    if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    per_name = {}
+    for start, stop, name in device:
+        per_name[name] = per_name.get(name, 0.0) + (stop - start)
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy, per_name, len(device)
 
 
 def cmd_profile(args) -> int:
@@ -2009,18 +2068,7 @@ def cmd_profile(args) -> int:
     with torch.profiler.profile(activities=acts) as prof:
         window(0)
     events = prof.events()
-    device = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                    if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, None
-    per_name = {}
-    for start, stop, name in device:
-        per_name[name] = per_name.get(name, 0.0) + (stop - start)
-        if end is None or start > end:
-            busy += stop - start
-            end = stop
-        elif stop > end:
-            busy += stop - end
-            end = stop
+    busy, per_name, device = device_busy(events)
     host = {}
     for e in events:
         if e.device_type == DeviceType.CPU and e.name.startswith(("cudaLaunchKernel",
@@ -2046,7 +2094,7 @@ def cmd_profile(args) -> int:
         "device_ms_per_frame": {k: us / 1e3 / SAMPLES * per_frame for k, us in
                                 sorted(ours.items(), key=lambda kv: -kv[1])},
         "host_calls_per_chunk_sample": {k: v / SAMPLES for k, v in host.items()},
-        "device_events": len(device),
+        "device_events": device,
     }
     print(f"profile {label} {args.estimator} {tables.backend} ({card}): wall {wall:.3f} ms per "
           f"chunk-sample (windows {', '.join(f'{w:.3f}' for w in walls)}), device busy "
@@ -2072,13 +2120,16 @@ def main(argv=None) -> int:
     p.add_argument("--scene", default="spheres", choices=("cornell", "spheres"),
                    help="the whole-table frame of --backend cuda")
     p.add_argument("--estimator", default="reference", choices=("reference", "pbrt"))
+    f = sub.add_parser("frames")
+    f.add_argument("--out", default=os.path.join("build", "clusterbench"))
     args = parser.parse_args(argv)
     if args.cmd != "compare" and not torch.cuda.is_available():
         print("no CUDA device: clusterbench runs on a GPU", file=sys.stderr)
         return 2
     if args.cmd == "kernels" and args.which != "sweep":
         return {"binned": cmd_binned, "whole": cmd_whole, "probes": cmd_probes}[args.which](args)
-    return {"kernels": cmd_kernels, "compare": cmd_compare, "profile": cmd_profile}[args.cmd](args)
+    return {"kernels": cmd_kernels, "compare": cmd_compare, "profile": cmd_profile,
+            "frames": cmd_frames}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -652,6 +652,21 @@ def test_compare_probes_finds_a_difference(change):
     assert not cb.compare_probes(a, b)
 
 
+@pytest.mark.parametrize("change", ["none", "value", "sign of zero"])
+def test_compare_frames_finds_a_difference(change):
+    """compare's frames (clusterbench frames) differ when one pixel differs
+    in any bit, a zero's sign included."""
+    img = torch.rand(4, 5, 3, generator=torch.Generator().manual_seed(0))
+    img[1, 2, 0] = 0.0
+    a = {f"{e} {n}": img.clone() for e, n in cb.FRAMES}
+    b = {k: v.clone() for k, v in a.items()}
+    if change == "value":
+        b["pbrt 8"][3, 4, 2] += 1e-7
+    elif change == "sign of zero":
+        b["pbrt 8"][1, 2, 0] = -0.0
+    assert cb.compare_frames(a, b) == (change == "none")
+
+
 def test_offset_rows_start_off_a_16_byte_boundary():
     """probe_sets' offset rows: the same values, contiguous, 4 bytes past a
     16-byte boundary; the wrappers' operand check accepts them and the
