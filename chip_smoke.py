@@ -188,10 +188,44 @@ Phases, in order; any failure raises and the script exits non-zero:
    the phase fails if the profiler sees no device event) and the peak
    memory (torch.cuda.max_memory_allocated, with what the
    step added to the memory allocated before it).
+24. Adaptive sampling through the CLI: a copy of cornell_box.json with
+   renderer.adaptive_sampling, reference, 1024x1024, 4 bounces, spp 16,
+   the default minimum of 8 and tolerance of 0.02, backend "cuda": exactly
+   4 x (8 x 16 + the sum over the sweeps of ceil(k_i / 2^16)) launches of
+   each whole-table kernel (each sweep's k_i printed), the film's spp_map
+   in [8, 16], every pixel at err <= tol or at the cap; the wall and
+   Mrays/s. Then at 64x64, 3 bounces, spp 12, minimum 4, tolerance 0.05
+   (where a share of the pixels converges: spp_map not constant, >= 5%
+   below the cap), the card's spp_map against the CPU twins' (equal on >=
+   98% of the pixels).
+25. run_resilient at 1024x1024, 4 spp, reference, 4 bounces: a chunk of
+   pass 1 raises, pass 3 comes back with a NaN (both injected by wrapping
+   render/driver._render_pass); the film ends bit-identical to an
+   uninterrupted run's with the same rays_traced, and 4 launches of each
+   kernel per chunk that rendered; a render that always fails re-raises
+   after max_retries; then the CLI's --live --resilient at 256x256, 2 spp,
+   on a non-tty stream: the ANSI frame appears and the exit code is 0.
+26. The tonemap mode on the card: phase 3's frame written as an EXR, then
+   cli.main(["tonemap", "--input", exr, "--tonemap", "filmic", "--out",
+   png]); the PNG equals the CPU tonemap of read_exr to 1 LSB.
+27. The matmul backend under torch.set_float32_matmul_precision("high")
+   (restored after): the CLI's Cornell 1024x1024 16-spp 4-bounce frame
+   with --backend matmul launches no kernel. Phase 3's "cuda" frame
+   rendered again (a counting window) with every closest-hit and any-hit
+   query also asked of intersect_matmul / occluded_matmul: hit masks
+   flipped on < 1e-5 of the live rays, face materials on < 1e-4, occlusion
+   on < 1e-3 of the shadow rays; the same product unguarded (TF32) must
+   fail that gate. Against phase 3's frame, > 99% of the values close at
+   rtol 1e-3 (atol 1e-6) and the mean within 1e-3 relative; on phase 2's
+   65,536 random rays intersect_matmul
+   against closest_hit: hit masks and faces equal on > 99.5%, t within
+   rtol 2e-4 where the faces agree (tests/test_intersect.py's bounds),
+   bit for bit the result under "highest"; printed beside them, the same
+   product unguarded (TF32).
 
-Every main-path run above (the frames of phases 3, 7, 11, 14 and 17-21,
-the CLI runs, the bench rows, the harness and the gradient and training
-runs of phases 22-23) is a counting window: every
+Every main-path run above (the frames of phases 3, 7, 11, 14, 17-21,
+24-25 and 27, the CLI runs, the bench rows, the harness and the gradient and
+training runs of phases 22-23) is a counting window: every
 wrapper's counts are zeroed just before it and read just after. The line
 before the last is a JSON object with one entry per kernel: its launches
 summed over those windows, its largest difference from the twin, its time
@@ -504,6 +538,7 @@ def main() -> int:
     rounds = resume_phases(dev, card, ctx)
     accel_phases(dev, card, ctx)
     gradient_phases(dev, card)
+    render_mode_phases(dev, card, hdr, ro, rd, table)
     for entries in (large, binned, probes, rounds):
         max_abs_err.update(entries["max_abs_err"])
         ms.update(entries["ms"])
@@ -1805,6 +1840,355 @@ def entry_point_phases(dev, card):
     for name, n in probes.items():
         check(launches.get(name) == n * per_graph,
               f"harness: {name} launched {launches.get(name)} times, expected {n * per_graph}")
+
+
+def read_png(path):
+    """(H, W, 3) uint8 of a PNG that utils/image_io.write_png wrote (8-bit
+    RGB, one IDAT, filter type 0 on every row)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as fh:
+        buf = fh.read()
+    w, h = struct.unpack(">II", buf[16:24])
+    i = buf.index(b"IDAT")
+    (n,) = struct.unpack(">I", buf[i - 4:i])
+    raw = np.frombuffer(zlib.decompress(buf[i + 4:i + 4 + n]), np.uint8).reshape(h, 1 + 3 * w)
+    check(not raw[:, 0].any(), f"{path}: a row has a PNG filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def cli_rate(log, label, card):
+    """The CLI's 'N rays in S s = M Mrays/s' line, printed with the card."""
+    m = re.search(r"(\d+) rays in ([0-9.]+) s = ([0-9.]+) Mrays/s", log)
+    check(m is not None, f"{label}: the CLI printed no ray count")
+    print(f"{label}: {m.group(1)} rays in {m.group(2)} s = {m.group(3)} Mrays/s ({card})",
+          flush=True)
+
+
+def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
+    """Phases 24-27: the rest of the render entry point on the card, each
+    main-path run a counting window: the adaptive frame, run_resilient
+    with injected failures and the CLI's --live --resilient, the tonemap
+    mode, the matmul backend. `hdr_cuda` is phase 3's frame, (ro, rd) phase
+    2's random rays and `table` the Cornell kernel table."""
+    import math
+    import unittest.mock as mock
+
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.core import intersect as isect
+    from pyrenderer_tpu_torch.core.film import Film
+    from pyrenderer_tpu_torch.core.tonemap import tonemap
+    from pyrenderer_tpu_torch.kernels import intersect as ki
+    from pyrenderer_tpu_torch.render import cli
+    from pyrenderer_tpu_torch.render import driver as drv
+    from pyrenderer_tpu_torch.scene import load_tungsten, to_device
+    from pyrenderer_tpu_torch.utils.exr import read_exr, write_exr
+
+    res, depth, chunk = 1024, 4, 1 << 16
+    chunks = -(-res * res // chunk)
+    host_scene, host_camera, _ = load_tungsten(SCENE)
+
+    phase("24 adaptive sampling: CLI, cornell_box.json with renderer.adaptive_sampling, "
+          "reference, 1024x1024, 4 bounces, spp 16 (minimum 8, tolerance 0.02)")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(SCENE) as fh:
+            data = json.load(fh)
+        data["renderer"]["adaptive_sampling"] = True
+        scene_file = os.path.join(tmp, "adaptive.json")
+        with open(scene_file, "w") as fh:
+            json.dump(data, fh)
+        ckpt = os.path.join(tmp, "film.npz")
+        argv = [scene_file, "--estimator", "reference", "--depth", str(depth), "--spp", "16",
+                "--res", str(res), str(res), "--backend", "cuda",
+                "--out", os.path.join(tmp, "a.png"), "--hdr-out", os.path.join(tmp, "a.exr"),
+                "--checkpoint", ckpt, "--checkpoint-interval", "1000000"]
+        ((rc, log), wall), launches = counted(lambda: timed(lambda: run_cli(cli, argv)),
+                                              "CLI adaptive frame")
+        check(rc == 0, f"cli.main returned {rc}")
+        film = Film.load(ckpt)
+    sweeps = [int(k) for k in re.findall(r"adaptive: refined (\d+) pixels", log)]
+    expect = depth * (8 * chunks + sum(math.ceil(k / chunk) for k in sweeps))
+    print(f"adaptive sweeps refined k_i = {sweeps} pixels; launches of B1 and B2 expected "
+          f"4 x (8 x {chunks} + sum ceil(k_i / 2^16)) = {expect}", flush=True)
+    check(launches == {"closest_hit": expect, "occluded": expect},
+          f"adaptive frame: launches {launches}, expected {expect} of each")
+    spp = film.spp_map
+    err = film.relative_error()
+    check(spp.shape == (res, res) and spp.min() == 8 and spp.max() <= 16,
+          f"spp_map in [{spp.min()}, {spp.max()}], not within [8, 16]")
+    check(bool(np.all((err <= 0.02) | (spp >= 16))),
+          "a pixel below the cap has a relative error above the tolerance")
+    check(bool(np.isfinite(film.hdr).all()), "the adaptive HDR has non-finite values")
+    print(f"spp_map: min {spp.min()}, max {spp.max()}, mean {spp.mean():.4f}; every pixel at "
+          f"err <= 0.02 or at the cap; HDR mean {film.hdr.mean():.6f}; wall of cli.main "
+          f"{wall:.3f} s ({card})", flush=True)
+    cli_rate(log, "adaptive frame", card)
+
+    # at Tungsten's defaults ~97% of the pixels reach the cap, so the
+    # refine/skip decisions are held against the twins at the settings of
+    # tests/test_torch_driver.py's ADAPTIVE, where a share of them converge
+    # (~16% below the cap at 64x64 on the CPU)
+    cfg64 = RenderConfig(max_bounces=3, spp=12, spp_step=1, seed=4, estimator="reference",
+                         adaptive=True, adaptive_min_spp=4, adaptive_tolerance=0.05)
+    cam64 = host_camera._replace(resolution=(64, 64))
+    films = {}
+    for where in (dev, "cpu"):
+        s, c = to_device(host_scene, cam64, where)
+        films[str(where)] = drv.ProgressiveRenderer(s, c, cfg64, backend="cuda").run(quiet=True)
+    spp64 = films[str(dev)].spp_map
+    agree = float((spp64 == films["cpu"].spp_map).mean())
+    below = float((spp64 < 12).mean())
+    print(f"64x64 adaptive (3 bounces, spp 12, minimum 4, tolerance 0.05): spp_map in "
+          f"[{spp64.min()}, {spp64.max()}], {below:.6f} of the pixels below the cap (>= 0.05), "
+          f"equal to the CPU twins' on {agree:.6f} of the pixels (>= 0.98)", flush=True)
+    check(spp64.max() > spp64.min() and below >= 0.05,
+          "the 64x64 adaptive frame refined (almost) every pixel to the cap")
+    check(agree >= 0.98, "the card's spp_map differs from the CPU twins'")
+
+    phase("25 run_resilient: Cornell, reference, 1024x1024, 4 bounces, 4 spp, one pass "
+          "raising and one poisoned with a NaN; then the CLI's --live --resilient")
+    cfg = RenderConfig(max_bounces=depth, spp=4, seed=0, estimator="reference")
+    scene, cam = to_device(host_scene, host_camera._replace(resolution=(res, res)), dev)
+    clean = drv.ProgressiveRenderer(scene, cam, cfg, backend="cuda")
+    per_run = 4 * chunks * depth
+    _, secs_clean = counted(lambda: timed(lambda: clean.run(quiet=True)),
+                            "uninterrupted 4-spp frame",
+                            {"closest_hit": per_run, "occluded": per_run})[0]
+    render_pass = drv._render_pass
+    calls = {"n": 0, "ran": 0}
+    # a chunk call in the middle of pass 1 raises before it renders; the
+    # first chunk of pass 3 (after pass 1's retry and pass 2) renders and
+    # comes back with a NaN: that pass is rejected whole
+    raise_at = chunks // 2 + 1
+    nan_at = raise_at + 2 * chunks + 1
+
+    def injected(*args):
+        calls["n"] += 1
+        if calls["n"] == raise_at:
+            raise RuntimeError("injected device failure")
+        out = render_pass(*args)
+        calls["ran"] += 1
+        if calls["n"] == nan_at:
+            out[0][0, 0] = float("nan")
+        return out
+
+    flaky = drv.ProgressiveRenderer(scene, cam, cfg, backend="cuda")
+    with mock.patch.object(drv, "_render_pass", injected):
+        (film, secs), launches = counted(
+            lambda: timed(lambda: flaky.run_resilient(max_retries=2, backoff=0.01, quiet=True)),
+            "resilient 4-spp frame")
+    expect = depth * calls["ran"]
+    # the raising pass's first chunks, the rejected pass, then the 4 passes
+    check(calls["ran"] == raise_at - 1 + 5 * chunks and calls["n"] == calls["ran"] + 1,
+          f"chunk calls {calls}: the injections did not fire as planned")
+    check(launches == {"closest_hit": expect, "occluded": expect},
+          f"resilient frame: launches {launches}, expected {expect} of each")
+    check(np.array_equal(film.radiance_sum, clean.film.radiance_sum)
+          and np.array_equal(film.sq_sum, clean.film.sq_sum)
+          and np.array_equal(film.spp_map, clean.film.spp_map),
+          "the resilient frame is not bit-identical to the uninterrupted one")
+    check(flaky.rays_traced == clean.rays_traced,
+          f"rays_traced {flaky.rays_traced} against {clean.rays_traced} uninterrupted")
+    print(f"resilient frame bit-identical to the uninterrupted one after a raised and a "
+          f"rejected pass; rays_traced {flaky.rays_traced:.0f} equal; {calls['ran']} chunk "
+          f"renders for {4 * chunks}; wall {secs:.3f} s against {secs_clean:.3f} s "
+          f"uninterrupted ({card})", flush=True)
+    doomed = drv.ProgressiveRenderer(scene, cam, cfg, backend="cuda")
+
+    def always_fails():
+        raise RuntimeError("persistent device failure")
+
+    doomed.render_one_pass = always_fails
+    try:
+        doomed.run_resilient(max_retries=2, backoff=0.01, quiet=True)
+        check(False, "a render that always fails did not re-raise")
+    except RuntimeError as e:
+        check("persistent device failure" in str(e), f"re-raised {e!r}")
+    print("a render that always fails re-raises after max_retries=2", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [SCENE, "--estimator", "reference", "--depth", str(depth), "--spp", "2",
+                "--res", "256", "256", "--live", "--resilient",
+                "--out", os.path.join(tmp, "l.png"), "--hdr-out", os.path.join(tmp, "l.exr")]
+        (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI --live --resilient 256x256",
+                               {"closest_hit": 2 * depth, "occluded": 2 * depth})
+    check(rc == 0, f"cli.main --live --resilient returned {rc}")
+    check("\u2580" in log and "2/2 spp" in log and "Mrays/s" not in log,
+          "--live drew no ANSI frame (or did not silence the progress prints)")
+    print(f"--live --resilient: exit 0, {log.count(chr(0x2580))} half-block cells drawn on "
+          "a non-tty stream", flush=True)
+
+    phase("26 tonemap mode on the card: phase 3's frame as an EXR, filmic")
+    with tempfile.TemporaryDirectory() as tmp:
+        exr, png = os.path.join(tmp, "in.exr"), os.path.join(tmp, "out.png")
+        write_exr(exr, hdr_cuda)
+        ((rc, log), wall), _ = counted(
+            lambda: timed(lambda: run_cli(cli, ["tonemap", "--input", exr, "--tonemap", "filmic",
+                                                "--out", png])),
+            "CLI tonemap mode", {})
+        check(rc == 0 and "on cuda:0" in log, f"tonemap mode returned {rc} ({log.strip()})")
+        ours = read_png(png).astype(np.int32)
+        ldr = tonemap(torch.from_numpy(read_exr(exr)), "filmic").numpy()
+    plain = (np.clip(ldr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8).astype(np.int32)
+    diff = np.abs(ours - plain)
+    print(f"tonemap PNG {ours.shape} against the CPU tonemap of read_exr: max |diff| "
+          f"{diff.max()} LSB, {int((diff > 0).sum())} of {diff.size} values differ; wall "
+          f"{wall:.3f} s ({card})", flush=True)
+    check(ours.shape == (res, res, 3) and diff.max() <= 1, "the tonemap mode's PNG is off")
+
+    phase("27 matmul backend under torch.set_float32_matmul_precision(\"high\"): CLI, "
+          "reference, 1024x1024, 16 spp, 4 bounces")
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            exr = os.path.join(tmp, "m.exr")
+            argv = [SCENE, "--estimator", "reference", "--depth", str(depth), "--spp", "16",
+                    "--res", str(res), str(res), "--backend", "matmul",
+                    "--out", os.path.join(tmp, "m.png"), "--hdr-out", exr]
+            ((rc, log), wall), _ = counted(lambda: timed(lambda: run_cli(cli, argv)),
+                                           "CLI matmul frame", {})
+            check(rc == 0, f"cli.main --backend matmul returned {rc}")
+            hdr = read_exr(exr)
+        hit, t, tri = isect.intersect_matmul(scene, ro, rd, T0, T_MAX)
+        # the frame's own decisions: phase 3's "cuda" frame rendered again
+        # with every query also asked of the matmul backend and of the same
+        # product unguarded (TF32 under "high")
+        cfg16 = RenderConfig(max_bounces=depth, spp=16, seed=0, estimator="reference")
+        (decisions, d_secs), _ = counted(
+            lambda: timed(lambda: matmul_decisions(scene, cam, cfg16)),
+            "cuda frame with every query asked of the matmul backend too",
+            {"closest_hit": 16 * chunks * depth, "occluded": 16 * chunks * depth})
+        check(torch.get_float32_matmul_precision() == "high",
+              "the matmul backend did not restore the process's precision")
+        # what the guard prevents, on phase 2's rays
+        hit_tf32, _, tri_tf32 = unguarded_closest(scene, isect.build_tri_matrix(scene), ro, rd,
+                                                  T0, T_MAX)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    torch.set_float32_matmul_precision("highest")
+    try:
+        ieee = isect.intersect_matmul(scene, ro, rd, T0, T_MAX)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    check(all(torch.equal(a, b) for a, b in zip((hit, t, tri), ieee)),
+          "intersect_matmul under \"high\" differs from the same under \"highest\"")
+    check(hdr.shape == hdr_cuda.shape and bool(np.isfinite(hdr).all()), "matmul HDR malformed")
+    ours, tf32 = decisions["ieee"], decisions["tf32"]
+    # the two formulations round t, u and v differently, so grazing rays
+    # flip: occlusion and face materials at the bounds of tests/
+    # test_torch_matmul.py::test_frame_decisions_against_brute, hit masks
+    # (none in its 220k rays) on < 1e-5 of the live rays; the TF32 product
+    # flips each 100x as often or more
+    passes = {key: d["hit"] < 1e-5 * d["rays"] and d["material"] < 1e-4 * d["rays"]
+              and d["occluded"] < 1e-3 * d["shadow_rays"] for key, d in decisions.items()}
+    print(f"the cuda frame's queries asked of intersect_matmul / occluded_matmul under \"high\": "
+          f"{ours} -> hit masks flipped on {ours['hit'] / ours['rays']:.3g} of the live rays "
+          f"(< 1e-5), face materials on "
+          f"{ours['material'] / ours['rays']:.3g} of the live rays (< 1e-4), occlusion on "
+          f"{ours['occluded'] / ours['shadow_rays']:.3g} of the shadow rays (< 1e-3); the "
+          f"unguarded TF32 product: {tf32} -> {tf32['hit'] / tf32['rays']:.3g} hit masks, "
+          f"{tf32['material'] / tf32['rays']:.3g} materials, "
+          f"{tf32['occluded'] / tf32['shadow_rays']:.3g} occlusions; the gate passes the "
+          f"guarded product: {passes['ieee']}, the TF32 one: {passes['tf32']}; {d_secs:.3f} s "
+          f"({card})", flush=True)
+    check(passes["ieee"], "the matmul backend decides otherwise than the kernels on the frame")
+    check(not passes["tf32"], "the frame's decision gate does not tell TF32 from IEEE float32")
+    close = float(np.isclose(hdr, hdr_cuda, rtol=1e-3, atol=1e-6).mean())
+    rel_mean = abs(float(hdr.mean()) - float(hdr_cuda.mean())) / float(hdr_cuda.mean())
+    print(f"matmul frame against phase 3's cuda frame: {close:.6f} of values close at rtol "
+          f"1e-3, atol 1e-6 (> 0.99); means {hdr.mean():.6f} / {hdr_cuda.mean():.6f}, "
+          f"relative {rel_mean:.3g} (< 1e-3); wall of cli.main {wall:.3f} s ({card})",
+          flush=True)
+    cli_rate(log, "matmul frame", card)
+    check(close > 0.99 and rel_mean < 1e-3, "the matmul frame differs from the cuda frame")
+    hit_k, t_k, tri_k = ki.closest_hit(table, ro, rd, T0, T_MAX)
+    tri = torch.where(hit, tri, -1)
+    same_hit = float((hit == hit_k).float().mean())
+    same_face = tri == tri_k
+    both = same_face & hit
+    t_close = bool(torch.isclose(t[both], t_k[both], rtol=2e-4, atol=2e-5).all())
+    print(f"intersect_matmul against closest_hit on {ro.shape[0]} random rays: hit masks "
+          f"equal on {same_hit:.6f}, faces on {float(same_face.float().mean()):.6f} (> 0.995 "
+          f"each), t within rtol 2e-4 where the faces agree: {t_close}; bit for bit the "
+          f"result under \"highest\"; the unguarded product under \"high\" (TF32): hit "
+          f"masks equal on {float((hit_tf32 == hit_k).float().mean()):.6f}, faces on "
+          f"{float((torch.where(hit_tf32, tri_tf32, -1) == tri_k).float().mean()):.6f}",
+          flush=True)
+    check(same_hit > 0.995 and float(same_face.float().mean()) > 0.995 and t_close,
+          "intersect_matmul disagrees with the closest-hit kernel")
+
+
+def unguarded_terms(w, ro, rd):
+    """mt_terms_matmul's (det, t, u, v) from a plain `@`, in whatever
+    precision the process has set (TF32 under "high")."""
+    from pyrenderer_tpu_torch.core.intersect import ray_features
+
+    raw = (ray_features(ro, rd) @ w.reshape(16, -1)).reshape(ro.shape[0], -1, 4)
+    det = raw[..., 0]
+    f = 1.0 / torch.where(det == 0, 1.0, det)
+    return det, raw[..., 3] * f, raw[..., 1] * f, raw[..., 2] * f
+
+
+def unguarded_closest(scene, w, ro, rd, t0, t1):
+    """intersect_matmul's (hit, t, tri) through unguarded_terms."""
+    from pyrenderer_tpu_torch.core.intersect import _accept
+
+    det, t, u, v = unguarded_terms(w, ro, rd)
+    t = torch.where(_accept(det, t, u, v, t0, t1), t, torch.inf)
+    t_hit, tri = t.min(dim=1)
+    return torch.isfinite(t_hit), t_hit, tri
+
+
+def matmul_decisions(scene, cam, cfg):
+    """A "cuda" ProgressiveRenderer frame of (scene, cam, cfg) with every
+    closest-hit and any-hit query also asked of intersect_matmul /
+    occluded_matmul ("ieee") and of the unguarded product ("tf32"): for
+    each, the live rays and how many it decides otherwise than the kernels
+    (hit mask; face material where both hit), and the live shadow rays and
+    how many it occludes otherwise. Summed on the card, read once."""
+    import unittest.mock as mock
+
+    from pyrenderer_tpu_torch.core import integrator as integ
+    from pyrenderer_tpu_torch.core import intersect as isect
+    from pyrenderer_tpu_torch.render import driver as drv
+
+    w = isect.build_tri_matrix(scene)
+    mat = scene.face_material
+    keys = ("rays", "hit", "material", "shadow_rays", "occluded")
+    counts = {k: {c: torch.zeros((), dtype=torch.int64, device=w.device) for c in keys}
+              for k in ("ieee", "tf32")}
+    closest, any_hit = integ._closest, integ._any_hit
+
+    def both_closest(scene_, tables, cfg_, ro, rd, t1, sort=None):
+        hit, t, tri = closest(scene_, tables, cfg_, ro, rd, t1, sort)
+        live = t1 > 0
+        others = {"ieee": isect.intersect_matmul(scene_, ro, rd, cfg_.t_min, t1, w),
+                  "tf32": unguarded_closest(scene_, w, ro, rd, cfg_.t_min, t1)}
+        for key, (hit_m, _, tri_m) in others.items():
+            c = counts[key]
+            c["rays"] += live.sum()
+            c["hit"] += ((hit != hit_m) & live).sum()
+            c["material"] += (live & hit & hit_m
+                              & (mat[tri.long()] != mat[tri_m.long()])).sum()
+        return hit, t, tri
+
+    def both_any_hit(scene_, tables, cfg_, ro, rd, t1, sort=None):
+        occ = any_hit(scene_, tables, cfg_, ro, rd, t1, sort)
+        live = t1 > 0
+        det, t, u, v = unguarded_terms(w, ro, rd)
+        others = {"ieee": isect.occluded_matmul(scene_, ro, rd, cfg_.t_min, t1, w),
+                  "tf32": isect._accept(det, t, u, v, cfg_.t_min, t1).any(dim=1)}
+        for key, occ_m in others.items():
+            counts[key]["shadow_rays"] += live.sum()
+            counts[key]["occluded"] += ((occ != occ_m) & live).sum()
+        return occ
+
+    with mock.patch.object(integ, "_closest", both_closest), \
+            mock.patch.object(integ, "_any_hit", both_any_hit):
+        drv.ProgressiveRenderer(scene, cam, cfg, backend="cuda").run(quiet=True)
+    return {key: {k: int(v) for k, v in c.items()} for key, c in counts.items()}
 
 
 def run_cli(cli, argv):

@@ -15,9 +15,9 @@ runs.
 Env knobs (bench.py's):
   BENCH_SCENE      cornell (default) | spheres | terrain8k | terrain100k |
                    terrain330k | terrain500k | blob82k (SCENES)
-  BENCH_BACKEND    auto (default) | cuda | brute | bvh | cluster |
+  BENCH_BACKEND    auto (default) | cuda | brute | matmul | bvh | cluster |
                    cluster_binned | cluster_streamed | cluster_chunked |
-                   watertight; "pallas" and "matmul" raise
+                   watertight; "pallas" raises (its port is "cuda")
   BENCH_SPP        timed samples per pixel (the row's default)
   BENCH_RES        square resolution (the row's default)
   BENCH_CHUNK      rays per chunk (default 2^16, Morton-ordered screen

@@ -14,6 +14,11 @@ Intersection backends:
                   CUDA tensors of scenes up to AUTO_BRUTE_MAX_TRIS faces.
   "brute"      -- the plain broadcast test (core/intersect.py). "auto" picks
                   it for CPU tensors of such scenes.
+  "matmul"     -- the same test as one IEEE float32 matrix product of the
+                  rays' features and the (16, 4T) coefficient matrix
+                  (core/intersect.py: the JAX package's MXU formulation, a
+                  jnp.dot outside any Pallas kernel there, torch.matmul
+                  here). Explicit only: "auto" never picks it.
   "cluster"    -- the cluster sweep over a ClusterScene (accel/clusters.py):
                   the CUDA kernels of kernels/cluster.py on a GPU, their
                   plain twins on the CPU; cfg.cluster_rounds > 1 runs its
@@ -107,12 +112,11 @@ AUTO_SORT_MIN_CLUSTERS = 256
 
 # the backends that trace a ClusterScene (a ClusterChunks for "cluster_chunked")
 CLUSTER_BACKENDS = ("cluster", "cluster_binned", "cluster_streamed", "cluster_chunked")
-BACKENDS = ("cuda", "brute", "watertight", "bvh") + CLUSTER_BACKENDS
+BACKENDS = ("cuda", "brute", "matmul", "watertight", "bvh") + CLUSTER_BACKENDS
 
 # JAX backends and the ROADMAP item that ports each one.
 _NOT_PORTED = {
     "pallas": 'A4 (its port is backend "cuda")',
-    "matmul": "A14",
 }
 
 
@@ -208,11 +212,9 @@ def maybe_build_accel(scene: Scene, backend: str, accel=None):
 
 
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise for configuration options this port does not implement yet."""
+    """Raise for an estimator this port does not know."""
     if cfg.estimator not in ("reference", "pbrt"):
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
-    if cfg.adaptive:
-        raise NotImplementedError("adaptive sampling is not ported yet (ROADMAP A6)")
 
 
 def light_area_pdf(scene: Scene):
@@ -287,7 +289,8 @@ def pack_light_data(scene: Scene, use_emission: bool = False):
 class TraceTables:
     """Per-scene device tables shared by every sample and pass: the packed
     face and light rows (extended for the pbrt estimator), for backend
-    "cuda" the (9, T) kernel table, for "bvh" the FlatBVH (`accel`) and the
+    "cuda" the (9, T) kernel table, for "matmul" the (16, T, 4) coefficient
+    matrix (differentiable w.r.t. the vertices), for "bvh" the FlatBVH (`accel`) and the
     triangles in its traversal order, for the CLUSTER_BACKENDS the
     ClusterScene or ClusterChunks (`accel`) with its resolved leaf choice
     and, for the sweep, sort choice (the binned backends need no sort), and
@@ -309,6 +312,8 @@ class TraceTables:
         self.tri_table = None
         if self.backend == "cuda":
             self.tri_table = kernels.pack_triangles(scene.vertices, scene.faces)
+        elif self.backend == "matmul":
+            self.tri_table = isect.build_tri_matrix(scene)
         elif self.backend == "bvh":
             ordered = scene.faces[self.accel.order.to(torch.int64)]
             vd = v.detach()
@@ -332,6 +337,8 @@ def _closest(scene, tables, cfg, ro, rd, t1, sort=None):
     b = tables.backend
     if b == "cuda":
         return kernels.closest_hit(tables.tri_table, ro, rd, cfg.t_min, t1)
+    if b == "matmul":
+        return isect.intersect_matmul(scene, ro, rd, cfg.t_min, t1, tables.tri_table)
     if b in ("cluster", "cluster_chunked"):
         fn = (cluster_kernels.closest_hit if b == "cluster"
               else cluster_kernels.closest_hit_chunked)
@@ -356,6 +363,8 @@ def _any_hit(scene, tables, cfg, ro, rd, t1, sort=None):
     b = tables.backend
     if b == "cuda":
         return kernels.occluded(tables.tri_table, ro, rd, cfg.t_min, t1)
+    if b == "matmul":
+        return isect.occluded_matmul(scene, ro, rd, cfg.t_min, t1, tables.tri_table)
     if b in ("cluster", "cluster_chunked"):
         fn = (cluster_kernels.occluded if b == "cluster"
               else cluster_kernels.occluded_chunked)
@@ -570,9 +579,11 @@ def render_sample(
     with_stats: bool = False,
     accel=None,
 ):
-    """Radiance for one sample of a block of pixels; pixel_x/y: (N,) ints.
-    Traces with trace_reference or trace_pbrt, as cfg.estimator says. With
-    with_stats, returns (radiance, rays_traced) as trace_reference."""
+    """Radiance for one sample of a block of pixels; pixel_x/y: (N,) ints;
+    sample_id: an int, or an (N,) integer tensor of per-pixel ids (the
+    adaptive passes of render/driver.py). Traces with trace_reference or
+    trace_pbrt, as cfg.estimator says. With with_stats, returns
+    (radiance, rays_traced) as trace_reference."""
     w, _h = camera.resolution
     pixel_id = pixel_y.to(torch.int64) * w + pixel_x.to(torch.int64)
     strata = int(math.ceil(math.sqrt(cfg.spp))) if cfg.stratified else 0

@@ -1,14 +1,19 @@
-"""CLI: ``python -m pyrenderer_tpu_torch.render.cli scene.json [flags]``.
+"""CLI: ``python -m pyrenderer_tpu_torch.render.cli scene.json [flags]``,
+or ``... tonemap --input hdr.exr|hdr.npy [--tonemap OP] [--out x.png]``.
 
-Counterpart of pyrenderer_tpu/render/cli.py, scene-file mode, with the same
-flags and defaults. It renders on ``cuda:0`` unless ``--cpu`` is given; with
-no GPU and no ``--cpu`` it exits non-zero, it never falls back to the CPU.
+Counterpart of pyrenderer_tpu/render/cli.py, with the same flags and
+defaults. It computes on ``cuda:0`` unless ``--cpu`` is given; with no GPU
+and no ``--cpu`` it exits 2, it never falls back to the CPU.
 
-Like the JAX CLI it defaults to ``--estimator pbrt`` (core/integrator_pbrt.py);
+Scene-file mode renders progressively (render/driver.py): adaptive
+sampling when the scene sets ``renderer.adaptive_sampling``, retries with
+``--resilient [RETRIES]``, an ANSI view of the accumulating film on stderr
+with ``--live [PASSES]`` (which silences the progress prints). Like the JAX
+CLI it defaults to ``--estimator pbrt`` (core/integrator_pbrt.py);
 ``--estimator reference`` reproduces the reference renderer's tracer.
-What is not ported raises NotImplementedError naming its ROADMAP item; the
-JAX CLI's ``--resilient``, ``--live`` and ``--debug-paths`` flags do not
-exist yet (ROADMAP A6, A12).
+The ``tonemap`` mode maps a saved HDR (EXR, ZIP or PIZ, or NPY) to a PNG.
+The ``analytic`` mode raises NotImplementedError naming its ROADMAP item;
+the JAX CLI's ``--debug-paths`` does not exist yet (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import argparse
 import sys
 
 # scene-argument modes of the JAX CLI and the ROADMAP item that ports each
-_NOT_PORTED_MODES = {"analytic": "A11", "tonemap": "A6"}
+_NOT_PORTED_MODES = {"analytic": "A11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -27,9 +32,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "scene",
-        help="Tungsten scene JSON (the JAX CLI's 'analytic' and 'tonemap' "
-        "modes are not ported yet)",
+        help="Tungsten scene JSON; or the literal 'tonemap' to map a saved HDR "
+        "(--input .exr or .npy) to a PNG (the JAX CLI's 'analytic' mode is not "
+        "ported yet)",
     )
+    p.add_argument("--input", help="tonemap mode: HDR input (.exr or .npy)")
     p.add_argument("--spp", type=int, help="samples per pixel (scene default)")
     p.add_argument("--spp-step", type=int, help="samples per progressive pass")
     p.add_argument("--depth", type=int, help="max bounces (scene default)")
@@ -49,15 +56,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hdr-out", help="output EXR/NPY path")
     p.add_argument(
         "--backend",
-        choices=["auto", "cuda", "brute", "pallas", "matmul", "bvh", "cluster",
+        choices=["auto", "cuda", "brute", "matmul", "pallas", "bvh", "cluster",
                  "cluster_binned", "cluster_streamed", "cluster_chunked",
                  "watertight"],
         default="auto",
         help="intersection backend: auto = the whole-table CUDA kernels on a "
         "GPU (the plain PyTorch test on the CPU) up to 4096 triangles, above "
         "the cluster sweep on a GPU (the binned traversal under "
-        "PYRENDERER_CLUSTER_IMPL=binned) and the BVH on the CPU; pallas and "
-        "matmul are not ported and raise",
+        "PYRENDERER_CLUSTER_IMPL=binned) and the BVH on the CPU; matmul = the "
+        "test as one IEEE float32 matrix product (explicit only); pallas raises "
+        "(its port is cuda)",
     )
     p.add_argument("--chunk", type=int, default=1 << 16,
                    help="rays per dispatch chunk (default 2^16)")
@@ -67,8 +75,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", help="checkpoint .npz path (enables save)")
     p.add_argument("--checkpoint-interval", type=int, help="passes between checkpoints")
     p.add_argument("--resume", action="store_true", help="resume from --checkpoint")
+    p.add_argument(
+        "--resilient", type=int, nargs="?", const=3, default=0, metavar="RETRIES",
+        help="retry failed passes and reject non-finite ones (default 3 "
+        "retries when given without a value)",
+    )
+    p.add_argument(
+        "--live", type=int, nargs="?", const=1, default=0, metavar="PASSES",
+        help="redraw the accumulating render on stderr every N passes (ANSI "
+        "half-blocks); silences the progress prints",
+    )
     p.add_argument("--cpu", action="store_true",
-                   help="render on the CPU with the plain PyTorch versions")
+                   help="compute on the CPU with the plain PyTorch versions")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -86,8 +104,10 @@ def main(argv=None) -> int:
     elif torch.cuda.is_available():
         device = torch.device("cuda:0")
     else:
-        print("no CUDA device: pass --cpu to render on the CPU", file=sys.stderr)
+        print("no CUDA device: pass --cpu to compute on the CPU", file=sys.stderr)
         return 2
+    if args.scene == "tonemap":
+        return _main_tonemap(args, device)
 
     from pyrenderer_tpu_torch.core.film import Film
     from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
@@ -125,16 +145,65 @@ def main(argv=None) -> int:
         film = Film.load(args.checkpoint)
         print(f"resuming from {args.checkpoint} at {film.spp} spp", file=sys.stderr)
 
+    on_pass = None
+    if args.live:
+        from pyrenderer_tpu_torch.utils.termview import LiveView
+
+        view = LiveView()
+        passes = 0
+
+        def on_pass(r):
+            # counts passes, uniform and adaptive alike: spp advances by
+            # spp_step a pass and stalls during the adaptive sweeps
+            nonlocal passes
+            passes += 1
+            if passes % args.live == 0:
+                view.update(r.ldr(), f"{r.film.spp}/{r.cfg.spp} spp")
+
     scene, camera = to_device(scene, camera, device, torch.float32)
     renderer = ProgressiveRenderer(scene, camera, cfg, backend=args.backend,
-                                   film=film, chunk=args.chunk)
-    renderer.run(checkpoint_path=args.checkpoint, quiet=args.quiet)
-    if not args.quiet:
+                                   film=film, chunk=args.chunk, on_pass=on_pass)
+    # the live view redraws in place by rewinding exactly its own lines:
+    # any other print between frames would corrupt it
+    quiet = args.quiet or bool(args.live)
+    if args.resilient:
+        renderer.run_resilient(checkpoint_path=args.checkpoint,
+                               max_retries=args.resilient, quiet=quiet)
+    else:
+        renderer.run(checkpoint_path=args.checkpoint, quiet=quiet)
+    if not quiet:
         rays, secs = renderer.rays_traced, renderer.render_seconds
         print(f"rendered on {device} ({renderer.backend} backend): {rays:.0f} rays "
               f"in {secs:.3f} s = {rays / secs / 1e6:.3f} Mrays/s", file=sys.stderr)
     for path in renderer.write_outputs():
         print(f"wrote {path}", file=sys.stderr)
+    return 0
+
+
+def _main_tonemap(args, device) -> int:
+    """Offline tonemapper: a saved HDR (.exr or .npy) -> LDR PNG, the
+    operator (default sqrt) applied on `device`, the role of the
+    reference's tone_map.py."""
+    import numpy as np
+    import torch
+
+    from pyrenderer_tpu_torch.core.tonemap import tonemap
+    from pyrenderer_tpu_torch.utils.image_io import write_png
+
+    if not args.input:
+        print("tonemap mode requires --input (.exr or .npy)", file=sys.stderr)
+        return 2
+    if args.input.endswith(".exr"):
+        from pyrenderer_tpu_torch.utils.exr import read_exr
+
+        hdr = read_exr(args.input)[:, :, :3]
+    else:
+        hdr = np.load(args.input)
+    op = args.tonemap or "sqrt"
+    ldr = tonemap(torch.as_tensor(hdr, dtype=torch.float32, device=device), op)
+    out = args.out or "tonemapped.png"
+    write_png(out, ldr.cpu().numpy())
+    print(f"wrote {out} ({op} on {device}, {hdr.shape[1]}x{hdr.shape[0]})", file=sys.stderr)
     return 0
 
 

@@ -1,12 +1,12 @@
 """Minimal OpenEXR scanline I/O in pure Python (no external EXR backend).
 
-Counterpart of pyrenderer_tpu/utils/exr.py without its PIZ decoder:
+Counterpart of pyrenderer_tpu/utils/exr.py:
 
   write: single-part scanline, 3 x FLOAT (B, G, R) channels, ZIP
          compression (zlib + the EXR delta/deinterleave predictor,
          16-scanline blocks) or none;
-  read:  single-part scanline images with NO_COMPRESSION, ZIPS or ZIP,
-         HALF or FLOAT channels.
+  read:  single-part scanline images with NO_COMPRESSION, ZIPS, ZIP or
+         PIZ (utils/exr_piz.py), HALF or FLOAT channels.
 
 Format reference: the public OpenEXR file layout documentation
 (openexr.com/en/latest/OpenEXRFileLayout.html). Everything here is
@@ -20,6 +20,8 @@ import zlib
 
 import numpy as np
 
+from pyrenderer_tpu_torch.utils.exr_piz import piz_uncompress
+
 _MAGIC = 20000630
 _VERSION = 2
 
@@ -27,12 +29,13 @@ _VERSION = 2
 _NO_COMPRESSION = 0
 _ZIPS_COMPRESSION = 2   # zlib, 1 scanline per block
 _ZIP_COMPRESSION = 3    # zlib, 16 scanlines per block
-_PIZ_COMPRESSION = 4    # wavelet + Huffman (not ported yet)
+_PIZ_COMPRESSION = 4    # wavelet + Huffman, 32 scanlines per block (decode only)
 
 _PIXEL_HALF = 1
 _PIXEL_FLOAT = 2
 
-_BLOCK_LINES = {_NO_COMPRESSION: 1, _ZIPS_COMPRESSION: 1, _ZIP_COMPRESSION: 16}
+_BLOCK_LINES = {_NO_COMPRESSION: 1, _ZIPS_COMPRESSION: 1, _ZIP_COMPRESSION: 16,
+                _PIZ_COMPRESSION: 32}
 
 
 def _attr(name: bytes, typ: bytes, value: bytes) -> bytes:
@@ -175,8 +178,6 @@ def read_exr(path: str) -> np.ndarray:
         chans.append((name, ptype))
         p = e + 1 + 16
     comp = attrs["compression"][1][0]
-    if comp == _PIZ_COMPRESSION:
-        raise NotImplementedError("PIZ-compressed EXR is not ported yet (ROADMAP A6)")
     if comp not in _BLOCK_LINES:
         raise NotImplementedError(f"EXR compression {comp} not supported")
     x0, y0, x1, y1 = struct.unpack("<iiii", attrs["dataWindow"][1])
@@ -193,7 +194,9 @@ def read_exr(path: str) -> np.ndarray:
         data = buf[off + 8: off + 8 + size]
         rows = min(lines_per_block, y1 - y + 1)
         raw_len = rows * line_bytes
-        if comp != _NO_COMPRESSION and size != raw_len:
+        if comp == _PIZ_COMPRESSION and size != raw_len:
+            data = piz_uncompress(data, chans, w, rows)
+        elif comp != _NO_COMPRESSION and size != raw_len:
             data = _predictor_decode(zlib.decompress(data))
         p = 0
         for i in range(rows):

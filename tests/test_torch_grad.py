@@ -284,10 +284,10 @@ def terrain16():
 
 
 @pytest.mark.parametrize("backend", ["cluster", "cluster_binned", "cluster_streamed",
-                                     "cluster_chunked", "bvh", "watertight"])
+                                     "cluster_chunked", "bvh", "watertight", "matmul"])
 def test_grad_cluster_backend(terrain16, backend, monkeypatch):
     """The other backends' gradients (through the kernels' CPU twins, the
-    BVH or the watertight test) are finite and non-zero, and equal "brute"'s on the lanes
+    BVH, the watertight test or the matmul test) are finite and non-zero, and equal "brute"'s on the lanes
     whose hit ids and visibility agree between the two (the loss summed
     over those pixels). "cluster_chunked" gets three chunks."""
     host, camera = terrain16

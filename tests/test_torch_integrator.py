@@ -130,13 +130,17 @@ def test_backend_resolution_and_unported_paths(cornell_path):
     """"auto" is "brute" on CPU tensors and "cuda" on CUDA ones, and past
     AUTO_BRUTE_MAX_TRIS the BVH on the CPU and the cluster sweep on CUDA;
     both estimators render, an unknown one is refused; what is not ported
-    raises NotImplementedError instead of taking another path."""
+    raises NotImplementedError instead of taking another path. "matmul" is
+    explicit only, as in the JAX package; adaptive sampling renders."""
     assert integ.resolve_backend("auto", 36, "cpu") == "brute"
     assert integ.resolve_backend("auto", 36, "cuda:0") == "cuda"
     assert integ.resolve_backend("cuda", 36, "cpu") == "cuda"
-    for backend in ("pallas", "matmul"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            integ.resolve_backend(backend, 36, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        integ.resolve_backend("pallas", 36, "cpu")
+    for device in ("cpu", "cuda:0"):
+        assert integ.resolve_backend("matmul", 36, device) == "matmul"
+        for n_tris in (36, integ.AUTO_BRUTE_MAX_TRIS + 1):
+            assert integ.resolve_backend("auto", n_tris, device) != "matmul"
     assert integ.resolve_backend("auto", integ.AUTO_BRUTE_MAX_TRIS + 1, "cpu") == "bvh"
     assert integ.resolve_backend("auto", integ.AUTO_BRUTE_MAX_TRIS + 1, "cuda:0") == "cluster"
     with pytest.raises(ValueError):
@@ -147,8 +151,10 @@ def test_backend_resolution_and_unported_paths(cornell_path):
     assert integ.render_image(scene_t, cam_t, CFG.replace(estimator="pbrt")).shape == (4, 4, 3)
     with pytest.raises(ValueError, match="estimator"):
         integ.render_image(scene_t, cam_t, CFG.replace(estimator="nope"))
-    with pytest.raises(NotImplementedError, match="A6"):
-        integ.render_image(scene_t, cam_t, CFG.replace(adaptive=True))
+    # render_image renders a uniform frame; adaptivity is the driver's
+    assert torch.equal(integ.render_image(scene_t, cam_t, CFG.replace(adaptive=True)),
+                       integ.render_image(scene_t, cam_t, CFG))
+    assert integ.render_image(scene_t, cam_t, CFG, backend="matmul").shape == (4, 4, 3)
     ro = torch.zeros((2, 3))
     with pytest.raises(NotImplementedError, match="A12"):
         integ.trace_reference(scene_t, CFG, ro, ro, torch.zeros(2, dtype=torch.int64),
