@@ -222,10 +222,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    rtol 2e-4 where the faces agree (tests/test_intersect.py's bounds),
    bit for bit the result under "highest"; printed beside them, the same
    product unguarded (TF32).
+28. The analytic tracer (analytic.py, plain PyTorch, no kernel): the CLI's
+   analytic mode at its defaults (400x400, 25 spp, depth 10, 160,000 rays
+   a wavefront) writing the PNG and the .npy HDR, a counting window with
+   no launch: a finite HDR, the left wall red and the right wall green,
+   its wall time; the same frame under set_float32_matmul_precision("high")
+   bit-identical to it (the TF32 guard; the precision restored after); one
+   sample of it timed, then profiled (device kernels, busy, idle share); at
+   64x64, 25 spp, depth 10, seed 0 the card's frame against the port's CPU
+   frame (>= 99% of the values close at rtol 1e-3, atol 1e-6) and its mean
+   against the JAX package's CPU mean (5e-3 relative).
+29. The debug path records (debug/logger.py): the CLI's --debug-paths on
+   Cornell (49 rays at the scene's 1024x1024 and 16 bounces) with exactly
+   16 launches of each whole-table kernel and no twin call, the HTML's
+   embedded JSON (49 paths, the wireframe) and the PLY's header; log_paths
+   over every pixel of phase 3's 1024x1024 frame (reference, 4 bounces,
+   seed 0) with exactly 4 launches of each kernel, its last-bounce radiance
+   bit-identical to trace_reference on the same rays; on a 64x64 grid its
+   records against the CPU twins' (hit and tri equal on >= 99.9%); and
+   log_paths(backend="cluster") on terrain8k with cluster_sort=True, with
+   PYRENDERER_WF_SORT=1 and =0: 4 launches of each cluster kernel in each
+   run and every record equal.
+30. The golden HDR check: Cornell, pbrt, 64x64, 32 spp, 8 bounces, seed 1
+   through B1/B2 (exactly 256 launches of each) against the Tungsten
+   renderer's EXR (tests/data/tungsten_gt_256.exr read by utils/exr.py,
+   box-downsampled to 64x64): whole-image mean within 3%, each channel's
+   within 5%, the 8x8 blocks' mean relative error below 8%
+   (tests/test_torch_golden.py's bounds).
 
 Every main-path run above (the frames of phases 3, 7, 11, 14, 17-21,
-24-25 and 27, the CLI runs, the bench rows, the harness and the gradient and
-training runs of phases 22-23) is a counting window: every
+24-25, 27 and 30, the CLI runs, the bench rows, the harness, the gradient and
+training runs of phases 22-23 and the path records of phase 29) is a
+counting window: every
 wrapper's counts are zeroed just before it and read just after. The line
 before the last is a JSON object with one entry per kernel: its launches
 summed over those windows, its largest difference from the twin, its time
@@ -283,6 +311,14 @@ JAX_MEAN_RADIANCE_TERRAIN100K = 0.044580455869436264
 #                RenderConfig(max_bounces=8, spp=32, seed=1,
 #                             estimator="pbrt")).mean()
 JAX_MEAN_RADIANCE_160_PBRT = 0.11940412223339081
+
+# Mean radiance of the analytic scene at 64x64, 25 spp, depth 10, seed 0,
+# float32: pyrenderer_tpu.analytic.render on the CPU (JAX 0.9.0), i.e.
+#   float(np.asarray(analytic.render(res=(64, 64), spp=25, seed=0,
+#                                    max_depth=10)).mean())
+# Seeds 1-3 give 0.008376, 0.008206 and 0.008127: seed-to-seed noise is 1-2%.
+JAX_MEAN_RADIANCE_ANALYTIC_64 = 0.008213918656110764
+ANALYTIC_MEAN_TOL = 5e-3
 
 # The bound of each kernel: the larger of its fp32 operations over the
 # card's peak and its bytes over the memory rate (NVIDIA's H100 SXM data
@@ -539,6 +575,9 @@ def main() -> int:
     accel_phases(dev, card, ctx)
     gradient_phases(dev, card)
     render_mode_phases(dev, card, hdr, ro, rd, table)
+    analytic_phase(dev, card)
+    debug_path_phases(dev, card)
+    golden_phase(dev, card)
     for entries in (large, binned, probes, rounds):
         max_abs_err.update(entries["max_abs_err"])
         ms.update(entries["ms"])
@@ -2189,6 +2228,201 @@ def matmul_decisions(scene, cam, cfg):
             mock.patch.object(integ, "_any_hit", both_any_hit):
         drv.ProgressiveRenderer(scene, cam, cfg, backend="cuda").run(quiet=True)
     return {key: {k: int(v) for k, v in c.items()} for key, c in counts.items()}
+
+
+def analytic_phase(dev, card):
+    """Phase 28: the analytic tracer through the CLI at its defaults, the
+    TF32 guard, and the 64x64 frame against the CPU and the JAX mean."""
+    from pyrenderer_tpu_torch import analytic
+    from pyrenderer_tpu_torch.render import cli
+
+    phase("28 analytic: CLI at its defaults (400x400, 25 spp, depth 10)")
+    with tempfile.TemporaryDirectory() as tmp:
+        png, npy = os.path.join(tmp, "analytic.png"), os.path.join(tmp, "analytic.npy")
+        ((rc, _), _), wall = timed(lambda: counted(
+            lambda: run_cli(cli, ["analytic", "--out", png, "--hdr-out", npy]),
+            "CLI analytic frame", {}))
+        check(rc == 0, f"cli.main analytic returned {rc}")
+        ldr = read_png(png)
+        hdr = np.load(npy)
+    check(hdr.shape == (400, 400, 3) and ldr.shape == (400, 400, 3),
+          f"analytic shapes {hdr.shape}, {ldr.shape}")
+    check(bool(np.isfinite(hdr).all()), "the analytic HDR has non-finite values")
+    left = ldr[:, :100].reshape(-1, 3).mean(0)
+    right = ldr[:, -100:].reshape(-1, 3).mean(0)
+    print(f"analytic 400x400 25 spp depth 10: {wall:.3f} s wall (CLI, PNG and .npy included), "
+          f"HDR mean {float(hdr.mean())!r}, left wall RGB {left.round(1)}, right wall "
+          f"RGB {right.round(1)} ({card})", flush=True)
+    check(left[0] > left[1] * 1.15, f"the left wall is not red: {left}")
+    check(right[1] > right[0] * 1.15, f"the right wall is not green: {right}")
+
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        high = analytic.render(res=(400, 400), spp=25, seed=0, max_depth=10, device=dev)
+    finally:
+        torch.set_float32_matmul_precision(precision)
+    same = bool(np.array_equal(high.cpu().numpy(), hdr))
+    print(f"analytic frame under matmul precision 'high' bit-identical to '{precision}': "
+          f"{same}", flush=True)
+    check(same, "the analytic frame depends on the float32 matmul precision")
+
+    # one sample of that frame (160,000 rays, 10 bounces), unprofiled then
+    # under torch.profiler: the device's busy union against the wall
+    from pyrenderer_tpu_torch.perf.clusterbench import device_busy
+
+    def one_sample():
+        ro, rd, pixel, sample = analytic.camera_rays((400, 400), 0, 0, device=dev)
+        return analytic.trace(ro, rd, pixel, sample, 0, max_depth=10)
+
+    _, t_sample = timed(one_sample)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        timed(one_sample)
+    busy_us, _, n_events = device_busy(prof.events())
+    check(n_events > 0, "analytic: torch.profiler saw no device activity")
+    print(f"analytic sample 400x400 depth 10: {t_sample * 1e3:.1f} ms wall, {n_events} device "
+          f"kernels, device busy {busy_us / 1e3:.1f} ms, idle share "
+          f"{1.0 - busy_us / 1e6 / t_sample:.4f} (against the unprofiled sample) ({card})",
+          flush=True)
+
+    frame = {where: analytic.render(res=(64, 64), spp=25, seed=0, max_depth=10,
+                                    device=where).cpu().numpy() for where in (dev, "cpu")}
+    close = float(np.isclose(frame[dev], frame["cpu"], rtol=1e-3, atol=1e-6).mean())
+    mean = float(frame[dev].mean())
+    rel = abs(mean - JAX_MEAN_RADIANCE_ANALYTIC_64) / JAX_MEAN_RADIANCE_ANALYTIC_64
+    print(f"analytic 64x64 25 spp depth 10 seed 0: GPU vs CPU close fraction {close:.6f} "
+          f"(>= 0.99); mean {mean!r}, CPU {float(frame['cpu'].mean())!r}, JAX CPU "
+          f"{JAX_MEAN_RADIANCE_ANALYTIC_64!r}, relative diff {rel:.3g} "
+          f"(<= {ANALYTIC_MEAN_TOL})", flush=True)
+    check(close >= 0.99, "the analytic GPU and CPU frames disagree")
+    check(rel <= ANALYTIC_MEAN_TOL, "the analytic mean radiance is off")
+
+
+def debug_path_phases(dev, card):
+    """Phase 29: the debug path records through the CLI and log_paths, on
+    the whole-table kernels (B1/B2) and the cluster sweep (B3/B4)."""
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.core.camera import generate_rays
+    from pyrenderer_tpu_torch.core.integrator import trace_reference
+    from pyrenderer_tpu_torch.debug.logger import log_paths
+    from pyrenderer_tpu_torch.render import cli
+    from pyrenderer_tpu_torch.scene import load_tungsten, procgen, to_device
+    from pyrenderer_tpu_torch.scene.tungsten import build_scene
+
+    phase("29 debug paths: CLI --debug-paths on Cornell, log_paths at 1024x1024, "
+          "the CPU twins, terrain8k with the wavefront sort")
+    host, host_cam, scene_cfg = load_tungsten(SCENE)
+    bounces = scene_cfg.max_bounces
+    with tempfile.TemporaryDirectory() as tmp:
+        html = os.path.join(tmp, "paths.html")
+        ((rc, log), _), wall = timed(lambda: counted(
+            lambda: run_cli(cli, [SCENE, "--debug-paths", html]), "CLI --debug-paths",
+            {"closest_hit": bounces, "occluded": bounces}))
+        check(rc == 0, f"cli.main --debug-paths returned {rc}")
+        check("(49 paths)" in log, "the CLI did not report 49 paths")
+        with open(html) as fh:
+            m = re.search(r"const DATA = (\{.*?\});\n", fh.read(), re.S)
+        check(m is not None, "no DATA in the HTML")
+        data = json.loads(m.group(1))
+        with open(os.path.join(tmp, "paths.ply")) as fh:
+            ply = fh.read()
+    check(len(data["paths"]) == 49 and len(data["wire"]) > 0 and data["radius"] > 0,
+          f"HTML: {len(data['paths'])} paths, {len(data['wire'])} wire edges")
+    check(ply.startswith("ply\nformat ascii 1.0\nelement vertex ") and "element edge" in ply,
+          "PLY header")
+    print(f"CLI --debug-paths: {bounces} bounces, 49 paths, {len(data['shadow'])} shadow "
+          f"rays, {len(data['wire'])} wire edges in {wall:.3f} s ({card})", flush=True)
+
+    cfg = RenderConfig(max_bounces=4, seed=0, estimator="reference")
+    res = host_cam.resolution[0]
+    scene, cam = to_device(host, host_cam._replace(resolution=(res, res)), dev)
+    ys, xs = np.mgrid[0:res, 0:res]
+    px, py = xs.reshape(-1), ys.reshape(-1)
+    records, wall = timed(lambda: counted(lambda: log_paths(scene, cam, cfg, px, py),
+                                          f"log_paths {res}x{res}",
+                                          {"closest_hit": 4, "occluded": 4})[0])
+    px_t, py_t = (torch.as_tensor(a, device=dev) for a in (px, py))
+    ro, rd = generate_rays(cam, px_t, py_t, 0, cfg.seed)
+    rad = trace_reference(scene, cfg, ro, rd, py_t * res + px_t, 0, cfg.seed).cpu().numpy()
+    check(records.hit_point.shape == (4, res * res, 3), f"records {records.hit_point.shape}")
+    same = bool(np.array_equal(records.radiance[-1], rad))
+    print(f"log_paths {res}x{res} 4 bounces: {wall:.3f} s ({card}); last-bounce radiance "
+          f"bit-identical to trace_reference: {same}", flush=True)
+    check(same, "log_paths' radiance differs from trace_reference's")
+
+    ys, xs = np.mgrid[0:64, 0:64]
+    cam64 = host_cam._replace(resolution=(64, 64))
+    logs = {where: log_paths(*to_device(host, cam64, where), cfg, xs.reshape(-1),
+                             ys.reshape(-1)) for where in (dev, "cpu")}
+    hit_eq = float((logs[dev].hit == logs["cpu"].hit).mean())
+    tri_eq = float((logs[dev].tri == logs["cpu"].tri).mean())
+    print(f"log_paths 64x64 GPU vs CPU twins: hit equal {hit_eq:.6f}, tri equal {tri_eq:.6f} "
+          "(>= 0.999)", flush=True)
+    check(hit_eq >= 0.999 and tri_eq >= 0.999, "GPU and CPU path records disagree")
+
+    host8, cam8, _ = build_scene(procgen.big_scene_data("terrain", res=64))
+    scene8, cam8 = to_device(host8, cam8._replace(resolution=(64, 64)), dev)
+    cfg8 = RenderConfig(max_bounces=4, seed=0, estimator="reference", cluster_sort=True)
+    cluster = {"cluster_closest_hit": 4, "cluster_occluded": 4}
+    saved = os.environ.get("PYRENDERER_WF_SORT")
+    wf = {}
+    try:
+        for flag in ("1", "0"):
+            os.environ["PYRENDERER_WF_SORT"] = flag
+            wf[flag], _ = counted(
+                lambda: log_paths(scene8, cam8, cfg8, xs.reshape(-1), ys.reshape(-1),
+                                  backend="cluster"),
+                f"log_paths terrain8k cluster, PYRENDERER_WF_SORT={flag}", cluster)
+    finally:
+        if saved is None:
+            os.environ.pop("PYRENDERER_WF_SORT", None)
+        else:
+            os.environ["PYRENDERER_WF_SORT"] = saved
+    differ = [k for k in wf["0"].__dataclass_fields__
+              if not np.array_equal(getattr(wf["1"], k), getattr(wf["0"], k))]
+    print(f"log_paths terrain8k 64x64 4 bounces, PYRENDERER_WF_SORT=1 against =0: records "
+          f"that differ {differ}; hits per bounce {wf['0'].hit.sum(axis=1).tolist()}",
+          flush=True)
+    check(not differ, f"wavefront-sorted records differ: {differ}")
+
+
+def golden_errors(hdr, gt):
+    """(whole-image mean, worst channel mean, 8x8-block mean) relative
+    errors of a 64x64 linear frame against the 256x256 ground truth
+    box-downsampled to 64x64 (tests/test_torch_golden.py hdr_errors)."""
+    gt64 = gt.reshape(64, 4, 64, 4, 3).mean(axis=(1, 3))
+    mean_rel = abs(hdr.mean() - gt64.mean()) / gt64.mean()
+    chan = gt64.reshape(-1, 3).mean(0)
+    chan_rel = np.abs(hdr.reshape(-1, 3).mean(0) - chan) / chan
+    ours8 = hdr.reshape(8, 8, 8, 8, 3).mean(axis=(1, 3))
+    gt8 = gt64.reshape(8, 8, 8, 8, 3).mean(axis=(1, 3))
+    block_rel = (np.abs(ours8 - gt8) / np.maximum(gt8, 1e-3)).mean()
+    return float(mean_rel), float(chan_rel.max()), float(block_rel)
+
+
+def golden_phase(dev, card):
+    """Phase 30: the pbrt estimator on the card against the Tungsten
+    renderer's linear EXR."""
+    from pyrenderer_tpu_torch.core.integrator import render_image
+    from pyrenderer_tpu_torch.scene import load_tungsten, to_device
+    from pyrenderer_tpu_torch.utils.exr import read_exr
+
+    phase("30 golden HDR: Cornell, pbrt, 64x64, 32 spp, 8 bounces, seed 1, against Tungsten")
+    host, host_cam, cfg = load_tungsten(SCENE)
+    scene, cam = to_device(host, host_cam._replace(resolution=(64, 64)), dev)
+    cfg = cfg.replace(spp=32, max_bounces=8, estimator="pbrt", seed=1)
+    expect = cfg.spp * cfg.max_bounces
+    hdr, _ = counted(lambda: render_image(scene, cam, cfg), "golden pbrt frame",
+                     {"closest_hit": expect, "occluded": expect})
+    hdr = hdr.cpu().numpy().astype(np.float64)
+    gt = read_exr(os.path.join(ROOT, "tests", "data", "tungsten_gt_256.exr")).astype(np.float64)
+    check(gt.shape == (256, 256, 3), f"ground truth shape {gt.shape}")
+    mean_rel, chan_rel, block_rel = golden_errors(hdr, gt)
+    print(f"golden HDR against Tungsten: mean {mean_rel:.4%} (< 3%), worst channel "
+          f"{chan_rel:.4%} (< 5%), 8x8 blocks {block_rel:.4f} (< 0.08) ({card})", flush=True)
+    check(mean_rel < 0.03 and chan_rel < 0.05 and block_rel < 0.08,
+          "the pbrt frame is off the Tungsten ground truth")
 
 
 def run_cli(cli, argv):

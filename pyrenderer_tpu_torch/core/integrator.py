@@ -455,10 +455,15 @@ def trace_reference(
     each bounce: pixel and sample ids travel with their lanes (the RNG is
     keyed on them, so each pixel's radiance is the same), and the radiance
     is scattered back to the caller's lane order at the end.
+
+    With collect_paths, returns (radiance, records) instead: each bounce's
+    hit records (the debug log of debug/logger.py), a dict of detached
+    tensors stacked to (B, N, ...) in the caller's lane order: hit_point,
+    normal, wi, t, tri, hit (the closest hit of a lane alive before the
+    bounce), alive (after it), beta, radiance (running), nee_visible (the
+    shadow ray of a live lane unoccluded) and light_point. The radiance is
+    the one the call returns without them.
     """
-    if collect_paths:
-        raise NotImplementedError("collect_paths (debug path records) is not "
-                                  "ported yet (ROADMAP A12)")
     check_supported(cfg)
     dtype = ro.dtype
     if tables is None:
@@ -477,12 +482,14 @@ def trace_reference(
     if wf_sort:
         sample_id = torch.as_tensor(sample_id, device=ro.device).to(torch.int64).expand(n)
         orig = torch.arange(n, device=ro.device)
+    records = []
 
     for bounce in range(cfg.max_bounces):
         if wf_sort:
             perm = wavefront_sort_perm(tables.accel, ro, rd, alive)
             ro, rd, beta, radiance, alive, pixel_id, sample_id, orig = (
                 x[perm] for x in (ro, rd, beta, radiance, alive, pixel_id, sample_id, orig))
+        alive_in = alive
         n_rays = n_rays + alive.sum(dtype=torch.float32)
 
         # dead lanes trace with t1 = 0: they can never hit, and every result
@@ -557,10 +564,22 @@ def trace_reference(
 
         ro = torch.where(alive[:, None], p, ro)
         rd = torch.where(alive[:, None], wi, rd)
+        if collect_paths:
+            rec = dict(hit_point=p, normal=nrm, wi=wi, t=t, tri=tri, hit=hit & alive_in,
+                       alive=alive, beta=beta, radiance=radiance,
+                       nee_visible=(~occ) & alive, light_point=p2)
+            rec = {k: v.detach() for k, v in rec.items()}
+            if wf_sort:
+                # this bounce's lanes are in its sorted order: scatter each
+                # record back to the caller's lane order
+                rec = {k: torch.zeros_like(v).index_put((orig,), v) for k, v in rec.items()}
+            records.append(rec)
 
     if wf_sort:
         # lanes end in the last bounce's order; orig maps each back
         radiance = torch.zeros_like(radiance).index_put((orig,), radiance)
+    if collect_paths:
+        return radiance, {k: torch.stack([r[k] for r in records]) for k in records[0]}
     if with_stats:
         return radiance, n_rays
     return radiance

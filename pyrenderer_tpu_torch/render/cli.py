@@ -12,17 +12,17 @@ with ``--live [PASSES]`` (which silences the progress prints). Like the JAX
 CLI it defaults to ``--estimator pbrt`` (core/integrator_pbrt.py);
 ``--estimator reference`` reproduces the reference renderer's tracer.
 The ``tonemap`` mode maps a saved HDR (EXR, ZIP or PIZ, or NPY) to a PNG.
-The ``analytic`` mode raises NotImplementedError naming its ROADMAP item;
-the JAX CLI's ``--debug-paths`` does not exist yet (ROADMAP A12).
+The ``analytic`` mode renders the self-contained analytic-primitive scene
+(analytic.py, the reference's taichi_ref.py) at 400x400, 25 spp and depth
+10 unless told otherwise. ``--debug-paths OUT.html`` traces a grid of
+``--debug-rays`` pixels once, recording every bounce (debug/logger.py), and
+writes the HTML viewer and OUT.ply instead of rendering.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-
-# scene-argument modes of the JAX CLI and the ROADMAP item that ports each
-_NOT_PORTED_MODES = {"analytic": "A11"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -32,9 +32,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "scene",
-        help="Tungsten scene JSON; or the literal 'tonemap' to map a saved HDR "
-        "(--input .exr or .npy) to a PNG (the JAX CLI's 'analytic' mode is not "
-        "ported yet)",
+        help="Tungsten scene JSON; the literal 'analytic' for the self-contained "
+        "analytic-primitive scene (the reference's taichi_ref.py); or the literal "
+        "'tonemap' to map a saved HDR (--input .exr or .npy) to a PNG",
     )
     p.add_argument("--input", help="tonemap mode: HDR input (.exr or .npy)")
     p.add_argument("--spp", type=int, help="samples per pixel (scene default)")
@@ -88,14 +88,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="compute on the CPU with the plain PyTorch versions")
     p.add_argument("--quiet", action="store_true")
+    p.add_argument(
+        "--debug-paths", metavar="OUT.html",
+        help="instead of rendering, trace a coarse pixel grid recording every "
+        "bounce and write a self-contained interactive HTML viewer (scene "
+        "wireframe + ray/shadow polylines), the reference's `main.py -d` open3d "
+        "mode, headless (debug/logger.py; also writes OUT.ply next to it)",
+    )
+    p.add_argument("--debug-rays", type=int, default=49,
+                   help="ray count for --debug-paths (a sqrt-grid of pixels)")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.scene in _NOT_PORTED_MODES:
-        raise NotImplementedError(
-            f"the {args.scene!r} mode is not ported yet (ROADMAP {_NOT_PORTED_MODES[args.scene]})")
 
     import torch
 
@@ -106,6 +112,8 @@ def main(argv=None) -> int:
     else:
         print("no CUDA device: pass --cpu to compute on the CPU", file=sys.stderr)
         return 2
+    if args.scene == "analytic":
+        return _main_analytic(args, device)
     if args.scene == "tonemap":
         return _main_tonemap(args, device)
 
@@ -136,6 +144,9 @@ def main(argv=None) -> int:
     if args.preview_file is not None:
         overrides["preview_file"] = args.preview_file
     cfg = cfg.replace(**overrides)
+
+    if args.debug_paths:
+        return _main_debug_paths(args, scene, camera, cfg, device)
 
     film = None
     if args.resume:
@@ -204,6 +215,54 @@ def _main_tonemap(args, device) -> int:
     out = args.out or "tonemapped.png"
     write_png(out, ldr.cpu().numpy())
     print(f"wrote {out} ({op} on {device}, {hdr.shape[1]}x{hdr.shape[0]})", file=sys.stderr)
+    return 0
+
+
+def _main_debug_paths(args, scene, camera, cfg, device) -> int:
+    """Trace a sqrt-grid of --debug-rays pixels at the render's resolution
+    once, recording every bounce, and write the HTML viewer and the PLY
+    beside it."""
+    import numpy as np
+
+    from pyrenderer_tpu_torch.debug.logger import log_paths
+    from pyrenderer_tpu_torch.scene import to_device
+
+    w, h = cfg.resolution or camera.resolution
+    scene, camera = to_device(scene, camera._replace(resolution=(w, h)), device)
+    side = max(1, int(args.debug_rays ** 0.5))
+    xs = (np.arange(side) + 0.5) * (w / side)
+    ys = (np.arange(side) + 0.5) * (h / side)
+    px, py = np.meshgrid(xs.astype(np.int32), ys.astype(np.int32))
+    log = log_paths(scene, camera, cfg, px.reshape(-1), py.reshape(-1),
+                    backend=args.backend)
+    log.write_html(args.debug_paths, scene=scene)
+    ply = args.debug_paths.rsplit(".", 1)[0] + ".ply"
+    log.write_ply(ply)
+    print(f"wrote {args.debug_paths} and {ply} ({side * side} paths)", file=sys.stderr)
+    return 0
+
+
+def _main_analytic(args, device) -> int:
+    """Render the hardcoded analytic-primitive scene on `device`.
+
+    The reference counterpart is `python taichi_ref.py`, a standalone
+    renderer outside the Tungsten pipeline (taichi_ref.py:441-511); flags
+    that only make sense for scene-driven renders are ignored."""
+    import numpy as np
+
+    from pyrenderer_tpu_torch import analytic
+    from pyrenderer_tpu_torch.utils.image_io import write_png
+
+    res = tuple(args.res) if args.res is not None else (400, 400)
+    spp = args.spp if args.spp is not None else 25
+    depth = args.depth if args.depth is not None else analytic.MAX_DEPTH
+    hdr = analytic.render(res=res, spp=spp, seed=args.seed, max_depth=depth, device=device)
+    out = args.out or "analytic.png"
+    write_png(out, analytic.tonemap(hdr).cpu().numpy())
+    if args.hdr_out:
+        np.save(args.hdr_out, hdr.cpu().numpy())
+        print(f"wrote {args.hdr_out}", file=sys.stderr)
+    print(f"wrote {out}", file=sys.stderr)
     return 0
 
 

@@ -15,6 +15,7 @@ from pyrenderer_tpu.ref import scalar as ref
 from pyrenderer_tpu.scene.tungsten import load_tungsten
 from pyrenderer_tpu_torch.config import RenderConfig
 from pyrenderer_tpu_torch.core import integrator as integ
+from pyrenderer_tpu_torch.core.camera import generate_rays
 from pyrenderer_tpu_torch.kernels import intersect as ki
 from pyrenderer_tpu_torch.scene import to_device
 
@@ -131,7 +132,8 @@ def test_backend_resolution_and_unported_paths(cornell_path):
     AUTO_BRUTE_MAX_TRIS the BVH on the CPU and the cluster sweep on CUDA;
     both estimators render, an unknown one is refused; what is not ported
     raises NotImplementedError instead of taking another path. "matmul" is
-    explicit only, as in the JAX package; adaptive sampling renders."""
+    explicit only, as in the JAX package; adaptive sampling renders;
+    collect_paths returns the records beside the unchanged radiance."""
     assert integ.resolve_backend("auto", 36, "cpu") == "brute"
     assert integ.resolve_backend("auto", 36, "cuda:0") == "cuda"
     assert integ.resolve_backend("cuda", 36, "cpu") == "cuda"
@@ -155,7 +157,13 @@ def test_backend_resolution_and_unported_paths(cornell_path):
     assert torch.equal(integ.render_image(scene_t, cam_t, CFG.replace(adaptive=True)),
                        integ.render_image(scene_t, cam_t, CFG))
     assert integ.render_image(scene_t, cam_t, CFG, backend="matmul").shape == (4, 4, 3)
-    ro = torch.zeros((2, 3))
-    with pytest.raises(NotImplementedError, match="A12"):
-        integ.trace_reference(scene_t, CFG, ro, ro, torch.zeros(2, dtype=torch.int64),
-                              0, 0, collect_paths=True)
+    # collect_paths (ROADMAP A12) returns the plain call's radiance and the
+    # per-bounce records
+    cam_ro, cam_rd = generate_rays(cam_t, torch.tensor([1, 2]), torch.tensor([1, 3]), 0, 0)
+    pixel = torch.tensor([5, 14])
+    plain = integ.trace_reference(scene_t, CFG, cam_ro, cam_rd, pixel, 0, 0)
+    rad, records = integ.trace_reference(scene_t, CFG, cam_ro, cam_rd, pixel, 0, 0,
+                                         collect_paths=True)
+    assert torch.equal(rad, plain)
+    assert records["hit_point"].shape == (CFG.max_bounces, 2, 3)
+    assert bool(records["hit"][0].all()) and torch.equal(records["radiance"][-1], rad)

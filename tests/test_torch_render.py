@@ -106,14 +106,16 @@ def test_cli_cpu_end_to_end(cornell_path, tmp_path):
 
 
 def test_cli_unported_options_raise(cornell_path, tmp_path, capsys):
-    """Only the analytic mode (A11) is left to port; --backend matmul and
-    --live render."""
+    """Every mode and flag of the JAX CLI is ported: the analytic mode
+    renders its PNG, --backend matmul and --live render."""
     base = [cornell_path, "--cpu", "--res", "4", "4", "--spp", "1",
             "--out", str(tmp_path / "o.png")]
     assert cli.main(base + ["--estimator", "reference", "--backend", "matmul"]) == 0
     assert "(matmul backend)" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli.main(["analytic"])
+    analytic_png = tmp_path / "analytic.png"
+    assert cli.main(["analytic", "--cpu", "--res", "6", "4", "--spp", "1", "--depth", "1",
+                     "--out", str(analytic_png)]) == 0
+    assert iio.imread(analytic_png).shape == (4, 6, 3)
     assert cli.main(base + ["--estimator", "reference", "--live"]) == 0
     assert "\u2580" in capsys.readouterr().err
 
@@ -127,6 +129,11 @@ def test_cli_without_gpu_exits_nonzero(cornell_path, tmp_path, monkeypatch, caps
                    "--spp", "1", "--out", str(out)])
     assert rc != 0 and not out.exists()
     assert "--cpu" in capsys.readouterr().err
+    for argv in (["analytic", "--res", "4", "4", "--spp", "1", "--out", str(out)],
+                 [cornell_path, "--res", "4", "4", "--debug-paths", str(tmp_path / "p.html")]):
+        assert cli.main(argv) == 2
+        assert "--cpu" in capsys.readouterr().err
+    assert not out.exists() and not (tmp_path / "p.html").exists()
 
 
 def _imported_modules(path):
