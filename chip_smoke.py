@@ -249,12 +249,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    box-downsampled to 64x64): whole-image mean within 3%, each channel's
    within 5%, the 8x8 blocks' mean relative error below 8%
    (tests/test_torch_golden.py's bounds).
+31. Distribution, a world of one NCCL rank (dist/multihost.initialize with
+   one process): render_field_sharded on a (dp, sp) = (1, 1) mesh at
+   Cornell 256x256, 4 spp, 4 bounces, reference, bit-identical to
+   render_field with exactly 16 launches of each whole-table kernel; then
+   train_step(mesh=...): its loss bit-identical to train_step()'s, its
+   steps within 1e-4 of the largest (the backward's scatters add with
+   atomics in no fixed order; the spread of two train_step() calls is
+   printed beside it).
+32. The dp x sp path at full width: phase 3's frame (Cornell 1024x1024,
+   reference, 4 bounces, 16 spp) by four `python -m
+   pyrenderer_tpu_torch.dist.worker` ranks on the card over gloo (NCCL
+   takes one rank per GPU), dp = 2, sp = 2: the assembled image within
+   rtol 2e-5, atol 1e-6 of phase 3's HDR, every rank on the card with
+   exactly 512 launches of each whole-table kernel over its two frames
+   (warm-up and timed) and no twin call; its time per frame and Mrays/s.
+   Then two ranks (dp = 2) at 1024x1024, 1 spp, --train-steps 1 beside a
+   one-process worker (a world of one NCCL rank): losses and the mean
+   absolute gradients equal at rtol 1e-5.
+33. The gp path (dist/geometry.py), two ranks that chip_smoke starts
+   (gp_rank) on the card over gloo: Cornell 256x256, 4 spp, 4 bounces
+   through B1/B2 on each rank's 18-triangle shard (exactly 16 launches
+   each) against render_field at rtol 2e-5, atol 2e-6; then phase 7's
+   frame (terrain100k, 512x512, 4 spp, 4 bounces) at gp = 2, each rank
+   holding its own ClusterScene of 50,182 triangles and launching B3/B4
+   (exactly 64 each): > 99% of the values close to phase 7's HDR at rtol
+   1e-3, atol 1e-4 and the means within 1e-3 relative; its wall and phase
+   7's rays over it in Mrays/s. A rank that fails or outlives its timeout
+   fails the phase, and the survivors are killed.
 
 Every main-path run above (the frames of phases 3, 7, 11, 14, 17-21,
-24-25, 27 and 30, the CLI runs, the bench rows, the harness, the gradient and
+24-25, 27 and 30-33, the CLI runs, the bench rows, the harness, the gradient and
 training runs of phases 22-23 and the path records of phase 29) is a
 counting window: every
-wrapper's counts are zeroed just before it and read just after. The line
+wrapper's counts are zeroed just before it and read just after (in the
+ranks of phases 32-33 by each rank, which reports them). The line
 before the last is a JSON object with one entry per kernel: its launches
 summed over those windows, its largest difference from the twin, its time
 and the twin's, and its bound (the larger of its fp32 operations over the
@@ -578,6 +607,7 @@ def main() -> int:
     analytic_phase(dev, card)
     debug_path_phases(dev, card)
     golden_phase(dev, card)
+    dist_phases(dev, card, hdr, host_scene, host_camera, ctx)
     for entries in (large, binned, probes, rounds):
         max_abs_err.update(entries["max_abs_err"])
         ms.update(entries["ms"])
@@ -802,7 +832,7 @@ def large_scene_phases(dev, card):
               f" of {N_RAYS} rays, terrain100k, watertight, sorted, {card})", flush=True)
     ctx = {"host": host, "cs": cs, "scene": scene, "camera": camera, "cfg": cfg,
            "refs": refs, "quad": quad, "edge": (edge_ro, edge_rd), "hdr_cluster": hdr,
-           "mrays_cluster": rays / secs / 1e6}
+           "mrays_cluster": rays / secs / 1e6, "rays_cluster": rays}
     return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bounds": bounds}, ctx
 
 
@@ -2423,6 +2453,284 @@ def golden_phase(dev, card):
           f"{chan_rel:.4%} (< 5%), 8x8 blocks {block_rel:.4f} (< 0.08) ({card})", flush=True)
     check(mean_rel < 0.03 and chan_rel < 0.05 and block_rel < 0.08,
           "the pbrt frame is off the Tungsten ground truth")
+
+
+def spawn(cmds, label, timeout):
+    """Start every command at once from the repo's root, wait for all of
+    them within `timeout` seconds, kill the survivors; check that each
+    exited 0. Returns their standard outputs. Outputs go to files, not
+    pipes: a rank blocked in a collective must not wait on a full pipe."""
+    with tempfile.TemporaryDirectory() as logs:
+        procs = []
+        try:
+            for i, cmd in enumerate(cmds):
+                out = open(os.path.join(logs, f"{i}.out"), "w+")
+                err = open(os.path.join(logs, f"{i}.err"), "w+")
+                procs.append((subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err), out, err))
+            deadline = time.monotonic() + timeout
+            for p, _, _ in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            raise RuntimeError(f"check failed: {label}: a rank outlived {timeout} s")
+        finally:
+            for p, _, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for i, (p, out, err) in enumerate(procs):
+            out.seek(0)
+            err.seek(0)
+            text, etext = out.read(), err.read()
+            out.close()
+            err.close()
+            check(p.returncode == 0, f"{label}: rank {i} exited {p.returncode}:\n{text[-2000:]}"
+                                     f"\n{etext[-4000:]}")
+            texts.append(text)
+        return texts
+
+
+def worker_results(texts):
+    """The RESULT line of each dist.worker rank, parsed."""
+    out = []
+    for text in texts:
+        lines = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+        check(len(lines) == 1, f"a worker printed {len(lines)} RESULT lines")
+        out.append(json.loads(lines[0][len("RESULT "):]))
+    return out
+
+
+def worker_cmd(rank, world, init, flags, out=None):
+    cmd = [sys.executable, "-m", "pyrenderer_tpu_torch.dist.worker", SCENE,
+           "--coordinator", init, "--num-processes", str(world), "--process-id", str(rank),
+           "--backend", "gloo"] + flags
+    return cmd + (["--out", out] if out else [])
+
+
+def gp_rank(rank: int, world: int, init: str, out_dir: str) -> int:
+    """One rank of phase 33, started by dist_phases as
+    python -c "import chip_smoke; chip_smoke.gp_rank(...)": the Cornell and
+    terrain100k frames at gp = world over gloo on the card. Each frame is a
+    counting window. Rank 0 saves the assembled images (and render_field's
+    Cornell frame, after the windows); every rank writes its counts and
+    walls to out_dir/rank{rank}.json."""
+    import torch.distributed as dist
+
+    from pyrenderer_tpu_torch import kernels
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.dist import multihost
+    from pyrenderer_tpu_torch.dist.geometry import (build_shard_clusters, make_geom_mesh,
+                                                    render_field_geometry_sharded)
+    from pyrenderer_tpu_torch.dist.render import all_gather, axis_index, pixel_grid, render_field
+    from pyrenderer_tpu_torch.scene import load_tungsten, procgen, to_device
+    from pyrenderer_tpu_torch.scene.tungsten import build_scene
+
+    multihost.initialize(init, world, rank, backend="gloo")
+    try:
+        dev = multihost.rank_device()
+        mesh = make_geom_mesh(gp=world)
+        g = axis_index(mesh, "gp")
+        result = {"rank": rank, "device": torch.cuda.get_device_name(dev)}
+        cfg = RenderConfig(max_bounces=4, spp=4, seed=0, estimator="reference")
+
+        def frame(scene, camera, cluster_stack=None):
+            px, py = pixel_grid(camera)
+            torch.cuda.synchronize(dev)
+            kernels.reset_counters()
+            t = time.perf_counter()
+            with torch.no_grad():
+                part = render_field_geometry_sharded(scene, camera, cfg, mesh, px, py,
+                                                     cluster_stack=cluster_stack)
+                full = all_gather(part).flatten(0, 1)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t
+            launches, twins = kernels.counts()
+            w, h = camera.resolution
+            img = full.cpu().numpy().reshape(h, w, 3)[::-1]
+            return img, {"wall_s": wall, "launches": launches, "twin_calls": twins}
+
+        host, host_cam, _ = load_tungsten(SCENE)
+        scene, camera = to_device(host, host_cam._replace(resolution=(256, 256)), dev)
+        img, result["cornell"] = frame(scene, camera)
+        if rank == 0:
+            px, py = pixel_grid(camera)
+            with torch.no_grad():
+                ref = render_field(scene, camera, cfg, px, py).cpu().numpy()
+            np.save(os.path.join(out_dir, "cornell.npy"), img)
+            np.save(os.path.join(out_dir, "cornell_ref.npy"), ref.reshape(256, 256, 3)[::-1])
+
+        # terrain100k at gp = 2: each shard keeps ~390 clusters, at least
+        # AUTO_SORT_MIN_CLUSTERS = 256, so each resolves its sort and its
+        # watertight leaves on, as phase 7's un-sharded frame does (at gp = 4
+        # the shards would fall below it and take Moeller-Trumbore leaves)
+        host, host_cam, _ = build_scene(procgen.big_scene_data("terrain", res=224))
+        scene, camera = to_device(host, host_cam._replace(resolution=(512, 512)), dev)
+        t = time.perf_counter()
+        cs = build_shard_clusters(scene, world, rank=g)
+        result["shard"] = {"triangles": -(-host.faces.shape[0] // world),
+                           "clusters": cs.n_clusters, "build_s": time.perf_counter() - t}
+        img, result["terrain"] = frame(scene, camera, cs)
+        if rank == 0:
+            np.save(os.path.join(out_dir, "terrain.npy"), img)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_phases(dev, card, hdr_cornell, host_scene, host_camera, ctx):
+    """Phases 31-33: the sharded renders and train steps (dist/)."""
+    import torch.distributed as dist
+
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.dist import multihost
+    from pyrenderer_tpu_torch.dist.render import (gather_dp, make_mesh, pixel_grid, render_field,
+                                                  render_field_sharded, train_step)
+    from pyrenderer_tpu_torch.scene import to_device
+
+    phase("31 a world of one NCCL rank: render_field_sharded and train_step(mesh=...) at "
+          "dp = sp = 1, Cornell 256x256, 4 spp, 4 bounces")
+    check(multihost.initialize() is False and dist.get_backend() == "nccl",
+          "initialize() did not bring up a world of one NCCL rank")
+    try:
+        mesh = make_mesh(dp=1, sp=1)
+        scene, camera = to_device(host_scene, host_camera._replace(resolution=(256, 256)), dev)
+        cfg = RenderConfig(max_bounces=4, spp=4, seed=0, estimator="reference")
+        px, py = pixel_grid(camera)
+        with torch.no_grad():
+            block, _ = counted(lambda: render_field_sharded(scene, camera, cfg, mesh, px, py),
+                               "dp x sp render, world of one", {"closest_hit": 16, "occluded": 16})
+            full = gather_dp(block, mesh)
+            ref = render_field(scene, camera, cfg, px, py)
+        check(torch.equal(full, ref), "render_field_sharded at dp = sp = 1 differs from "
+              f"render_field (max |diff| {float((full - ref).abs().max()):.3g})")
+        params = (scene.vertices, scene.albedo, scene.emission)
+        target = torch.zeros_like(ref)
+        lr = (1e-3, 0.5, 0.1)
+        (loss_m, new_m), _ = counted(
+            lambda: train_step(params, scene, camera, cfg, target, px, py, lr, mesh=mesh),
+            "train_step, world of one", {"closest_hit": 16, "occluded": 16})
+        loss_1, new_1 = train_step(params, scene, camera, cfg, target, px, py, lr)
+        _, new_2 = train_step(params, scene, camera, cfg, target, px, py, lr)
+        check(torch.equal(loss_m, loss_1), f"train_step(mesh=...) loss {float(loss_m)!r}, "
+              f"train_step() {float(loss_1)!r}")
+        # the backward's scatters (index_select's, index_put's) add with
+        # atomics on the card, in no fixed order: two train_step() calls
+        # differ in the last bits (the albedo's step by up to ~1e-5 of the
+        # largest on an H100), so the steps are compared to 1e-4 of the
+        # largest, beside that run-to-run spread
+        diffs, spread = [], []
+        for p0, a, b, c in zip(params, new_m, new_1, new_2):
+            # a step of 0 (the reference estimator's emission) must stay 0
+            step = float((b - p0).abs().max()) or 1.0
+            diffs.append(float(((a - p0) - (b - p0)).abs().max()) / step)
+            spread.append(float(((c - p0) - (b - p0)).abs().max()) / step)
+        check(max(diffs) <= 1e-4, f"train_step(mesh=...) steps off train_step()'s by {diffs} "
+              f"of the largest (two train_step() calls: {spread})")
+        print(f"world of one ({dist.get_backend()}): render_field_sharded bit-identical to "
+              f"render_field; train_step(mesh=...) loss {float(loss_m)!r} bit-identical to "
+              f"train_step()'s, its steps within {diffs} of the largest (two train_step() "
+              f"calls: {spread})", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+    phase("32 dp x sp: four dist.worker ranks on the card over gloo, dp = 2, sp = 2, Cornell "
+          "1024x1024, reference, 4 bounces, 16 spp; then train steps, dp = 2")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "img.npy")
+        init = "file://" + os.path.join(tmp, "pg")
+        flags = ["--res", "1024", "--spp", "16", "--depth", "4", "--sp", "2"]
+        t = time.perf_counter()
+        res = worker_results(spawn([worker_cmd(r, 4, init, flags, out if r == 0 else None)
+                                    for r in range(4)], "dp x sp workers", 300))
+        wall = time.perf_counter() - t
+        img = np.load(out)
+    check(img.shape == hdr_cornell.shape, f"assembled image {img.shape}")
+    close = np.isclose(img, hdr_cornell, rtol=2e-5, atol=1e-6)
+    check(bool(close.all()), f"dp x sp image: {int((~close).sum())} values off phase 3's HDR "
+          f"(max |diff| {float(np.abs(img - hdr_cornell).max()):.3g})")
+    for r in res:
+        check(r["device"] == torch.cuda.get_device_name(0) and r["backend"] == "gloo"
+              and r["global_devices"] == 4, f"rank {r['process_id']}: {r}")
+        check(r["launches"] == {"closest_hit": 512, "occluded": 512} and not r["twin_calls"],
+              f"rank {r['process_id']}: launches {r['launches']}, twins {r['twin_calls']}")
+        check(r["image_mean"] == res[0]["image_mean"], "the ranks' frames differ")
+        TALLY.update(r["launches"])
+    print(f"dp x sp frame equal to phase 3's HDR at rtol 2e-5, atol 1e-6 (max |diff| "
+          f"{float(np.abs(img - hdr_cornell).max()):.3g}); each rank 512 launches of each "
+          "whole-table kernel", flush=True)
+    for r in res:
+        print(f"rank {r['process_id']}: {r['time_s']:.3f} s a frame, {r['mrays_per_s']:.3f} "
+              f"Mrays/s (dp = 2 x sp = 2, four gloo ranks sharing one {card})", flush=True)
+    print(f"wall of the four worker processes {wall:.3f} s (start-up, warm-up frame, timed "
+          f"frame, ray count; {card})", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "pg")
+        flags = ["--res", "1024", "--spp", "1", "--depth", "4", "--train-steps", "1"]
+        one = [sys.executable, "-m", "pyrenderer_tpu_torch.dist.worker", SCENE] + flags
+        t = time.perf_counter()
+        res = worker_results(spawn([worker_cmd(r, 2, init, flags) for r in range(2)] + [one],
+                                   "train-step workers", 300))
+        wall = time.perf_counter() - t
+    two, single = res[:2], res[2]
+    check(single["backend"] == "nccl" and not single["multi"],
+          f"the one-process worker ran {single['backend']}")
+    for r in two:
+        for key in ("train_losses", "grad_mean_abs"):
+            check(np.allclose(r[key], single[key], rtol=1e-5, atol=0),
+                  f"rank {r['process_id']} {key} {r[key]} against one process {single[key]}")
+    for r in res:
+        TALLY.update(r["launches"])
+    print(f"train step at dp = 2 over gloo: losses {two[0]['train_losses']}, grad_mean_abs "
+          f"{two[0]['grad_mean_abs']}; one NCCL process: {single['train_losses']}, "
+          f"{single['grad_mean_abs']} (rtol 1e-5); wall of the three processes {wall:.3f} s "
+          f"({card})", flush=True)
+
+    phase("33 gp: two ranks on the card over gloo, Cornell 256x256 through B1/B2 per shard, "
+          "then terrain100k 512x512, 4 spp, 4 bounces through B3/B4 per shard")
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "pg")
+        cmds = [[sys.executable, "-c", "import sys, chip_smoke; "
+                 f"sys.exit(chip_smoke.gp_rank({r}, 2, {init!r}, {tmp!r}))"] for r in range(2)]
+        t = time.perf_counter()
+        spawn(cmds, "gp ranks", 300)
+        wall = time.perf_counter() - t
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        cornell = np.load(os.path.join(tmp, "cornell.npy"))
+        cornell_ref = np.load(os.path.join(tmp, "cornell_ref.npy"))
+        terrain = np.load(os.path.join(tmp, "terrain.npy"))
+    for r in ranks:
+        check(r["device"] == torch.cuda.get_device_name(0), f"rank {r['rank']} on {r['device']}")
+        check(r["cornell"]["launches"] == {"closest_hit": 16, "occluded": 16}
+              and not r["cornell"]["twin_calls"], f"rank {r['rank']}: Cornell {r['cornell']}")
+        check(r["terrain"]["launches"] == {"cluster_closest_hit": 64, "cluster_occluded": 64}
+              and not r["terrain"]["twin_calls"], f"rank {r['rank']}: terrain {r['terrain']}")
+        TALLY.update(r["cornell"]["launches"])
+        TALLY.update(r["terrain"]["launches"])
+    close = np.isclose(cornell, cornell_ref, rtol=2e-5, atol=2e-6)
+    check(bool(close.all()), f"gp Cornell frame: {int((~close).sum())} values off render_field")
+    hdr7 = ctx["hdr_cluster"]
+    frac = float(np.isclose(terrain, hdr7, rtol=1e-3, atol=1e-4).mean())
+    rel = abs(float(terrain.mean()) - float(hdr7.mean())) / float(hdr7.mean())
+    check(terrain.shape == hdr7.shape and frac > 0.99 and rel < 1e-3,
+          f"gp terrain frame against phase 7's: close fraction {frac}, mean relative {rel}")
+    secs = max(r["terrain"]["wall_s"] for r in ranks)
+    print(f"gp Cornell frame within rtol 2e-5, atol 2e-6 of render_field (max |diff| "
+          f"{float(np.abs(cornell - cornell_ref).max()):.3g}), 16 launches of each whole-table "
+          f"kernel a rank; walls {[r['cornell']['wall_s'] for r in ranks]} s", flush=True)
+    print(f"gp terrain100k frame: shards of {ranks[0]['shard']['triangles']} triangles, "
+          f"{ranks[0]['shard']['clusters']} clusters each; close fraction {frac:.6f} (> 0.99), "
+          f"mean relative {rel:.3g} (< 1e-3); 64 launches of each cluster kernel a rank",
+          flush=True)
+    print(f"gp terrain100k frame: {secs:.3f} s wall, {ctx['rays_cluster'] / secs / 1e6:.3f} "
+          f"Mrays/s (phase 7's rays; two gloo ranks sharing one {card}); phase 7 un-sharded "
+          f"{ctx['mrays_cluster']:.3f} Mrays/s; wall of the two processes {wall:.3f} s",
+          flush=True)
 
 
 def run_cli(cli, argv):

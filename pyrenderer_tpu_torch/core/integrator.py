@@ -46,6 +46,10 @@ Intersection backends:
                   scene that overflows the TPU's VMEM, a ceiling this card
                   does not have (as in the JAX package off the TPU).
   "watertight" -- the plain broadcast watertight test (core/watertight.py).
+  "custom"     -- intersection and face fetches through the caller's
+                  functions (TraceTables.custom): the hook of the
+                  triangle-sharded render (dist/geometry.py), where each
+                  rank holds one shard. Never resolved from "auto".
 
 The "reference" estimator reproduces the reference renderer's
 core/tracing.py: emissive hits add the hardcoded light color (beta at
@@ -297,7 +301,34 @@ class TraceTables:
     the light color (made once: a host-to-device copy per trace would make
     the host wait for the device). The accelerator is built here
     (maybe_build_accel) unless `accel` gives one; the backend is resolved
-    with it."""
+    with it.
+
+    TraceTables.custom builds backend "custom" around the caller's
+    intersection functions instead."""
+
+    closest_fn = None
+    any_hit_fn = None
+    fetch_face_fn = None
+
+    @classmethod
+    def custom(cls, face_data, light_data, closest_fn, any_hit_fn, fetch_face_fn=None):
+        """Tables whose queries are the caller's: closest_fn(ro, rd, t1) ->
+        (hit, t, tri), any_hit_fn(ro, rd, t1) -> (N,) bool occlusion, and
+        fetch_face_fn(tri) -> (N, K) packed face rows (by default a gather
+        from face_data, which may be a rank's shard). light_data holds every
+        light face (pack_light_data)."""
+        self = cls.__new__(cls)
+        self.backend = "custom"
+        self.face_data = face_data
+        self.light_data = light_data
+        self.light_color = torch.tensor(REF_LIGHT_COLOR, dtype=light_data.dtype,
+                                        device=light_data.device)
+        self.accel = None
+        self.tri_table = None
+        self.closest_fn = closest_fn
+        self.any_hit_fn = any_hit_fn
+        self.fetch_face_fn = fetch_face_fn
+        return self
 
     def __init__(self, scene: Scene, cfg: RenderConfig, backend: str = "auto",
                  accel=None):
@@ -328,6 +359,8 @@ class TraceTables:
     def fetch_face(self, tri):
         """Packed shading row per hit id (a gather: the TPU's one-hot MXU
         fetch, core/lut.py, exists only for the TPU)."""
+        if self.fetch_face_fn is not None:
+            return self.fetch_face_fn(tri)
         return self.face_data.index_select(0, tri)
 
 
@@ -335,6 +368,8 @@ def _closest(scene, tables, cfg, ro, rd, t1, sort=None):
     """Closest-hit query of the tables' backend; `sort` overrides the
     cluster sweep's coherence sort (the wavefront sort turns it off)."""
     b = tables.backend
+    if b == "custom":
+        return tables.closest_fn(ro, rd, t1)
     if b == "cuda":
         return kernels.closest_hit(tables.tri_table, ro, rd, cfg.t_min, t1)
     if b == "matmul":
@@ -361,6 +396,8 @@ def _closest(scene, tables, cfg, ro, rd, t1, sort=None):
 
 def _any_hit(scene, tables, cfg, ro, rd, t1, sort=None):
     b = tables.backend
+    if b == "custom":
+        return tables.any_hit_fn(ro, rd, t1)
     if b == "cuda":
         return kernels.occluded(tables.tri_table, ro, rd, cfg.t_min, t1)
     if b == "matmul":

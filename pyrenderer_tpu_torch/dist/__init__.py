@@ -1,1 +1,4 @@
-"""Rendering a field of pixels and the inverse-rendering step (dist/render.py)."""
+"""Sharded rendering and training over torch.distributed: the ("dp", "sp")
+render and train step (dist/render.py), the world and whole frames
+(dist/multihost.py), the worker CLI (dist/worker.py) and the
+triangle-sharded "gp" render (dist/geometry.py)."""
