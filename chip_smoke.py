@@ -277,13 +277,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    1e-3, atol 1e-4 and the means within 1e-3 relative; its wall and phase
    7's rays over it in Mrays/s. A rank that fails or outlives its timeout
    fails the phase, and the survivors are killed.
+34. The stage-breakdown harnesses (pyrenderer_tpu_torch/perf/, the JAX
+   package's perf/ counterparts), each through its main() at its own width
+   with --reps 2 and --no-profile (in this long-lived process
+   torch.profiler drops device records: perf/harness.py), each run one
+   counting window: estbench (Cornell, 262,144 rays,
+   both estimators), microbench and ablate (2^20 rays), glue2 (262,144
+   rays, fetch tables of 8,204 and 100,364 rows, terrain res 64) and
+   binnedglue (terrain100k). Every row has a finite, positive eager ms; the
+   launches of one call are exact (4 of each of B1 and B2 in a trace, one
+   of each in kernel_pair, one B3 in wrap_full and wrap_bare, one of each
+   binned kernel in its row, the streamed core's as its rounds through the
+   twins count them, none where a stage has no kernel) and no twin runs;
+   each stage's output on the card is held against the same stage on the
+   CPU (the twins) at 2,048-8,192 rays: bit for bit where the stage is
+   integer, a gather, a kernel or a Threefry draw, at rtol 1e-4 / atol 1e-6
+   for shading arithmetic, and by the GPU-against-CPU criterion of phase 4
+   for traces. Then binnedgran: one child process each at PYRENDERER_BIN =
+   4, 1 and 2 (180 s each at most), each with a row, the launches of one
+   prepass and one leaf a core, and hit agreement 1.0 with the sweep's twin
+   on 4,096 rays; each child reports its launches, which count as a
+   counting window. Prints the phase's seconds.
 
 Every main-path run above (the frames of phases 3, 7, 11, 14, 17-21,
 24-25, 27 and 30-33, the CLI runs, the bench rows, the harness, the gradient and
-training runs of phases 22-23 and the path records of phase 29) is a
-counting window: every
+training runs of phases 22-23, the path records of phase 29 and the
+harnesses of phase 34) is a counting window: every
 wrapper's counts are zeroed just before it and read just after (in the
-ranks of phases 32-33 by each rank, which reports them). The line
+ranks of phases 32-33 by each rank, and in binnedgran's children in phase
+34 by each child, which reports them). The line
 before the last is a JSON object with one entry per kernel: its launches
 summed over those windows, its largest difference from the twin, its time
 and the twin's, and its bound (the larger of its fp32 operations over the
@@ -608,6 +630,7 @@ def main() -> int:
     debug_path_phases(dev, card)
     golden_phase(dev, card)
     dist_phases(dev, card, hdr, host_scene, host_camera, ctx)
+    harness_phase(dev, card)
     for entries in (large, binned, probes, rounds):
         max_abs_err.update(entries["max_abs_err"])
         ms.update(entries["ms"])
@@ -1709,7 +1732,7 @@ def gradient_phases(dev, card):
     from pyrenderer_tpu_torch.config import RenderConfig
     from pyrenderer_tpu_torch.dist.render import CHUNK, pixel_grid, render_field, train_step
     from pyrenderer_tpu_torch.examples import invrender
-    from pyrenderer_tpu_torch.perf.clusterbench import device_busy
+    from pyrenderer_tpu_torch.utils.profiling import device_busy
     from pyrenderer_tpu_torch.scene import load_tungsten, procgen, to_device
     from pyrenderer_tpu_torch.scene.tungsten import build_scene
 
@@ -2299,7 +2322,7 @@ def analytic_phase(dev, card):
 
     # one sample of that frame (160,000 rays, 10 bounces), unprofiled then
     # under torch.profiler: the device's busy union against the wall
-    from pyrenderer_tpu_torch.perf.clusterbench import device_busy
+    from pyrenderer_tpu_torch.utils.profiling import device_busy
 
     def one_sample():
         ro, rd, pixel, sample = analytic.camera_rays((400, 400), 0, 0, device=dev)
@@ -2731,6 +2754,167 @@ def dist_phases(dev, card, hdr_cornell, host_scene, host_camera, ctx):
           f"Mrays/s (phase 7's rays; two gloo ranks sharing one {card}); phase 7 un-sharded "
           f"{ctx['mrays_cluster']:.3f} Mrays/s; wall of the two processes {wall:.3f} s",
           flush=True)
+
+
+# phase 34: the stage-breakdown harnesses (perf/estbench.py ... binnedgran.py)
+Q1 = {"closest_hit": 1, "occluded": 1}
+Q4 = {"closest_hit": 4, "occluded": 4}
+SWEEP1 = {"cluster_closest_hit": 1}
+
+# (module, argv at the harness's own width, the kernel launches of one call
+# of each row that launches any, the rule each row's output is held to on
+# the card against the CPU, the rays of that comparison)
+HARNESSES = (
+    ("estbench", ["--reps", "2", "--no-profile"],
+     {"trace4_full": Q4, "pbrt_trace4_full": Q4, "kernel_pair": Q1},
+     {"fetch_light": "close", "shade": "close", "camera": "close", "trace4_full": "frame",
+      "trace4_stub": "frame", "pbrt_trace4_full": "frame", "pbrt_trace4_stub": "frame"}, 4096),
+    ("microbench", ["--reps", "2", "--no-profile"],
+     {"cuda_closest": {"closest_hit": 1}, "cuda_occluded": {"occluded": 1},
+      "trace_4bounce_cuda": Q4},
+     {"intersect_matmul": "frame", "intersect_brute": "frame", "occluded_matmul": "frame",
+      "frame_math": "close", "trace_4bounce_cuda": "frame", "camera_raygen": "close"}, 4096),
+    ("ablate", ["--reps", "2", "--no-profile"],
+     {"full_4bounce": Q4, "isect_only_4x2": Q4},
+     {"full_4bounce": "frame", "isect_only_4x2": "frame", "fetch_only_4x": "close",
+      "rng_frame_4x": "close"}, 4096),
+    ("glue2", ["--reps", "2", "--no-profile"],
+     {"wrap_full": SWEEP1, "wrap_bare": SWEEP1},
+     {"wrap_full": "close", "bounce4x": "frame"}, 2048),
+    ("binnedglue", ["--reps", "2", "--no-profile"],
+     {"prepass": {"binned_prepass": 1}, "leaf": {"binned_leaf": 1},
+      "peel": {"binned_peel": 1}, "leaf_streamed": {"binned_leaf_streamed": 1},
+      "resid_sweep": SWEEP1, "sweep_sorted": SWEEP1,
+      "core_resident": {"binned_prepass": 1, "binned_leaf": 1}},
+     {"exact_t": "close"}, 8192),
+)
+
+
+def run_harness(mod, argv):
+    """mod.main(argv) in this process, its output echoed; returns its JSON
+    line."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    sys.stdout.write(buf.getvalue())
+    check(rc == 0, f"{mod.__name__}.main({argv}) returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def streamed_launches(x):
+    """The launches of one streamed core on binnedglue's inputs, counted by
+    running its rounds through the twins (plain torch, here on the card):
+    one prepass, a peel per round after the first, a leaf per round with a
+    pair."""
+    from pyrenderer_tpu_torch.kernels import binned as kb
+    from pyrenderer_tpu_torch.perf.binnedglue import T0
+
+    ids, ovf, words = kb.prepass_ref(x.cs, x.rays, T0, x.w_streamed, emit_words=True)
+    out = collections.Counter(binned_prepass=1)
+    while True:
+        out["binned_leaf_streamed"] += int(bool((ids != kb.SENTINEL).any()))
+        if not bool(ovf.any()):
+            return dict(out)
+        ids, ovf, words = kb.peel_ref(words, x.w_streamed)
+        out["binned_peel"] += 1
+
+
+def hold_output(card_out, cpu_out, rule, label):
+    """A stage's output on the card against the same stage on the CPU:
+    "bits" bit for bit; "close" at rtol 1e-4, atol 1e-6 (the CPU tests'
+    tolerance for shading arithmetic); "frame" by PERF.md's GPU-against-CPU
+    criterion (> 95% of the values close at rtol 1e-3, atol 1e-4, median
+    |diff| < 1e-5; boolean and integer outputs equal on > 99%)."""
+    if isinstance(card_out, (tuple, list)):
+        check(len(card_out) == len(cpu_out), f"{label}: outputs differ in number")
+        for k, (a, b) in enumerate(zip(card_out, cpu_out)):
+            hold_output(a, b, rule, f"{label}[{k}]")
+        return
+    if not torch.is_tensor(card_out):
+        check(card_out == cpu_out, f"{label}: {card_out} != {cpu_out}")
+        return
+    a, b = card_out.detach().cpu(), cpu_out.detach()
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"{label}: {a.dtype} {tuple(a.shape)} against {b.dtype} {tuple(b.shape)}")
+    if rule == "bits" or not a.is_floating_point():
+        if rule == "frame" and a.numel():
+            frac = float((a == b).float().mean())
+            check(frac > 0.99, f"{label}: equal on {frac:.6f} (> 0.99)")
+            return
+        same = torch.equal(a.view(torch.int32), b.view(torch.int32)) \
+            if a.dtype == torch.float32 else torch.equal(a, b)
+        check(same, f"{label}: differs in {int((a != b).sum())} of {a.numel()} values")
+        return
+    if rule == "close":
+        check(torch.allclose(a, b, rtol=1e-4, atol=1e-6),
+              f"{label}: max |diff| {float((a - b).abs().max()):.3g}")
+        return
+    close = float(torch.isclose(a, b, rtol=1e-3, atol=1e-4).float().mean())
+    med = float((a - b).abs().median())
+    check(close > 0.95 and med < 1e-5, f"{label}: close {close:.6f}, median |diff| {med:.3g}")
+
+
+def harness_phase(dev, card):
+    """Phase 34: every stage-breakdown harness at its own width."""
+    import importlib
+
+    from pyrenderer_tpu_torch.perf import binnedgran
+
+    phase("34 the harnesses: estbench (262,144 rays, both estimators), microbench and "
+          "ablate (2^20), glue2 (262,144, tables of 8,204 and 100,364 rows), binnedglue "
+          "(terrain100k), binnedgran (BIN = 4, 1, 2)")
+    t_phase = time.perf_counter()
+    for name, argv, launches, rules, n_cmp in HARNESSES:
+        mod = importlib.import_module(f"pyrenderer_tpu_torch.perf.{name}")
+        t = time.perf_counter()
+        result, _ = counted(lambda: run_harness(mod, argv), f"{name} run")
+        print(f"{name}: {time.perf_counter() - t:.1f} s", flush=True)
+        check(result["card"] == card, f"{name}: card {result['card']!r}")
+        x_card = mod.inputs(dev, n_cmp)
+        x_cpu = (mod.inputs("cpu", n_cmp, backend="cuda") if name == "microbench"
+                 else mod.inputs("cpu", n_cmp))
+        if name == "binnedglue":
+            launches = dict(launches, core_streamed=streamed_launches(mod.inputs(dev)))
+        rows = {r["name"]: r for r in result["rows"]}
+        stages_card, stages_cpu = mod.stages(x_card), mod.stages(x_cpu)
+        check(sorted(rows) == sorted(s[0] for s in stages_card),
+              f"{name}: rows {sorted(rows)}")
+        for row_name, row in rows.items():
+            check(np.isfinite(row["eager_ms"]) and row["eager_ms"] > 0,
+                  f"{name} {row_name}: eager ms {row['eager_ms']}")
+            want = launches.get(row_name, {})
+            check(row["launches"] == want,
+                  f"{name} {row_name}: launches {row['launches']}, expected {want}")
+            check(row["twin_calls"] == {}, f"{name} {row_name}: twin calls {row['twin_calls']}")
+        for (row_name, fn, args, *_), (_, fn_cpu, args_cpu, *_) in zip(stages_card, stages_cpu):
+            hold_output(fn(*args), fn_cpu(*args_cpu), rules.get(row_name, "bits"),
+                        f"{name} {row_name} card against CPU")
+        print(f"{name}: {len(rows)} rows, launches exact, outputs held against the CPU at "
+              f"{n_cmp} rays; {time.perf_counter() - t:.1f} s with the comparison", flush=True)
+        del x_card, x_cpu, stages_card, stages_cpu
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    result = run_harness(binnedgran, ["--reps", "2", "--timeout", "180"])
+    launches, twins = result["launches_total"], result["twin_calls_total"]
+    print(f"binnedgran children: launches {launches}, twin calls {twins}", flush=True)
+    check(not twins, f"binnedgran: twin calls {twins}")
+    TALLY.update(launches)
+    print(f"binnedgran: {time.perf_counter() - t:.1f} s", flush=True)
+    check(result["failed"] == [] and [r["bin"] for r in result["rows"]] == [4, 1, 2],
+          f"binnedgran: rows {result['rows']}, failed {result['failed']}")
+    for row in result["rows"]:
+        check(row["hit_agree"] == 1.0, f"binnedgran BIN={row['bin']}: hit agreement "
+                                        f"{row['hit_agree']}")
+        check(row["launches"] == {"binned_prepass": 1, "binned_leaf": 1}
+              and row["twin_calls"] == {},
+              f"binnedgran BIN={row['bin']}: launches {row['launches']}, twins "
+              f"{row['twin_calls']}")
+        check(np.isfinite(row["core_ms"]) and row["core_ms"] > 0,
+              f"binnedgran BIN={row['bin']}: core ms {row['core_ms']}")
+    print(f"phase 34: {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
 
 
 def run_cli(cli, argv):

@@ -50,8 +50,9 @@ GROUP = 16        # clusters per supercluster
 TRI_ROWS = 16     # rows per cluster in the packed (K*16, 128) table (9 used)
 # clusters per bin of the binned traversal: 4 x 128 = 512 adjacent
 # (median-split sibling) triangles. Read once at import, as the JAX package
-# does; a ClusterScene must be built and traversed under the same value, and
-# the CUDA kernels are compiled for 4 (csrc/binned.cu kBin).
+# does; a ClusterScene must be built and traversed under the same value. The
+# CUDA leaf kernels are compiled for 1, 2 and 4 (csrc/binned.cu
+# leaf_kernel_for; PYRENDERER_BIN=1 or 2 is perf/binnedgran.py's knob).
 BIN = int(os.environ.get("PYRENDERER_BIN", "4"))
 BIN_TRIS = BIN * LANE_TRIS
 

@@ -9,7 +9,8 @@
 //   pr_binned_leaf_streamed -> _leaf_kernel_streamed (:439, via
 //                              _leaf_call_streamed)
 //
-// A bin is kBin adjacent clusters (512 triangles, accel/clusters.py BIN).
+// A bin is Bin adjacent clusters (accel/clusters.py BIN: 4 by default, 512
+// triangles; the leaves are instantiated for 1, 2 and 4).
 // The prepass slab-tests each ray against every bin box and keeps the first
 // W crossing bins in ascending order; kernels/binned.py sorts the (bin, ray)
 // pairs by bin, and the leaf tests each pair's ray against the bin's 512
@@ -28,7 +29,7 @@
 //   against boxes staged in shared memory (224 boxes at terrain100k);
 //   operations, and one pass over the ray rows.
 // - peel: per ray, n_words words read and written; memory, tiny.
-// - leaf: per pair, kBin x 128 triangle tests of ~60 (MT) or ~75
+// - leaf: per pair, Bin x 128 triangle tests of ~60 (MT) or ~75
 //   (watertight) fp32 operations; the table is read from L1/L2 (the pairs
 //   arrive sorted by bin), so the operations bound it.
 //
@@ -110,12 +111,13 @@
 
 namespace {
 
-constexpr int kBin = 4;                    // clusters per bin (accel/clusters.py BIN)
 constexpr int32_t kSentinel = 0x7FFFFFFF;  // an empty candidate slot (kernels/binned.py SENTINEL)
 constexpr int kStageBoxes = 512;           // bin boxes staged in shared memory per pass
 constexpr int kBoxPlanes = 6;              // bmin.xyz | bmax.xyz
 constexpr int kBoxRow = 8;                 // floats per row of bin_box8
-constexpr int kBinFloats = kBin * 9 * kLane;  // one bin's triangle rows v0|e1|e2
+// one bin's triangle rows v0|e1|e2, Bin clusters
+template <int Bin>
+constexpr int kBinFloats = Bin * 9 * kLane;
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   float d;
@@ -438,7 +440,7 @@ __device__ __forceinline__ float edge_plain(float a, float b, float c, float d,
 }
 
 // The best key of one lane over triangles lane, lane + 32, lane + 64 and
-// lane + 96 of each of a bin's kBin clusters (cluster ci's rows at tri +
+// lane + 96 of each of a bin's Bin clusters (cluster ci's rows at tri +
 // ci * stride, row stride kLane; `first` the bin's first slot), watertight.
 // Each of a cluster's rows is one coalesced 128-byte read (or a
 // conflict-free shared-memory read) per warp. The lane runs the plain edge
@@ -446,13 +448,13 @@ __device__ __forceinline__ float edge_plain(float a, float b, float c, float d,
 // branches: edge_fn's compensated values (vertices re-read) where an edge
 // cancels, and the quotient t_scaled / det only where the edges agree and
 // det != 0 (a ray crosses about one of a bin's triangles).
-template <int KZ>
+template <int Bin, int KZ>
 __device__ __forceinline__ int64_t lane_key_wt(const float* __restrict__ tri,
                                                int stride, int first, int lane,
                                                const Ray& r, const Shear& s,
                                                float t0) {
   int64_t key = pack_key(kMissT, -1);
-  for (int ci = 0; ci < kBin; ++ci) {
+  for (int ci = 0; ci < Bin; ++ci) {
     const float* cl = tri + ci * stride + lane;
 #pragma unroll
     for (int k0 = 0; k0 < kSteps; k0 += kBatch) {
@@ -495,11 +497,12 @@ __device__ __forceinline__ int64_t lane_key_wt(const float* __restrict__ tri,
 }
 
 // lane_key_wt with Moeller-Trumbore leaves (leaf.cuh mt_test).
+template <int Bin>
 __device__ __forceinline__ int64_t lane_key_mt(const float* __restrict__ tri,
                                                int stride, int first, int lane,
                                                const Ray& r, float t0) {
   int64_t key = pack_key(kMissT, -1);
-  for (int ci = 0; ci < kBin; ++ci) {
+  for (int ci = 0; ci < Bin; ++ci) {
     const float* cl = tri + ci * stride + lane;
 #pragma unroll
     for (int k = 0; k < kSteps; ++k) {
@@ -513,33 +516,33 @@ __device__ __forceinline__ int64_t lane_key_mt(const float* __restrict__ tri,
   return key;
 }
 
-// The closest hit of one ray over the kBin x 128 triangles of `bin`, by the
+// The closest hit of one ray over the Bin x 128 triangles of `bin`, by the
 // whole warp (every lane calls it with the same ray): the minimum key, in
 // every lane. Triangles are accepted against the ray's t1, so the key
 // minimum is the minimum t with a tie to the lowest slot, in whatever order
 // the lanes test them; a miss, and a dead ray (t1 <= t0, or NaN), give
 // pack_key(kMissT, -1).
-template <bool Watertight>
+template <int Bin, bool Watertight>
 __device__ __forceinline__ int64_t bin_key(const float* __restrict__ tri,
                                            int stride, int bin, const Ray& r,
                                            float t0, int lane) {
   if (!(r.t1 > t0)) return pack_key(kMissT, -1);
-  const int first = bin * kBin * kLane;
-  if (!Watertight) return warp_min(lane_key_mt(tri, stride, first, lane, r, t0));
+  const int first = bin * Bin * kLane;
+  if (!Watertight) return warp_min(lane_key_mt<Bin>(tri, stride, first, lane, r, t0));
   const Shear s = make_shear(r);   // warp-uniform: one branch per pair
   int64_t key;
   if (s.kz == 0) {
-    key = lane_key_wt<0>(tri, stride, first, lane, r, s, t0);
+    key = lane_key_wt<Bin, 0>(tri, stride, first, lane, r, s, t0);
   } else if (s.kz == 1) {
-    key = lane_key_wt<1>(tri, stride, first, lane, r, s, t0);
+    key = lane_key_wt<Bin, 1>(tri, stride, first, lane, r, s, t0);
   } else {
-    key = lane_key_wt<2>(tri, stride, first, lane, r, s, t0);
+    key = lane_key_wt<Bin, 2>(tri, stride, first, lane, r, s, t0);
   }
   return warp_min(key);
 }
 
 // One warp per sorted pair q; lane 0 writes keys[q].
-template <bool Watertight>
+template <int Bin, bool Watertight>
 __global__ void __launch_bounds__(kThreads)
 binned_leaf_kernel(const float* __restrict__ tri,
                    const int32_t* __restrict__ sortd,
@@ -552,9 +555,9 @@ binned_leaf_kernel(const float* __restrict__ tri,
   const int32_t bin = sortd[q];
   int64_t key = pack_key(kMissT, -1);
   if (bin != kSentinel) {
-    key = bin_key<Watertight>(tri + (int64_t)bin * kBin * kTriRows * kLane,
-                              kTriRows * kLane, bin, load_ray(rays, pair_ray[q]),
-                              t0, lane);
+    key = bin_key<Bin, Watertight>(tri + (int64_t)bin * Bin * kTriRows * kLane,
+                                   kTriRows * kLane, bin, load_ray(rays, pair_ray[q]),
+                                   t0, lane);
   }
   if (lane == 0) keys[q] = key;
 }
@@ -573,22 +576,22 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // One CUDA block per row of `blocks` = (bin, start, count): the sorted pairs
 // start .. start + count - 1, all of bin `bin`; bin -1 marks an unused row.
-// The block copies the bin's 4 x 9 rows into shared memory, then its warps
+// The block copies the bin's Bin x 9 rows into shared memory, then its warps
 // take the run's pairs in turn, one warp per pair as in binned_leaf_kernel.
-template <bool Watertight>
+template <int Bin, bool Watertight>
 __global__ void __launch_bounds__(kThreads)
 binned_leaf_streamed_kernel(const float* __restrict__ tri,
                             const int32_t* __restrict__ blocks,
                             const int64_t* __restrict__ pair_ray,
                             const float* __restrict__ rays, float t0,
                             int64_t* __restrict__ keys) {
-  __shared__ __align__(16) float stri[kBinFloats];
+  __shared__ __align__(16) float stri[kBinFloats<Bin>];
   const int32_t* blk = blocks + 3 * (int64_t)blockIdx.x;
   const int32_t bin = blk[0];
   if (bin < 0) return;  // the same for the whole block: before the barrier
-  const float* src = tri + (int64_t)bin * kBin * kTriRows * kLane;
+  const float* src = tri + (int64_t)bin * Bin * kTriRows * kLane;
   constexpr int kClusterFloats = 9 * kLane;
-  for (int k = 4 * threadIdx.x; k < kBinFloats; k += 4 * blockDim.x) {
+  for (int k = 4 * threadIdx.x; k < kBinFloats<Bin>; k += 4 * blockDim.x) {
     const int ci = k / kClusterFloats;
     cp_async16(stri + k, src + ci * kTriRows * kLane + (k - ci * kClusterFloats));
   }
@@ -598,10 +601,38 @@ binned_leaf_streamed_kernel(const float* __restrict__ tri,
   const int64_t start = blk[1];
   const int count = blk[2];
   for (int j = threadIdx.x / kWarp; j < count; j += kThreads / kWarp) {
-    const int64_t key = bin_key<Watertight>(stri, kClusterFloats, bin,
-                                            load_ray(rays, pair_ray[start + j]), t0,
-                                            lane);
+    const int64_t key = bin_key<Bin, Watertight>(stri, kClusterFloats, bin,
+                                                 load_ray(rays, pair_ray[start + j]), t0,
+                                                 lane);
     if (lane == 0) keys[start + j] = key;
+  }
+}
+
+using LeafKernel = void (*)(const float*, const int32_t*, const int64_t*, int64_t,
+                           const float*, float, int64_t*);
+using LeafStreamedKernel = void (*)(const float*, const int32_t*, const int64_t*,
+                                    const float*, float, int64_t*);
+
+// The leaf kernel of `bin` clusters a bin (1, 2 or 4), MT or watertight;
+// null for another bin.
+LeafKernel leaf_kernel_for(int bin, int watertight) {
+  switch (bin) {
+    case 1: return watertight ? binned_leaf_kernel<1, true> : binned_leaf_kernel<1, false>;
+    case 2: return watertight ? binned_leaf_kernel<2, true> : binned_leaf_kernel<2, false>;
+    case 4: return watertight ? binned_leaf_kernel<4, true> : binned_leaf_kernel<4, false>;
+    default: return nullptr;
+  }
+}
+
+LeafStreamedKernel leaf_streamed_kernel_for(int bin, int watertight) {
+  switch (bin) {
+    case 1: return watertight ? binned_leaf_streamed_kernel<1, true>
+                              : binned_leaf_streamed_kernel<1, false>;
+    case 2: return watertight ? binned_leaf_streamed_kernel<2, true>
+                              : binned_leaf_streamed_kernel<2, false>;
+    case 4: return watertight ? binned_leaf_streamed_kernel<4, true>
+                              : binned_leaf_streamed_kernel<4, false>;
+    default: return nullptr;
   }
 }
 
@@ -652,12 +683,14 @@ int pr_binned_peel(const void* words_in, int n_words, int64_t n, int span, int w
 }
 
 // tri: (K*16, 128) f32; sortd: (p,) i32 bin of each pair (kSentinel: none);
-// pair_ray: (p,) i64 its ray's row in rays (n, 8). Writes keys (p,) i64.
+// pair_ray: (p,) i64 its ray's row in rays (n, 8); bin: clusters a bin
+// (accel/clusters.py BIN: 1, 2 or 4). Writes keys (p,) i64.
 int pr_binned_leaf(const void* tri, const void* sortd, const void* pair_ray,
-                   int64_t p, const void* rays, float t0, int watertight,
+                   int64_t p, const void* rays, float t0, int watertight, int bin,
                    void* keys, void* stream) {
   if (p <= 0) return (int)cudaSuccess;
-  auto kernel = watertight ? binned_leaf_kernel<true> : binned_leaf_kernel<false>;
+  auto kernel = leaf_kernel_for(bin, watertight);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   kernel<<<warp_blocks(p), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)tri, (const int32_t*)sortd, (const int64_t*)pair_ray, p,
       (const float*)rays, t0, (int64_t*)keys);
@@ -665,14 +698,15 @@ int pr_binned_leaf(const void* tri, const void* sortd, const void* pair_ray,
 }
 
 // blocks: (n_blocks, 3) i32 rows (bin, start, count) over the sorted pairs;
-// pair_ray and rays as in pr_binned_leaf. Writes keys[start .. start+count).
+// pair_ray, rays and bin as in pr_binned_leaf. Writes keys[start ..
+// start+count).
 int pr_binned_leaf_streamed(const void* tri, const void* blocks,
                             int64_t n_blocks_, const void* pair_ray,
-                            const void* rays, float t0, int watertight,
+                            const void* rays, float t0, int watertight, int bin,
                             void* keys, void* stream) {
   if (n_blocks_ <= 0) return (int)cudaSuccess;
-  auto kernel = watertight ? binned_leaf_streamed_kernel<true>
-                           : binned_leaf_streamed_kernel<false>;
+  auto kernel = leaf_streamed_kernel_for(bin, watertight);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned int)n_blocks_, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)tri, (const int32_t*)blocks, (const int64_t*)pair_ray,
       (const float*)rays, t0, (int64_t*)keys);

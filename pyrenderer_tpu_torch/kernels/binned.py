@@ -108,6 +108,10 @@ RUN_PAIRS = 16
 # 80GB HBM3, 700 W; perf/clusterbench.py kernels binned).
 PREPASS_SPAN = 32
 PEEL_SPAN = 64
+# the values of accel/clusters.BIN the leaf kernels are instantiated for
+# (csrc/binned.cu leaf_kernel_for): 4, the default, and the finer bins
+# perf/binnedgran.py measures
+BIN_KERNELS = (1, 2, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -277,8 +281,9 @@ def _check_leaf_args(cs, pair_ray, rays):
     if cs.tri.data_ptr() % 16:
         raise ValueError("ClusterScene.tri must be 16-byte aligned (the streamed leaf copies "
                          "it in 16-byte pieces)")
-    if BIN != 4:
-        raise ValueError(f"the binned kernels are compiled for BIN = 4, not {BIN}")
+    if BIN not in BIN_KERNELS:
+        raise ValueError(f"the binned leaf kernels are compiled for BIN in {BIN_KERNELS}, "
+                         f"not {BIN}")
 
 
 def leaf(cs: ClusterScene, sortd, pair_ray, rays, t0, watertight=False):
@@ -291,7 +296,7 @@ def leaf(cs: ClusterScene, sortd, pair_ray, rays, t0, watertight=False):
     keys = torch.empty(sortd.shape[0], dtype=torch.int64, device=rays.device)
     build.launch("pr_binned_leaf", rays.device, cs.tri.data_ptr(), sortd.data_ptr(),
                  pair_ray.data_ptr(), sortd.shape[0], rays.data_ptr(), float(t0),
-                 int(bool(watertight)), keys.data_ptr())
+                 int(bool(watertight)), BIN, keys.data_ptr())
     leaf.launches += 1
     return keys
 
@@ -308,7 +313,7 @@ def leaf_streamed(cs: ClusterScene, blocks, pair_ray, rays, t0, watertight=False
     keys = torch.full((pair_ray.shape[0],), MISS_KEY, dtype=torch.int64, device=rays.device)
     build.launch("pr_binned_leaf_streamed", rays.device, cs.tri.data_ptr(), blocks.data_ptr(),
                  blocks.shape[0], pair_ray.data_ptr(), rays.data_ptr(), float(t0),
-                 int(bool(watertight)), keys.data_ptr())
+                 int(bool(watertight)), BIN, keys.data_ptr())
     leaf_streamed.launches += 1
     return keys
 

@@ -90,9 +90,9 @@ def _declare(lib) -> None:
     lib.pr_binned_prepass.restype = ctypes.c_int
     lib.pr_binned_peel.argtypes = [p, i32, i64, i32, i32, p, p, p, p]
     lib.pr_binned_peel.restype = ctypes.c_int
-    lib.pr_binned_leaf.argtypes = [p, p, p, i64, p, f32, i32, p, p]
+    lib.pr_binned_leaf.argtypes = [p, p, p, i64, p, f32, i32, i32, p, p]
     lib.pr_binned_leaf.restype = ctypes.c_int
-    lib.pr_binned_leaf_streamed.argtypes = [p, p, i64, p, p, f32, i32, p, p]
+    lib.pr_binned_leaf_streamed.argtypes = [p, p, i64, p, p, f32, i32, i32, p, p]
     lib.pr_binned_leaf_streamed.restype = ctypes.c_int
     lib.pr_kb_leaf.argtypes = [p, p, i64, i32, p, p]
     lib.pr_kb_leaf.restype = ctypes.c_int

@@ -4,7 +4,7 @@ by pair, and the frame's device profile.
 
     python -m pyrenderer_tpu_torch.perf.clusterbench kernels [sweep|binned|whole|probes] [--parity] [--out DIR]
     python -m pyrenderer_tpu_torch.perf.clusterbench compare DIR_A DIR_B
-    python -m pyrenderer_tpu_torch.perf.clusterbench profile [--backend B] [--scene S] [--estimator E]
+    python -m pyrenderer_tpu_torch.perf.clusterbench profile [--backend B] [--scene S] [--estimator E] [--trace-dir DIR]
     python -m pyrenderer_tpu_torch.perf.clusterbench frames [--out DIR]
 
 ``kernels`` builds terrain100k (scene/procgen.py terrain res=224, 100,364
@@ -98,7 +98,9 @@ bounces, the first 2^16-pixel chunk) through backend "cluster",
 Cornell or spheres frame (``--scene``, 1024x1024, 4 bounces) through the
 whole-table kernels, with the reference or pbrt estimator: the wall time per
 chunk-sample (host clock, median of 3 windows), then one window under
-torch.profiler: device busy time (the union of the kernels' intervals),
+torch.profiler (utils/profiling.trace_profile, which writes its Chrome
+trace to ``--trace-dir``): device busy time (utils/profiling.device_busy,
+the union of the kernels' intervals),
 the idle share against the unprofiled wall, device ms by kernel name for
 the kernels defined in an anonymous namespace (the port's, and a few of
 PyTorch's) and for all the others together, per chunk-sample and per frame
@@ -341,10 +343,13 @@ def ptxas_lines(log: str, pattern, tag_fn):
 
 
 def _template_flags(m):
-    """A cluster or binned kernel's name with its template flags (leaves
-    MT or watertight; the resume mode)."""
+    """A cluster or binned kernel's name with its template flags (a binned
+    leaf's clusters a bin; leaves MT or watertight; the resume mode)."""
     flags = re.findall(r"Lb([01])E", m.string)
     tag = m.group(0)
+    bins = re.findall(r"_kernelILi(\d+)E", m.string)
+    if bins:
+        tag += f" bin {bins[0]}"
     if flags:
         tag += " watertight" if flags[0] == "1" else " MT"
     if flags[1:] == ["1"]:
@@ -2009,29 +2014,10 @@ def cmd_compare(args) -> int:
     return 0
 
 
-def device_busy(events):
-    """(busy us, us by kernel name, the number of device events) of a
-    torch.profiler trace's events: busy is the union of the kernels'
-    intervals on the card."""
-    from torch.autograd import DeviceType
-
-    device = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                    if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, None
-    per_name = {}
-    for start, stop, name in device:
-        per_name[name] = per_name.get(name, 0.0) + (stop - start)
-        if end is None or start > end:
-            busy += stop - start
-            end = stop
-        elif stop > end:
-            busy += stop - end
-            end = stop
-    return busy, per_name, len(device)
-
-
 def cmd_profile(args) -> int:
     from torch.autograd import DeviceType
+
+    from pyrenderer_tpu_torch.utils.profiling import device_busy, trace_profile
 
     from pyrenderer_tpu_torch.config import RenderConfig
     from pyrenderer_tpu_torch.core.integrator import TraceTables, render_sample
@@ -2064,8 +2050,7 @@ def cmd_profile(args) -> int:
         window(k * SAMPLES)
         walls.append((time.perf_counter() - t) * 1e3 / SAMPLES)
     wall = float(np.median(walls))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with trace_profile(args.trace_dir) as prof:
         window(0)
     events = prof.events()
     busy, per_name, device = device_busy(events)
@@ -2120,6 +2105,8 @@ def main(argv=None) -> int:
     p.add_argument("--scene", default="spheres", choices=("cornell", "spheres"),
                    help="the whole-table frame of --backend cuda")
     p.add_argument("--estimator", default="reference", choices=("reference", "pbrt"))
+    p.add_argument("--trace-dir", default=os.path.join("build", "clusterbench", "trace"),
+                   help="where the profiled window's Chrome trace is written")
     f = sub.add_parser("frames")
     f.add_argument("--out", default=os.path.join("build", "clusterbench"))
     args = parser.parse_args(argv)

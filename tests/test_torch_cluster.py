@@ -372,7 +372,8 @@ def test_walk_counts_the_front_to_back_walk(clusters):
 
 def test_kernel_source_matches_twin_constants():
     """The constants written into csrc/leaf.cuh (shared by the sweep and the
-    binned kernels) and csrc/binned.cu are the twins'."""
+    binned kernels) and csrc/binned.cu are the twins', and the binned leaves
+    are instantiated for the bin sizes kernels/binned.py lets them run."""
     csrc = os.path.join(os.path.dirname(kc.__file__), "..", "csrc")
     src = ""
     for name in ("leaf.cuh", "binned.cu"):
@@ -388,7 +389,11 @@ def test_kernel_source_matches_twin_constants():
     assert int(const("kLane")) == cl.LANE_TRIS and int(const("kGroup")) == cl.GROUP
     assert int(const("kTriRows")) == cl.TRI_ROWS
     assert int(const("kSentinel"), 16) == kb.SENTINEL
-    assert int(const("kBin")) == cl.BIN and cl.BIN_TRIS == cl.BIN * cl.LANE_TRIS
+    # the leaves are instantiated for each BIN of kernels/binned.BIN_KERNELS
+    picker = src[src.index("LeafKernel leaf_kernel_for("):]
+    picker = picker[:picker.index("default:")]
+    assert tuple(int(c) for c in re.findall(r"case (\d+):", picker)) == kb.BIN_KERNELS
+    assert cl.BIN in kb.BIN_KERNELS and cl.BIN_TRIS == cl.BIN * cl.LANE_TRIS
     with open(os.path.join(csrc, "cluster.cu")) as fh:
         cluster_src = fh.read()
     assert '#include "leaf.cuh"' in cluster_src
