@@ -19,6 +19,7 @@ import torch
 
 from pyrenderer_tpu_torch import rng
 from pyrenderer_tpu_torch.scene.types import Camera
+from pyrenderer_tpu_torch.utils.profiling import span
 
 
 def _row_transform(v, m):
@@ -35,55 +36,56 @@ def generate_rays(camera: Camera, pixel_x, pixel_y, sample_id, seed: int,
     (jittered-grid) pixel sampling over a strata x strata grid walked by
     sample_id. Returns (ro, rd): (N, 3) tensors in the camera's dtype.
     """
-    w, h = camera.resolution
-    dtype = camera.iview.dtype
-    pixel_id = pixel_y.to(torch.int64) * w + pixel_x.to(torch.int64)
+    with span("camera"):
+        w, h = camera.resolution
+        dtype = camera.iview.dtype
+        pixel_id = pixel_y.to(torch.int64) * w + pixel_x.to(torch.int64)
 
-    jx, jy = rng.uniform2(seed, pixel_id, sample_id, rng.CAMERA_BOUNCE, rng.U_PIXEL_X, dtype)
-    if strata > 1:
-        sample = sample_id.to(torch.int64) if torch.is_tensor(sample_id) else sample_id
-        stratum = (sample & 0xFFFFFFFF) % (strata * strata)
-        sx = stratum % strata
-        sy = stratum // strata
-        if torch.is_tensor(stratum):
-            sx, sy = sx.to(dtype), sy.to(dtype)
-        jx = (sx + jx) / strata
-        jy = (sy + jy) / strata
-    u = (pixel_x.to(dtype) + jx) / w
-    v = (pixel_y.to(dtype) + jy) / h
+        jx, jy = rng.uniform2(seed, pixel_id, sample_id, rng.CAMERA_BOUNCE, rng.U_PIXEL_X, dtype)
+        if strata > 1:
+            sample = sample_id.to(torch.int64) if torch.is_tensor(sample_id) else sample_id
+            stratum = (sample & 0xFFFFFFFF) % (strata * strata)
+            sx = stratum % strata
+            sy = stratum // strata
+            if torch.is_tensor(stratum):
+                sx, sy = sx.to(dtype), sy.to(dtype)
+            jx = (sx + jx) / strata
+            jy = (sy + jy) / strata
+        u = (pixel_x.to(dtype) + jx) / w
+        v = (pixel_y.to(dtype) + jy) / h
 
-    fov = camera.fov_deg * (math.pi / 180.0)
-    sensor_h = torch.tan(fov / 2) * camera.focal_dist
-    sensor_w = sensor_h * (w / h)
+        fov = camera.fov_deg * (math.pi / 180.0)
+        sensor_h = torch.tan(fov / 2) * camera.focal_dist
+        sensor_w = sensor_h * (w / h)
 
-    cx = u - 0.5
-    cy = v - 0.5
-    d_cam = torch.stack(
-        [
-            cx * sensor_w * 2.0,
-            cy * sensor_h * 2.0,
-            -camera.focal_dist * torch.ones_like(cx),
-        ],
-        dim=-1,
-    )
+        cx = u - 0.5
+        cy = v - 0.5
+        d_cam = torch.stack(
+            [
+                cx * sensor_w * 2.0,
+                cy * sensor_h * 2.0,
+                -camera.focal_dist * torch.ones_like(cx),
+            ],
+            dim=-1,
+        )
 
-    lx, ly = rng.uniform2(seed, pixel_id, sample_id, rng.CAMERA_BOUNCE, rng.U_LENS_X, dtype)
-    ap = camera.aperture
-    o_cam = torch.stack(
-        [
-            torch.where(ap > 0, ap * lx - ap / 2, 0.0),
-            torch.where(ap > 0, ap * ly - ap / 2, 0.0),
-            torch.zeros_like(lx),
-        ],
-        dim=-1,
-    )
+        lx, ly = rng.uniform2(seed, pixel_id, sample_id, rng.CAMERA_BOUNCE, rng.U_LENS_X, dtype)
+        ap = camera.aperture
+        o_cam = torch.stack(
+            [
+                torch.where(ap > 0, ap * lx - ap / 2, 0.0),
+                torch.where(ap > 0, ap * ly - ap / 2, 0.0),
+                torch.zeros_like(lx),
+            ],
+            dim=-1,
+        )
 
-    rot = camera.iview[:3, :3]  # row-vector: world = cam_vec @ iview
-    trans = camera.iview[3, :3]
-    rd = _row_transform(d_cam - o_cam, rot)
-    rd = rd / torch.sqrt(torch.sum(rd * rd, dim=-1, keepdim=True))
-    ro = _row_transform(o_cam, rot) + trans
-    return ro, rd
+        rot = camera.iview[:3, :3]  # row-vector: world = cam_vec @ iview
+        trans = camera.iview[3, :3]
+        rd = _row_transform(d_cam - o_cam, rot)
+        rd = rd / torch.sqrt(torch.sum(rd * rd, dim=-1, keepdim=True))
+        ro = _row_transform(o_cam, rot) + trans
+        return ro, rd
 
 
 def morton_pixel_order(w: int, h: int):

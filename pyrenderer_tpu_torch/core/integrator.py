@@ -97,6 +97,7 @@ from pyrenderer_tpu_torch.kernels import binned as binned_kernels
 from pyrenderer_tpu_torch.kernels import cluster as cluster_kernels
 from pyrenderer_tpu_torch.kernels import intersect as kernels
 from pyrenderer_tpu_torch.scene.types import Camera, Scene
+from pyrenderer_tpu_torch.utils.profiling import span
 
 # Reference tracing.py:120 -- emissive surfaces contribute this hardcoded
 # color in "reference" estimator mode (scene emission is ignored there).
@@ -367,57 +368,59 @@ class TraceTables:
 def _closest(scene, tables, cfg, ro, rd, t1, sort=None):
     """Closest-hit query of the tables' backend; `sort` overrides the
     cluster sweep's coherence sort (the wavefront sort turns it off)."""
-    b = tables.backend
-    if b == "custom":
-        return tables.closest_fn(ro, rd, t1)
-    if b == "cuda":
-        return kernels.closest_hit(tables.tri_table, ro, rd, cfg.t_min, t1)
-    if b == "matmul":
-        return isect.intersect_matmul(scene, ro, rd, cfg.t_min, t1, tables.tri_table)
-    if b in ("cluster", "cluster_chunked"):
-        fn = (cluster_kernels.closest_hit if b == "cluster"
-              else cluster_kernels.closest_hit_chunked)
-        # exact_t=False: the trace re-derives the hit geometry from the face
-        return fn(tables.accel, ro, rd, cfg.t_min, t1,
-                  sort=tables.cluster_sort if sort is None else sort,
-                  watertight=tables.cluster_watertight, exact_t=False,
-                  rounds=cfg.cluster_rounds, budget=cfg.cluster_budget)
-    if b == "bvh":
-        return bvh_mod.traverse(tables.accel, tables.bvh_v0, tables.bvh_e1, tables.bvh_e2,
-                                ro, rd, cfg.t_min, t1)
-    if b in ("cluster_binned", "cluster_streamed"):
-        return binned_kernels.closest_hit(
-            tables.accel, ro, rd, cfg.t_min, t1, watertight=tables.cluster_watertight,
-            streamed=b == "cluster_streamed", exact_t=False)
-    if b == "watertight":
-        return wt.intersect_watertight(scene, ro, rd, cfg.t_min, t1)
-    return isect.intersect_brute(scene, ro, rd, cfg.t_min, t1)
+    with span("query"):
+        b = tables.backend
+        if b == "custom":
+            return tables.closest_fn(ro, rd, t1)
+        if b == "cuda":
+            return kernels.closest_hit(tables.tri_table, ro, rd, cfg.t_min, t1)
+        if b == "matmul":
+            return isect.intersect_matmul(scene, ro, rd, cfg.t_min, t1, tables.tri_table)
+        if b in ("cluster", "cluster_chunked"):
+            fn = (cluster_kernels.closest_hit if b == "cluster"
+                  else cluster_kernels.closest_hit_chunked)
+            # exact_t=False: the trace re-derives the hit geometry from the face
+            return fn(tables.accel, ro, rd, cfg.t_min, t1,
+                      sort=tables.cluster_sort if sort is None else sort,
+                      watertight=tables.cluster_watertight, exact_t=False,
+                      rounds=cfg.cluster_rounds, budget=cfg.cluster_budget)
+        if b == "bvh":
+            return bvh_mod.traverse(tables.accel, tables.bvh_v0, tables.bvh_e1, tables.bvh_e2,
+                                    ro, rd, cfg.t_min, t1)
+        if b in ("cluster_binned", "cluster_streamed"):
+            return binned_kernels.closest_hit(
+                tables.accel, ro, rd, cfg.t_min, t1, watertight=tables.cluster_watertight,
+                streamed=b == "cluster_streamed", exact_t=False)
+        if b == "watertight":
+            return wt.intersect_watertight(scene, ro, rd, cfg.t_min, t1)
+        return isect.intersect_brute(scene, ro, rd, cfg.t_min, t1)
 
 
 def _any_hit(scene, tables, cfg, ro, rd, t1, sort=None):
-    b = tables.backend
-    if b == "custom":
-        return tables.any_hit_fn(ro, rd, t1)
-    if b == "cuda":
-        return kernels.occluded(tables.tri_table, ro, rd, cfg.t_min, t1)
-    if b == "matmul":
-        return isect.occluded_matmul(scene, ro, rd, cfg.t_min, t1, tables.tri_table)
-    if b in ("cluster", "cluster_chunked"):
-        fn = (cluster_kernels.occluded if b == "cluster"
-              else cluster_kernels.occluded_chunked)
-        return fn(tables.accel, ro, rd, cfg.t_min, t1,
-                  sort=tables.cluster_sort if sort is None else sort,
-                  watertight=tables.cluster_watertight)
-    if b == "bvh":
-        return bvh_mod.traverse(tables.accel, tables.bvh_v0, tables.bvh_e1, tables.bvh_e2,
-                                ro, rd, cfg.t_min, t1, any_hit=True)[0]
-    if b in ("cluster_binned", "cluster_streamed"):
-        return binned_kernels.occluded(
-            tables.accel, ro, rd, cfg.t_min, t1, watertight=tables.cluster_watertight,
-            streamed=b == "cluster_streamed")
-    if b == "watertight":
-        return wt.occluded_watertight(scene, ro, rd, cfg.t_min, t1)
-    return isect.occluded(scene, ro, rd, cfg.t_min, t1)
+    with span("query"):
+        b = tables.backend
+        if b == "custom":
+            return tables.any_hit_fn(ro, rd, t1)
+        if b == "cuda":
+            return kernels.occluded(tables.tri_table, ro, rd, cfg.t_min, t1)
+        if b == "matmul":
+            return isect.occluded_matmul(scene, ro, rd, cfg.t_min, t1, tables.tri_table)
+        if b in ("cluster", "cluster_chunked"):
+            fn = (cluster_kernels.occluded if b == "cluster"
+                  else cluster_kernels.occluded_chunked)
+            return fn(tables.accel, ro, rd, cfg.t_min, t1,
+                      sort=tables.cluster_sort if sort is None else sort,
+                      watertight=tables.cluster_watertight)
+        if b == "bvh":
+            return bvh_mod.traverse(tables.accel, tables.bvh_v0, tables.bvh_e1, tables.bvh_e2,
+                                    ro, rd, cfg.t_min, t1, any_hit=True)[0]
+        if b in ("cluster_binned", "cluster_streamed"):
+            return binned_kernels.occluded(
+                tables.accel, ro, rd, cfg.t_min, t1, watertight=tables.cluster_watertight,
+                streamed=b == "cluster_streamed")
+        if b == "watertight":
+            return wt.occluded_watertight(scene, ro, rd, cfg.t_min, t1)
+        return isect.occluded(scene, ro, rd, cfg.t_min, t1)
 
 
 def _sample_light_point(scene, tables, pixel_id, sample_id, bounce, seed, dtype):
@@ -522,95 +525,97 @@ def trace_reference(
     records = []
 
     for bounce in range(cfg.max_bounces):
-        if wf_sort:
-            perm = wavefront_sort_perm(tables.accel, ro, rd, alive)
-            ro, rd, beta, radiance, alive, pixel_id, sample_id, orig = (
-                x[perm] for x in (ro, rd, beta, radiance, alive, pixel_id, sample_id, orig))
-        alive_in = alive
-        n_rays = n_rays + alive.sum(dtype=torch.float32)
-
-        # dead lanes trace with t1 = 0: they can never hit, and every result
-        # is masked by `alive` below anyway
-        t_clip = torch.where(alive, t_max, 0.0)
-        hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip, sort=sort)
-        tri = torch.clamp(tri, min=0).to(torch.int64)
-
-        # packed-row fetch, then differentiable re-evaluation of the selected
-        # triangle's geometry (the selection itself is detached)
-        row = tables.fetch_face(tri)
-        v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
-        albedo = row[:, 9:12]
-        sign = row[:, 12]
-        emissive = row[:, 13] > 0.5
-        sided = row[:, 14] > 0.5
-
-        c_e1_d = torch.linalg.cross(e1, rd, dim=-1)
-        det = _dot(c_e1_d, e2)
-        safe_det = torch.where(det == 0, 1.0, det)
-        s = ro - v0
-        c_s_e2 = torch.linalg.cross(s, e2, dim=-1)
-        t = -_dot(c_s_e2, e1) / safe_det
-        p = ro + t[:, None] * rd
-
-        n_geo = sign[:, None] * sampling.safe_normalize(torch.linalg.cross(e1, e2, dim=-1))
-        flip = (~sided) & (_dot(n_geo, -rd) < 0)
-        nrm = torch.where(flip[:, None], -n_geo, n_geo)
-
-        # emissive hit (reference tracing.py:129-139): hardcoded light color,
-        # weight 1 at bounce 0, cos afterwards; the path terminates either way
-        d1 = _dot(-rd, nrm)
-        is_light_hit = alive & hit & emissive
-        le_weight = torch.ones_like(d1) if bounce == 0 else d1
-        add_light = (is_light_hit & (d1 > 0))[:, None]
-        radiance = radiance + torch.where(add_light, light_color * beta * le_weight[:, None], 0.0)
-
-        alive = alive & hit & (~emissive)
-
-        # Lambert cosine sample in the shading frame; pdf = |n.wi|/pi
-        u1, u2 = rng.uniform2(seed, pixel_id, sample_id, bounce, rng.U_BSDF_0, dtype)
-        wi = sampling.rotate_z_to(nrm, sampling.cosine_sample_hemisphere(u1, u2))
-        cos_wi = _dot(nrm, wi)
-        pdf = cos_wi.abs() * INV_PI
-
-        # tracing.py:145-149: attenuation*cos/pdf*(1/pi); 0/0 when n.wi == 0
-        # collapses to exactly 0. The abs and the clamp need not follow
-        # jnp's gradient at n.wi == 0 (1 for abs, half for maximum): that
-        # lane's new_beta is the constant 0
-        safe_pdf = torch.where(pdf == 0, 1.0, pdf)
-        scale = torch.clamp(cos_wi, min=0.0) / safe_pdf * INV_PI
-        new_beta = torch.where((cos_wi != 0)[:, None], albedo * scale[:, None], 0.0)
-        beta = torch.where(alive[:, None], beta * new_beta, beta)
-
-        # NEE (reference tracing.py:92-108): one light point, geometric
-        # coupling emissive*cos1*cos2/dist^2, visibility by a shadow ray
-        # ending a relative margin short of the light
-        p2, n2, em, _ = _sample_light_point(
-            scene, tables, pixel_id, sample_id, bounce, seed, dtype)
-        to_light = p2 - p
-        dist_sq = sampling.maximum(_dot(to_light, to_light), 1e-12)
-        dist = torch.sqrt(dist_sq)
-        w = to_light / dist[:, None]
-        shadow_t1 = torch.where(alive, dist.detach() * (1.0 - cfg.shadow_eps), 0.0)
-        occ = _any_hit(scene, tables, cfg, p.detach(), w.detach(), shadow_t1, sort=sort)
-        n_rays = n_rays + alive.sum(dtype=torch.float32)
-        dot1 = _dot(nrm, w)
-        dot2 = _dot(n2, -w)
-        nee_ok = (alive & (~occ) & (dot1 > 0) & (dot2 > 0))[:, None]
-        contrib = em * (dot1 * dot2 / dist_sq)[:, None]
-        radiance = radiance + torch.where(nee_ok, beta * contrib, 0.0)
-
-        ro = torch.where(alive[:, None], p, ro)
-        rd = torch.where(alive[:, None], wi, rd)
-        if collect_paths:
-            rec = dict(hit_point=p, normal=nrm, wi=wi, t=t, tri=tri, hit=hit & alive_in,
-                       alive=alive, beta=beta, radiance=radiance,
-                       nee_visible=(~occ) & alive, light_point=p2)
-            rec = {k: v.detach() for k, v in rec.items()}
+        with span("bounce"):
             if wf_sort:
-                # this bounce's lanes are in its sorted order: scatter each
-                # record back to the caller's lane order
-                rec = {k: torch.zeros_like(v).index_put((orig,), v) for k, v in rec.items()}
-            records.append(rec)
+                perm = wavefront_sort_perm(tables.accel, ro, rd, alive)
+                ro, rd, beta, radiance, alive, pixel_id, sample_id, orig = (
+                    x[perm] for x in (ro, rd, beta, radiance, alive, pixel_id, sample_id, orig))
+            alive_in = alive
+            n_rays = n_rays + alive.sum(dtype=torch.float32)
+
+            # dead lanes trace with t1 = 0: they can never hit, and every result
+            # is masked by `alive` below anyway
+            t_clip = torch.where(alive, t_max, 0.0)
+            hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip, sort=sort)
+            tri = torch.clamp(tri, min=0).to(torch.int64)
+
+            # packed-row fetch, then differentiable re-evaluation of the selected
+            # triangle's geometry (the selection itself is detached)
+            row = tables.fetch_face(tri)
+            v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+            albedo = row[:, 9:12]
+            sign = row[:, 12]
+            emissive = row[:, 13] > 0.5
+            sided = row[:, 14] > 0.5
+
+            c_e1_d = torch.linalg.cross(e1, rd, dim=-1)
+            det = _dot(c_e1_d, e2)
+            safe_det = torch.where(det == 0, 1.0, det)
+            s = ro - v0
+            c_s_e2 = torch.linalg.cross(s, e2, dim=-1)
+            t = -_dot(c_s_e2, e1) / safe_det
+            p = ro + t[:, None] * rd
+
+            n_geo = sign[:, None] * sampling.safe_normalize(torch.linalg.cross(e1, e2, dim=-1))
+            flip = (~sided) & (_dot(n_geo, -rd) < 0)
+            nrm = torch.where(flip[:, None], -n_geo, n_geo)
+
+            # emissive hit (reference tracing.py:129-139): hardcoded light color,
+            # weight 1 at bounce 0, cos afterwards; the path terminates either way
+            d1 = _dot(-rd, nrm)
+            is_light_hit = alive & hit & emissive
+            le_weight = torch.ones_like(d1) if bounce == 0 else d1
+            add_light = (is_light_hit & (d1 > 0))[:, None]
+            radiance = radiance + torch.where(add_light, light_color * beta * le_weight[:, None],
+                                              0.0)
+
+            alive = alive & hit & (~emissive)
+
+            # Lambert cosine sample in the shading frame; pdf = |n.wi|/pi
+            u1, u2 = rng.uniform2(seed, pixel_id, sample_id, bounce, rng.U_BSDF_0, dtype)
+            wi = sampling.rotate_z_to(nrm, sampling.cosine_sample_hemisphere(u1, u2))
+            cos_wi = _dot(nrm, wi)
+            pdf = cos_wi.abs() * INV_PI
+
+            # tracing.py:145-149: attenuation*cos/pdf*(1/pi); 0/0 when n.wi == 0
+            # collapses to exactly 0. The abs and the clamp need not follow
+            # jnp's gradient at n.wi == 0 (1 for abs, half for maximum): that
+            # lane's new_beta is the constant 0
+            safe_pdf = torch.where(pdf == 0, 1.0, pdf)
+            scale = torch.clamp(cos_wi, min=0.0) / safe_pdf * INV_PI
+            new_beta = torch.where((cos_wi != 0)[:, None], albedo * scale[:, None], 0.0)
+            beta = torch.where(alive[:, None], beta * new_beta, beta)
+
+            # NEE (reference tracing.py:92-108): one light point, geometric
+            # coupling emissive*cos1*cos2/dist^2, visibility by a shadow ray
+            # ending a relative margin short of the light
+            p2, n2, em, _ = _sample_light_point(
+                scene, tables, pixel_id, sample_id, bounce, seed, dtype)
+            to_light = p2 - p
+            dist_sq = sampling.maximum(_dot(to_light, to_light), 1e-12)
+            dist = torch.sqrt(dist_sq)
+            w = to_light / dist[:, None]
+            shadow_t1 = torch.where(alive, dist.detach() * (1.0 - cfg.shadow_eps), 0.0)
+            occ = _any_hit(scene, tables, cfg, p.detach(), w.detach(), shadow_t1, sort=sort)
+            n_rays = n_rays + alive.sum(dtype=torch.float32)
+            dot1 = _dot(nrm, w)
+            dot2 = _dot(n2, -w)
+            nee_ok = (alive & (~occ) & (dot1 > 0) & (dot2 > 0))[:, None]
+            contrib = em * (dot1 * dot2 / dist_sq)[:, None]
+            radiance = radiance + torch.where(nee_ok, beta * contrib, 0.0)
+
+            ro = torch.where(alive[:, None], p, ro)
+            rd = torch.where(alive[:, None], wi, rd)
+            if collect_paths:
+                rec = dict(hit_point=p, normal=nrm, wi=wi, t=t, tri=tri, hit=hit & alive_in,
+                           alive=alive, beta=beta, radiance=radiance,
+                           nee_visible=(~occ) & alive, light_point=p2)
+                rec = {k: v.detach() for k, v in rec.items()}
+                if wf_sort:
+                    # this bounce's lanes are in its sorted order: scatter each
+                    # record back to the caller's lane order
+                    rec = {k: torch.zeros_like(v).index_put((orig,), v) for k, v in rec.items()}
+                records.append(rec)
 
     if wf_sort:
         # lanes end in the last bounce's order; orig maps each back

@@ -37,6 +37,7 @@ from pyrenderer_tpu_torch.core.integrator import (
     resolve_backend,
 )
 from pyrenderer_tpu_torch.scene.types import Camera, Scene
+from pyrenderer_tpu_torch.utils.profiling import span
 
 # pixels per rendered chunk of train_step and of the sharded renders,
 # render_image's default
@@ -284,7 +285,7 @@ def loss_and_grads(params: Tuple, scene: Scene, camera: Camera, cfg: RenderConfi
         block = dp_block(mesh, pixel_x.shape[0])
     for start in range(block.start, block.stop, CHUNK):
         sl = slice(start, min(start + CHUNK, block.stop))
-        with torch.enable_grad():
+        with span("forward"), torch.enable_grad():
             if mesh is None:
                 img = render_field(s, camera, cfg, pixel_x[sl], pixel_y[sl], accel=accel)
             else:
@@ -295,10 +296,11 @@ def loss_and_grads(params: Tuple, scene: Scene, camera: Camera, cfg: RenderConfi
             part = torch.sum((img - target[sl]) ** 2) / target.numel()
         loss = loss + part.detach()
         if trained:
-            for g, d in zip(grads, torch.autograd.grad(
-                    part, [leaves[i] for i in trained], allow_unused=True,
-                    materialize_grads=True)):
-                g += d
+            with span("backward"):
+                for g, d in zip(grads, torch.autograd.grad(
+                        part, [leaves[i] for i in trained], allow_unused=True,
+                        materialize_grads=True)):
+                    g += d
     if mesh is not None:
         loss = all_reduce(loss, mesh.get_group("dp"))
         grads = [all_reduce(g) for g in grads]
@@ -312,9 +314,10 @@ def sgd(params: Tuple, grads, lr):
     """params - lr * grads; lr a scalar or one per parameter. A parameter
     with lr 0 comes back as the same tensor (p - 0 * g would be NaN where g
     is inf), and its gradient may be None."""
-    lrs = tuple(lr) if isinstance(lr, (tuple, list)) else (lr, lr, lr)
-    return tuple(p if step == 0 else (p - step * g).detach()
-                 for p, g, step in zip(params, grads, lrs))
+    with span("sgd"):
+        lrs = tuple(lr) if isinstance(lr, (tuple, list)) else (lr, lr, lr)
+        return tuple(p if step == 0 else (p - step * g).detach()
+                     for p, g, step in zip(params, grads, lrs))
 
 
 def train_step(params: Tuple, scene: Scene, camera: Camera, cfg: RenderConfig, target,
@@ -336,7 +339,8 @@ def train_step(params: Tuple, scene: Scene, camera: Camera, cfg: RenderConfig, t
     and ends with the same new params, those of the one-process step.
     Chunks and gradients as loss_and_grads. Returns (loss, new_params),
     detached."""
-    lrs = tuple(lr) if isinstance(lr, (tuple, list)) else (lr, lr, lr)
-    loss, grads = loss_and_grads(params, scene, camera, cfg, target, pixel_x, pixel_y,
-                                 accel=accel, mesh=mesh, wrt=[step != 0 for step in lrs])
-    return loss, sgd(params, grads, lrs)
+    with span("step"):
+        lrs = tuple(lr) if isinstance(lr, (tuple, list)) else (lr, lr, lr)
+        loss, grads = loss_and_grads(params, scene, camera, cfg, target, pixel_x, pixel_y,
+                                     accel=accel, mesh=mesh, wrt=[step != 0 for step in lrs])
+        return loss, sgd(params, grads, lrs)

@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from pyrenderer_tpu_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 # -fmad=false: no a*b - c*d contracted into an FMA, and no fast-math flag
@@ -174,7 +176,7 @@ def launch(fn_name, device, *args) -> None:
     stream on `device`; raise if it returned a nonzero cudaError_t (a
     refused launch never runs, and a later synchronize would not report
     it)."""
-    with torch.cuda.device(device):
+    with span("launch"), torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(library(), fn_name)(*args, stream)
     if err != 0:

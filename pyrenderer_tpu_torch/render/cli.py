@@ -16,14 +16,24 @@ The ``analytic`` mode renders the self-contained analytic-primitive scene
 (analytic.py, the reference's taichi_ref.py) at 400x400, 25 spp and depth
 10 unless told otherwise. ``--debug-paths OUT.html`` traces a grid of
 ``--debug-rays`` pixels once, recording every bounce (debug/logger.py), and
-writes the HTML viewer and OUT.ply instead of rendering.
+writes the HTML viewer and OUT.ply instead of rendering. ``--trace-dir
+DIR`` profiles the render's first TRACE_PASSES passes: a Chrome trace with
+the program's spans among the kernels, and a summary of the spans a pass.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
+import os
 import sys
+import time
 
+# the passes --trace-dir profiles, from the first: the trace and the spans
+# stay in memory until they are written, and a long-lived profiler drops
+# events, so the rest of the render runs unprofiled
+TRACE_PASSES = 3
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -97,6 +107,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--debug-rays", type=int, default=49,
                    help="ray count for --debug-paths (a sqrt-grid of pixels)")
+    p.add_argument(
+        "--trace-dir", metavar="DIR",
+        help=f"profile the first {TRACE_PASSES} passes of the render (the first one builds "
+        "the kernels) and write into DIR one Chrome trace that holds the program's spans "
+        "(pass, chunk, bounce, rng, query, launch, ...) beside the device's kernels, on "
+        "one clock, and spans_*.json: each span's count, ms and self ms a pass, and on "
+        "CUDA the host's waits for the device a pass, over the profiled passes and over "
+        "those after the first (utils/profiling.py)",
+    )
     return p
 
 
@@ -171,22 +190,50 @@ def main(argv=None) -> int:
             if passes % args.live == 0:
                 view.update(r.ldr(), f"{r.film.spp}/{r.cfg.spp} spp")
 
+    traced = contextlib.ExitStack()
+    if args.trace_dir:
+        view_pass, traced_passes = on_pass, 0
+
+        def on_pass(r):
+            # ends the profile after TRACE_PASSES passes, between two passes
+            nonlocal traced_passes
+            traced_passes += 1
+            if traced_passes == TRACE_PASSES:
+                traced.close()
+            if view_pass:
+                view_pass(r)
+
     scene, camera = to_device(scene, camera, device, torch.float32)
     renderer = ProgressiveRenderer(scene, camera, cfg, backend=args.backend,
                                    film=film, chunk=args.chunk, on_pass=on_pass)
     # the live view redraws in place by rewinding exactly its own lines:
     # any other print between frames would corrupt it
     quiet = args.quiet or bool(args.live)
-    if args.resilient:
-        renderer.run_resilient(checkpoint_path=args.checkpoint,
-                               max_retries=args.resilient, quiet=quiet)
-    else:
-        renderer.run(checkpoint_path=args.checkpoint, quiet=quiet)
+    rec = None
+    with traced:
+        if args.trace_dir:
+            from pyrenderer_tpu_torch.utils import profiling
+
+            traced.enter_context(profiling.trace_profile(args.trace_dir))
+            rec = traced.enter_context(profiling.recording(device))
+        if args.resilient:
+            renderer.run_resilient(checkpoint_path=args.checkpoint,
+                                   max_retries=args.resilient, quiet=quiet)
+        else:
+            renderer.run(checkpoint_path=args.checkpoint, quiet=quiet)
     if not quiet:
         rays, secs = renderer.rays_traced, renderer.render_seconds
         print(f"rendered on {device} ({renderer.backend} backend): {rays:.0f} rays "
               f"in {secs:.3f} s = {rays / secs / 1e6:.3f} Mrays/s", file=sys.stderr)
-    for path in renderer.write_outputs():
+    written = renderer.write_outputs()
+    if rec is not None:
+        path = os.path.join(args.trace_dir, f"spans_{os.getpid()}_{time.time_ns()}.json")
+        with open(path, "w") as f:
+            # the first pass also builds the kernels
+            json.dump({"device": str(device), "passes": rec.summary("pass"),
+                       "passes_after_first": rec.summary("pass", skip=1)}, f, indent=1)
+        written.append(path)
+    for path in written:
         print(f"wrote {path}", file=sys.stderr)
     return 0
 

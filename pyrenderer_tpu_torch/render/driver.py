@@ -30,6 +30,7 @@ from pyrenderer_tpu_torch.core.tonemap import tonemap
 from pyrenderer_tpu_torch.scene.types import Camera, Scene
 from pyrenderer_tpu_torch.utils.checks import assert_all_finite
 from pyrenderer_tpu_torch.utils.image_io import write_hdr, write_png
+from pyrenderer_tpu_torch.utils.profiling import span
 
 
 REPORT_INTERVAL = 10  # passes between samples/s reports
@@ -118,55 +119,66 @@ class ProgressiveRenderer:
 
     def render_one_pass(self) -> None:
         """One uniform spp_step pass over all pixels."""
-        w, h = self.camera.resolution
-        sums, sqs, rays = [], [], 0.0
-        for start in range(0, w * h, self.chunk):
-            s, q, n = _render_pass(
-                self.scene, self.camera, self.cfg, self.tables, self.film.next_sample,
-                self.cfg.spp_step, self._px[start:start + self.chunk],
-                self._py[start:start + self.chunk])
-            sums.append(s)
-            sqs.append(q)
-            rays = rays + n
-        img = torch.cat(sums).cpu().numpy()[self._inv_perm].reshape(h, w, 3)[::-1]
-        sq = torch.cat(sqs).cpu().numpy()[self._inv_perm].reshape(h, w, 3)[::-1]
-        if self._validate:
-            # run_resilient's guard, before the film absorbs the pass: it
-            # can be retried with the same RNG counters
-            assert_all_finite({"radiance": img, "radiance_sq": sq},
-                              f"in the pass at spp {self.film.spp}")
-        self.film.add_pass(img, sq, self.cfg.spp_step)
-        self._rays += rays
+        with span("pass"):
+            w, h = self.camera.resolution
+            sums, sqs, rays = [], [], 0.0
+            for start in range(0, w * h, self.chunk):
+                with span("chunk"):
+                    s, q, n = _render_pass(
+                        self.scene, self.camera, self.cfg, self.tables, self.film.next_sample,
+                        self.cfg.spp_step, self._px[start:start + self.chunk],
+                        self._py[start:start + self.chunk])
+                sums.append(s)
+                sqs.append(q)
+                rays = rays + n
+            with span("readback"):
+                img = torch.cat(sums).cpu()
+                sq = torch.cat(sqs).cpu()
+            with span("film"):
+                img = img.numpy()[self._inv_perm].reshape(h, w, 3)[::-1]
+                sq = sq.numpy()[self._inv_perm].reshape(h, w, 3)[::-1]
+                if self._validate:
+                    # run_resilient's guard, before the film absorbs the
+                    # pass: it can be retried with the same RNG counters
+                    assert_all_finite({"radiance": img, "radiance_sq": sq},
+                                      f"in the pass at spp {self.film.spp}")
+                self.film.add_pass(img, sq, self.cfg.spp_step)
+            self._rays += rays
 
     def refine_adaptive(self, quiet: bool = False) -> int:
         """One adaptive sweep: render one extra sample for every pixel whose
         relative error exceeds cfg.adaptive_tolerance, up to cfg.spp; each
         pixel's sample id is its count so far (film.spp_map). Returns the
         number of refined pixels."""
-        h = self.camera.resolution[1]
-        err = self.film.relative_error()
-        active = (err > self.cfg.adaptive_tolerance) & (self.film.spp_map < self.cfg.spp)
-        idx = np.nonzero(active[::-1].reshape(-1))[0]  # flip back to y-up order
-        if idx.size == 0:
-            return 0
-        for start in range(0, idx.size, self.chunk):
-            # the JAX driver pads each chunk to a power of two (at least
-            # 4096) to bound the TPU's compiles and cuts the results at
-            # [:k]; no output depends on the padding, so it is left out
-            part = idx[start:start + self.chunk]
-            rows = h - 1 - self._py_np[part]
-            cols = self._px_np[part]
-            ids = torch.as_tensor(self.film.spp_map[rows, cols].astype(np.int64),
-                                  device=self.device)
-            px = torch.as_tensor(self._px_np[part], device=self.device)
-            py = torch.as_tensor(self._py_np[part], device=self.device)
-            r, q, n = _render_pass_ids(self.scene, self.camera, self.cfg, self.tables, ids,
-                                       px, py)
-            r, q = r.cpu().numpy(), q.cpu().numpy()
-            if self._validate:
-                assert_all_finite({"radiance": r, "radiance_sq": q}, "in an adaptive chunk")
-            self.film.add_pixels(rows, cols, r, q)
-            self._rays += n
+        with span("pass"):
+            h = self.camera.resolution[1]
+            err = self.film.relative_error()
+            active = (err > self.cfg.adaptive_tolerance) & (self.film.spp_map < self.cfg.spp)
+            idx = np.nonzero(active[::-1].reshape(-1))[0]  # flip back to y-up order
+            if idx.size == 0:
+                return 0
+            for start in range(0, idx.size, self.chunk):
+                # the JAX driver pads each chunk to a power of two (at least
+                # 4096) to bound the TPU's compiles and cuts the results at
+                # [:k]; no output depends on the padding, so it is left out
+                part = idx[start:start + self.chunk]
+                rows = h - 1 - self._py_np[part]
+                cols = self._px_np[part]
+                ids = torch.as_tensor(self.film.spp_map[rows, cols].astype(np.int64),
+                                      device=self.device)
+                px = torch.as_tensor(self._px_np[part], device=self.device)
+                py = torch.as_tensor(self._py_np[part], device=self.device)
+                with span("chunk"):
+                    r, q, n = _render_pass_ids(self.scene, self.camera, self.cfg, self.tables,
+                                               ids, px, py)
+                with span("readback"):
+                    r, q = r.cpu().numpy(), q.cpu().numpy()
+                with span("film"):
+                    if self._validate:
+                        assert_all_finite({"radiance": r, "radiance_sq": q},
+                                          "in an adaptive chunk")
+                    self.film.add_pixels(rows, cols, r, q)
+                self._rays += n
         if not quiet:
             print(f"adaptive: refined {idx.size} pixels", file=sys.stderr)
         return int(idx.size)

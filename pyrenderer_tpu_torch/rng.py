@@ -26,6 +26,8 @@ import os
 
 import torch
 
+from pyrenderer_tpu_torch.utils.profiling import span
+
 # Use-slot assignments within one bounce (or the camera slot).
 # Camera draws live at bounce = CAMERA_BOUNCE.
 U_PIXEL_X = 0
@@ -80,11 +82,12 @@ def threefry2x32(k0, k1, c0, c1, rounds: int | None = None):
 def _words(seed: int, pixel, sample, bounce, use):
     """Both Threefry output words for the counter (pixel, sample, bounce,
     use). `pixel` is an integer tensor; the others broadcast against it."""
-    pixel = pixel.to(torch.int64) & _U32
-    if torch.is_tensor(sample):
-        sample = sample.to(torch.int64)
-    c1 = ((sample << 12) | (bounce << 4) | use) & _U32
-    return threefry2x32(seed & _U32, _KEY_TAG, pixel, c1)
+    with span("rng"):
+        pixel = pixel.to(torch.int64) & _U32
+        if torch.is_tensor(sample):
+            sample = sample.to(torch.int64)
+        c1 = ((sample << 12) | (bounce << 4) | use) & _U32
+        return threefry2x32(seed & _U32, _KEY_TAG, pixel, c1)
 
 
 def _to_unit(bits, dtype):
