@@ -153,9 +153,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    exact ties; the 512x512 2-spp frames (3 launches of each kernel per
    query against 1), > 99.9% of pixels close with a median |diff| of 0,
    and their Mrays/s.
-20. The BVH (plain PyTorch, no kernel): the native SAH builder must load on
-   this machine; terrain8k 32x32 2 spp through backend "bvh" on the card
-   and on the CPU (> 95% close, median |diff| < 1e-5), and its Mrays/s.
+20. The BVH (plain PyTorch, no kernel but the RNG's): the native SAH
+   builder must load on this machine; terrain8k 32x32 2 spp through
+   backend "bvh" on the card and on the CPU (> 95% close, median |diff|
+   < 1e-5; the CPU window counts the Threefry twin's calls instead), and
+   its Mrays/s.
 21. The wavefront sort (PYRENDERER_WF_SORT=1): the terrain100k frame with
    both estimators, each within rtol 1e-5 of the same frame with the
    per-query sort, with the launches of phase 7, and all four Mrays/s.
@@ -210,28 +212,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    png]); the PNG equals the CPU tonemap of read_exr to 1 LSB.
 27. The matmul backend under torch.set_float32_matmul_precision("high")
    (restored after): the CLI's Cornell 1024x1024 16-spp 4-bounce frame
-   with --backend matmul launches no kernel. Phase 3's "cuda" frame
-   rendered again (a counting window) with every closest-hit and any-hit
-   query also asked of intersect_matmul / occluded_matmul: hit masks
-   flipped on < 1e-5 of the live rays, face materials on < 1e-4, occlusion
-   on < 1e-3 of the shadow rays; the same product unguarded (TF32) must
-   fail that gate. Against phase 3's frame, > 99% of the values close at
-   rtol 1e-3 (atol 1e-6) and the mean within 1e-3 relative; on phase 2's
-   65,536 random rays intersect_matmul
-   against closest_hit: hit masks and faces equal on > 99.5%, t within
-   rtol 2e-4 where the faces agree (tests/test_intersect.py's bounds),
-   bit for bit the result under "highest"; printed beside them, the same
-   product unguarded (TF32).
-28. The analytic tracer (analytic.py, plain PyTorch, no kernel): the CLI's
-   analytic mode at its defaults (400x400, 25 spp, depth 10, 160,000 rays
-   a wavefront) writing the PNG and the .npy HDR, a counting window with
-   no launch: a finite HDR, the left wall red and the right wall green,
-   its wall time; the same frame under set_float32_matmul_precision("high")
-   bit-identical to it (the TF32 guard; the precision restored after); one
-   sample of it timed, then profiled (device kernels, busy, idle share); at
-   64x64, 25 spp, depth 10, seed 0 the card's frame against the port's CPU
-   frame (>= 99% of the values close at rtol 1e-3, atol 1e-6) and its mean
-   against the JAX package's CPU mean (5e-3 relative).
+   with --backend matmul launches no kernel but Threefry. Phase 3's
+   "cuda" frame rendered again (a counting window) with every
+   closest-hit and any-hit query also asked of intersect_matmul /
+   occluded_matmul: hit masks flipped on < 1e-5 of the live rays, face
+   materials on < 1e-4, occlusion on < 1e-3 of the shadow rays; the same
+   product unguarded (TF32) must fail that gate. Against phase 3's
+   frame, > 99% of the values close at rtol 1e-3 (atol 1e-6) and the
+   mean within 1e-3 relative; on phase 2's 65,536 random rays
+   intersect_matmul against closest_hit: hit masks and faces equal on >
+   99.5%, t within rtol 2e-4 where the faces agree
+   (tests/test_intersect.py's bounds), bit for bit the result under
+   "highest"; printed beside them, the same product unguarded (TF32).
+28. The analytic tracer (analytic.py, plain PyTorch): the CLI's analytic
+   mode at its defaults (400x400, 25 spp, depth 10, 160,000 rays a
+   wavefront) writing the PNG and the .npy HDR, a counting window with
+   no launch but the RNG's (25 x (1 + 4 x 10)): a finite HDR, the left
+   wall red and the right wall green, its wall time; the same frame
+   under set_float32_matmul_precision("high") bit-identical to it (the
+   TF32 guard; the precision restored after); one sample of it timed,
+   then profiled (device kernels, busy, idle share); at 64x64, 25 spp,
+   depth 10, seed 0 the card's frame against the port's CPU frame (>=
+   99% of the values close at rtol 1e-3, atol 1e-6) and its mean against
+   the JAX package's CPU mean (5e-3 relative).
 29. The debug path records (debug/logger.py): the CLI's --debug-paths on
    Cornell (49 rays at the scene's 1024x1024 and 16 bounces) with exactly
    16 launches of each whole-table kernel and no twin call, the HTML's
@@ -288,7 +291,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches of one call are exact (4 of each of B1 and B2 in a trace, one
    of each in kernel_pair, one B3 in wrap_full and wrap_bare, one of each
    binned kernel in its row, the streamed core's as its rounds through the
-   twins count them, none where a stage has no kernel) and no twin runs;
+   twins count them, one Threefry launch a draw, none where a stage has no
+   kernel) and no twin runs;
    each stage's output on the card is held against the same stage on the
    CPU (the twins) at 2,048-8,192 rays: bit for bit where the stage is
    integer, a gather, a kernel or a Threefry draw, at rtol 1e-4 / atol 1e-6
@@ -298,6 +302,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    prepass and one leaf a core, and hit agreement 1.0 with the sweep's twin
    on 4,096 rays; each child reports its launches, which count as a
    counting window. Prints the phase's seconds.
+35. The Threefry kernel (csrc/rng.cu) against its twin rng.threefry2x32 on
+   the card at the reference trace's operands (65,536 lanes, an expanded
+   int64 pixel, a scalar sample, 20 rounds): both words and both uniforms
+   of uniform2 bit for bit, one launch a call; timed beside its twin, with
+   one lane's time (the launch's floor) and its bound (TF_OPS int32
+   operations a lane at half the fp32 rate, the pixel read and the
+   uniforms written once).
+
+Wherever a phase counts launches exactly, the Threefry kernel's are among
+them: one launch a draw of the counter RNG, draws() a chunk-trace (2 + 3
+a bounce for the reference estimator, 2 + 4 a bounce and one more a
+bounce from the roulette's start for pbrt), the analytic tracer's 1 + 4 a
+bounce, a harness row's own draws.
 
 Every main-path run above (the frames of phases 3, 7, 11, 14, 17-21,
 24-25, 27 and 30-33, the CLI runs, the bench rows, the harness, the gradient and
@@ -383,6 +400,15 @@ PEAK_BYTES = 3.35e12
 # MT_OPS, and the probes' products, COND_OPS).
 WT_OPS = 75
 SLAB_OPS = 26
+# int32 operations a second: an SM issues half as many int32 as fp32
+# operations a clock (64 against 128 lanes)
+PEAK_INT32 = PEAK_FP32 / 2
+# int32 operations of one Threefry-2x32 lane at 20 rounds (csrc/rng.cu):
+# an add, a funnel shift and a xor a round, three adds at each of the five
+# key injections, the counter's shifts and ors, the key's xors and the
+# first adds (10), and for each of the two uniforms a shift, a conversion
+# and a multiply
+TF_OPS = 3 * 20 + 3 * 5 + 10 + 2 * 3
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -412,6 +438,9 @@ KERNELS = {
     "kb_extract": ("pyrenderer_tpu_torch/csrc/kernelbench.cu", "perf/kernelbench.py:129"),
     "kb_cond": ("pyrenderer_tpu_torch/csrc/kernelbench.cu", "perf/kernelbench.py:162"),
     "kb_ctz": ("pyrenderer_tpu_torch/csrc/kernelbench.cu", "perf/kernelbench.py:206"),
+    # no Pallas kernel: the JAX RNG is jnp ops that XLA fuses
+    "threefry": ("pyrenderer_tpu_torch/csrc/rng.cu",
+                 "none (pyrenderer_tpu/rng.py threefry2x32 is jnp ops)"),
 }
 
 
@@ -424,20 +453,34 @@ def check(cond, msg: str) -> None:
 TALLY = collections.Counter()
 
 
-def counted(fn, label, expect=None):
+def draws(traces, depth=4, estimator="reference"):
+    """The Threefry evaluations (on the card, launches of csrc/rng.cu) of
+    `traces` chunk-traces at `depth` bounces in a scene of one light (every
+    scene of this script): the camera's pixel and lens pairs, then each
+    bounce's BSDF pair and the light's face and point, and with the pbrt
+    estimator the BSDF's third draw and, from russian_roulette_start (4)
+    on, the roulette's."""
+    per_bounce = 3 if estimator == "reference" else 4
+    roulette = max(0, depth - 4) if estimator == "pbrt" else 0
+    return traces * (2 + per_bounce * depth + roulette)
+
+
+def counted(fn, label, expect=None, twins=None):
     """fn() as one counting window of a main path: every kernel wrapper's
-    counts zeroed just before it and read just after. Checks that no twin
-    ran (and, given `expect`, exactly those launches), adds the launches to
-    TALLY; returns (fn()'s result, the launches)."""
+    counts zeroed just before it and read just after. Checks that the twins
+    ran `twins` times (default: none; given only for a CPU run) and, given
+    `expect`, exactly those launches, adds the launches to TALLY; returns
+    (fn()'s result, the launches)."""
     from pyrenderer_tpu_torch import kernels
 
     torch.cuda.synchronize()
     kernels.reset_counters()
     out = fn()
     torch.cuda.synchronize()
-    launches, twins = kernels.counts()
-    print(f"{label}: launches {launches}, twin calls {twins}", flush=True)
-    check(not twins, f"{label}: twin calls {twins}")
+    launches, twin_calls = kernels.counts()
+    print(f"{label}: launches {launches}, twin calls {twin_calls}", flush=True)
+    check(twin_calls == (twins or {}), f"{label}: twin calls {twin_calls}, expected "
+          f"{twins or {}}")
     if expect is not None:
         check(launches == expect, f"{label}: launches {launches}, expected {expect}")
     TALLY.update(launches)
@@ -456,10 +499,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(ops, nbytes):
-    """(bound ms, "operations" or "bytes"): the least time of `ops` fp32
-    operations and `nbytes` bytes of device memory traffic on the card."""
-    t_ops, t_bytes = ops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(ops, nbytes, peak_ops=PEAK_FP32):
+    """(bound ms, "operations" or "bytes"): the least time of `ops`
+    operations at `peak_ops` a second (fp32 unless told) and `nbytes` bytes
+    of device memory traffic on the card."""
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -573,7 +617,8 @@ def main() -> int:
                 "--spp", str(spp), "--res", str(res), str(res),
                 "--out", png, "--hdr-out", exr]
         (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI reference frame",
-                               {"closest_hit": expect, "occluded": expect})
+                               {"closest_hit": expect, "occluded": expect,
+                                "threefry": draws(expect // depth)})
         check(rc == 0, f"cli.main returned {rc}")
         check(os.path.getsize(png) > 0 and os.path.getsize(exr) > 0, "outputs missing")
         hdr = read_exr(exr)
@@ -631,7 +676,8 @@ def main() -> int:
     golden_phase(dev, card)
     dist_phases(dev, card, hdr, host_scene, host_camera, ctx)
     harness_phase(dev, card)
-    for entries in (large, binned, probes, rounds):
+    rng_entries = threefry_phase(dev, card)
+    for entries in (large, binned, probes, rounds, rng_entries):
         max_abs_err.update(entries["max_abs_err"])
         ms.update(entries["ms"])
         plain_ms.update(entries["plain_ms"])
@@ -769,7 +815,8 @@ def large_scene_phases(dev, card):
           f"auto resolved to {renderer.backend}, sort/watertight not both on")
     expect = 4 * 4 * 4
     film, _ = counted(lambda: renderer.run(quiet=True), "terrain100k cluster frame",
-                      {"cluster_closest_hit": expect, "cluster_occluded": expect})
+                      {"cluster_closest_hit": expect, "cluster_occluded": expect,
+                       "threefry": draws(expect // 4)})
     hdr = film.hdr
     check(hdr.shape == (512, 512, 3) and bool(np.isfinite(hdr).all()), "HDR not finite")
     print(f"HDR mean {float(hdr.mean()):.6f}", flush=True)
@@ -1360,7 +1407,8 @@ def pbrt_phases(dev, card, mrays_reference):
         argv = [SCENE, "--depth", str(depth), "--spp", str(spp), "--res", str(res), str(res),
                 "--out", os.path.join(tmp, "pbrt.png"), "--hdr-out", exr]
         (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI pbrt frame",
-                               {"closest_hit": expect, "occluded": expect})
+                               {"closest_hit": expect, "occluded": expect,
+                                "threefry": draws(expect // depth, depth, "pbrt")})
         check(rc == 0, f"cli.main returned {rc}")
         hdr = read_exr(exr)
     check(hdr.shape == (res, res, 3) and bool(np.isfinite(hdr).all()), "pbrt HDR not finite")
@@ -1481,8 +1529,10 @@ def resume_phases(dev, card, ctx):
     frames = {}
     for rounds, c, expect in (
             (2, cfg2, {"cluster_closest_hit": 128, "cluster_closest_suspend": 64,
-                       "cluster_closest_resume": 64, "cluster_occluded": 64}),
-            (1, ctx["cfg"], {"cluster_closest_hit": 64, "cluster_occluded": 64})):
+                       "cluster_closest_resume": 64, "cluster_occluded": 64,
+                       "threefry": draws(16)}),
+            (1, ctx["cfg"], {"cluster_closest_hit": 64, "cluster_occluded": 64,
+                             "threefry": draws(16)})):
         renderer = ProgressiveRenderer(ctx["scene"], ctx["camera"], c, chunk=1 << 16, accel=cs)
         check(renderer.backend == "cluster" and renderer.tables.cluster_sort
               and renderer.tables.cluster_watertight, f"rounds {rounds}: not the sorted sweep")
@@ -1600,7 +1650,8 @@ def accel_phases(dev, card, ctx):
               f"{backend}: resolved {renderer.backend}, or not watertight")
         film, _ = counted(lambda r=renderer: r.run(quiet=True), f"terrain330k {backend} frame",
                           {"cluster_closest_hit": per * per_query,
-                           "cluster_occluded": per * per_query})
+                           "cluster_occluded": per * per_query,
+                           "threefry": draws(per_query // 4)})
         check(bool(np.isfinite(film.hdr).all()), f"{backend}: HDR not finite")
         frames[backend] = film.hdr
         mrays[backend] = renderer.rays_traced / renderer.render_seconds / 1e6
@@ -1623,8 +1674,11 @@ def accel_phases(dev, card, ctx):
         renderer = ProgressiveRenderer(*to_device(host8, cam32, where), cfg8, backend="bvh")
         check(renderer.backend == "bvh" and isinstance(renderer.accel, bvh_mod.FlatBVH),
               "not the BVH")
+        # no kernel but the RNG's; on the CPU its twin
+        rng_calls = {"threefry": draws(cfg8.spp * -(-32 * 32 // renderer.chunk))}
+        on_card = where != "cpu"
         film, _ = counted(lambda r=renderer: r.run(quiet=True), f"terrain8k bvh frame ({where})",
-                          {})
+                          rng_calls if on_card else {}, None if on_card else rng_calls)
         films[str(where)] = (film.hdr, renderer.rays_traced / renderer.render_seconds / 1e6)
     (img_gpu, m_gpu), (img_cpu, m_cpu) = films[str(dev)], films["cpu"]
     close = float(np.isclose(img_gpu, img_cpu, rtol=1e-3, atol=1e-4).mean())
@@ -1637,10 +1691,11 @@ def accel_phases(dev, card, ctx):
 
     phase("21 wavefront sort (PYRENDERER_WF_SORT=1): terrain100k, both estimators")
     cs100 = ctx["cs"]
-    expect = {"cluster_closest_hit": 64, "cluster_occluded": 64}
     mrays = {}
     for estimator in ("reference", "pbrt"):
         c = ctx["cfg"].replace(estimator=estimator)
+        expect = {"cluster_closest_hit": 64, "cluster_occluded": 64,
+                  "threefry": draws(16, 4, estimator)}
         hdr = {}
         for wf in ("0", "1"):
             os.environ["PYRENDERER_WF_SORT"] = wf
@@ -1751,7 +1806,8 @@ def gradient_phases(dev, card):
         ((img_k, g_k), _), t_k = timed(lambda: counted(
             lambda: image_and_grads(scene, cam, cfg),
             f"{label}, 256x256, {cfg.spp} spp, backend cuda",
-            {"closest_hit": per, "occluded": per}))
+            {"closest_hit": per, "occluded": per,
+             "threefry": draws(cfg.spp, cfg.max_bounces, cfg.estimator)}))
         (img_b, g_b), t_b = timed(lambda: image_and_grads(scene, cam, cfg, "brute"))
         check_grads(g_k, label)
         n_diff = int((img_k != img_b).any(dim=-1).sum())
@@ -1776,7 +1832,8 @@ def gradient_phases(dev, card):
     scene, cam = to_device(host8, cam64, dev)
     (img_g, p_g), _ = counted(lambda: field_graph(scene, cam, cfg, accel=cs.to(dev)),
                               f"{label}, 64x64, {cfg.spp} spp, backend cluster (forward)",
-                              {"cluster_closest_hit": per, "cluster_occluded": per})
+                              {"cluster_closest_hit": per, "cluster_occluded": per,
+                               "threefry": draws(cfg.spp, cfg.max_bounces, cfg.estimator)})
     g_g, _ = counted(lambda: grads_of(img_g.sum(), p_g), f"{label} (backward)", {})
     check_grads(g_g, label)
     t = time.perf_counter()
@@ -1805,7 +1862,8 @@ def gradient_phases(dev, card):
     per = 4 * 3
     out, _ = counted(lambda: invrender.recover(dev, log=lambda line: print(line, flush=True)),
                      "invrender (48x48, 4 spp, 3 bounces, 80 steps, albedo lr 30)",
-                     {"closest_hit": fields * per, "occluded": fields * per})
+                     {"closest_hit": fields * per, "occluded": fields * per,
+                      "threefry": draws(fields * 4, 3)})
     err = float(np.abs(out["albedo"] - out["true_albedo"]).max())
     print(f"invrender: loss {out['loss0']:.4e} -> {out['loss']:.4e} "
           f"({out['loss0'] / out['loss']:.1f}x), albedo max err {err:.5f} ({card})", flush=True)
@@ -1831,11 +1889,12 @@ def gradient_phases(dev, card):
         return train_step(params, scene, cam, cfg, target, px, py, lr)
 
     counted(step, f"train_step warm-up ({res}x{res}, {n_chunks} chunks)",
-            {"closest_hit": per, "occluded": per})
+            {"closest_hit": per, "occluded": per, "threefry": draws(n_chunks)})
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     (loss, new), t_step = timed(lambda: counted(step, f"train_step ({res}x{res})",
-                                                {"closest_hit": per, "occluded": per})[0])
+                                                {"closest_hit": per, "occluded": per,
+                                                 "threefry": draws(n_chunks)})[0])
     peak = torch.cuda.max_memory_allocated(dev)
     check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(p).all()) for p in new),
           "train_step: loss or params not finite")
@@ -1899,6 +1958,7 @@ def entry_point_phases(dev, card):
         per_query = spp * -(-res * res // (1 << 16)) * 4
         expect = {name: n * per_query for name, n in per_query_launches.items()}
         expect["kb_leaf"] = bench.CALIB_WARMUP + bench.CALIB_REPS
+        expect["threefry"] = draws(per_query // 4, 4, estimator)
         env = dict(base_env, BENCH_SCENE=scene, BENCH_ESTIMATOR=estimator, **extra_env)
         label = "/".join([scene, estimator] + [f"{k}={v}" for k, v in extra_env.items()])
         proc = subprocess.run([sys.executable, "-m", "pyrenderer_tpu_torch.bench"], cwd=ROOT,
@@ -2003,8 +2063,10 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
     expect = depth * (8 * chunks + sum(math.ceil(k / chunk) for k in sweeps))
     print(f"adaptive sweeps refined k_i = {sweeps} pixels; launches of B1 and B2 expected "
           f"4 x (8 x {chunks} + sum ceil(k_i / 2^16)) = {expect}", flush=True)
-    check(launches == {"closest_hit": expect, "occluded": expect},
-          f"adaptive frame: launches {launches}, expected {expect} of each")
+    check(launches == {"closest_hit": expect, "occluded": expect,
+                       "threefry": draws(expect // depth)},
+          f"adaptive frame: launches {launches}, expected {expect} of each whole-table "
+          f"kernel and {draws(expect // depth)} Threefry launches")
     spp = film.spp_map
     err = film.relative_error()
     check(spp.shape == (res, res) and spp.min() == 8 and spp.max() <= 16,
@@ -2046,7 +2108,8 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
     per_run = 4 * chunks * depth
     _, secs_clean = counted(lambda: timed(lambda: clean.run(quiet=True)),
                             "uninterrupted 4-spp frame",
-                            {"closest_hit": per_run, "occluded": per_run})[0]
+                            {"closest_hit": per_run, "occluded": per_run,
+                             "threefry": draws(per_run // depth)})[0]
     render_pass = drv._render_pass
     calls = {"n": 0, "ran": 0}
     # a chunk call in the middle of pass 1 raises before it renders; the
@@ -2074,8 +2137,10 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
     # the raising pass's first chunks, the rejected pass, then the 4 passes
     check(calls["ran"] == raise_at - 1 + 5 * chunks and calls["n"] == calls["ran"] + 1,
           f"chunk calls {calls}: the injections did not fire as planned")
-    check(launches == {"closest_hit": expect, "occluded": expect},
-          f"resilient frame: launches {launches}, expected {expect} of each")
+    check(launches == {"closest_hit": expect, "occluded": expect,
+                       "threefry": draws(calls["ran"])},
+          f"resilient frame: launches {launches}, expected {expect} of each whole-table "
+          f"kernel and {draws(calls['ran'])} Threefry launches")
     check(np.array_equal(film.radiance_sum, clean.film.radiance_sum)
           and np.array_equal(film.sq_sum, clean.film.sq_sum)
           and np.array_equal(film.spp_map, clean.film.spp_map),
@@ -2104,7 +2169,8 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
                 "--res", "256", "256", "--live", "--resilient",
                 "--out", os.path.join(tmp, "l.png"), "--hdr-out", os.path.join(tmp, "l.exr")]
         (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI --live --resilient 256x256",
-                               {"closest_hit": 2 * depth, "occluded": 2 * depth})
+                               {"closest_hit": 2 * depth, "occluded": 2 * depth,
+                                "threefry": draws(2)})
     check(rc == 0, f"cli.main --live --resilient returned {rc}")
     check("\u2580" in log and "2/2 spp" in log and "Mrays/s" not in log,
           "--live drew no ANSI frame (or did not silence the progress prints)")
@@ -2140,7 +2206,7 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
                     "--res", str(res), str(res), "--backend", "matmul",
                     "--out", os.path.join(tmp, "m.png"), "--hdr-out", exr]
             ((rc, log), wall), _ = counted(lambda: timed(lambda: run_cli(cli, argv)),
-                                           "CLI matmul frame", {})
+                                           "CLI matmul frame", {"threefry": draws(16 * chunks)})
             check(rc == 0, f"cli.main --backend matmul returned {rc}")
             hdr = read_exr(exr)
         hit, t, tri = isect.intersect_matmul(scene, ro, rd, T0, T_MAX)
@@ -2151,7 +2217,8 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
         (decisions, d_secs), _ = counted(
             lambda: timed(lambda: matmul_decisions(scene, cam, cfg16)),
             "cuda frame with every query asked of the matmul backend too",
-            {"closest_hit": 16 * chunks * depth, "occluded": 16 * chunks * depth})
+            {"closest_hit": 16 * chunks * depth, "occluded": 16 * chunks * depth,
+             "threefry": draws(16 * chunks)})
         check(torch.get_float32_matmul_precision() == "high",
               "the matmul backend did not restore the process's precision")
         # what the guard prevents, on phase 2's rays
@@ -2290,11 +2357,14 @@ def analytic_phase(dev, card):
     from pyrenderer_tpu_torch.render import cli
 
     phase("28 analytic: CLI at its defaults (400x400, 25 spp, depth 10)")
+    # no kernel but the RNG's: a sample's camera jitter pair, then each
+    # bounce's light pair, MIS BSDF pair, BSDF pair and glass choice
+    analytic_draws = 25 * (1 + 4 * 10)
     with tempfile.TemporaryDirectory() as tmp:
         png, npy = os.path.join(tmp, "analytic.png"), os.path.join(tmp, "analytic.npy")
         ((rc, _), _), wall = timed(lambda: counted(
             lambda: run_cli(cli, ["analytic", "--out", png, "--hdr-out", npy]),
-            "CLI analytic frame", {}))
+            "CLI analytic frame", {"threefry": analytic_draws}))
         check(rc == 0, f"cli.main analytic returned {rc}")
         ldr = read_png(png)
         hdr = np.load(npy)
@@ -2371,7 +2441,7 @@ def debug_path_phases(dev, card):
         html = os.path.join(tmp, "paths.html")
         ((rc, log), _), wall = timed(lambda: counted(
             lambda: run_cli(cli, [SCENE, "--debug-paths", html]), "CLI --debug-paths",
-            {"closest_hit": bounces, "occluded": bounces}))
+            {"closest_hit": bounces, "occluded": bounces, "threefry": draws(1, bounces)}))
         check(rc == 0, f"cli.main --debug-paths returned {rc}")
         check("(49 paths)" in log, "the CLI did not report 49 paths")
         with open(html) as fh:
@@ -2394,7 +2464,8 @@ def debug_path_phases(dev, card):
     px, py = xs.reshape(-1), ys.reshape(-1)
     records, wall = timed(lambda: counted(lambda: log_paths(scene, cam, cfg, px, py),
                                           f"log_paths {res}x{res}",
-                                          {"closest_hit": 4, "occluded": 4})[0])
+                                          {"closest_hit": 4, "occluded": 4,
+                                           "threefry": draws(1)})[0])
     px_t, py_t = (torch.as_tensor(a, device=dev) for a in (px, py))
     ro, rd = generate_rays(cam, px_t, py_t, 0, cfg.seed)
     rad = trace_reference(scene, cfg, ro, rd, py_t * res + px_t, 0, cfg.seed).cpu().numpy()
@@ -2417,7 +2488,7 @@ def debug_path_phases(dev, card):
     host8, cam8, _ = build_scene(procgen.big_scene_data("terrain", res=64))
     scene8, cam8 = to_device(host8, cam8._replace(resolution=(64, 64)), dev)
     cfg8 = RenderConfig(max_bounces=4, seed=0, estimator="reference", cluster_sort=True)
-    cluster = {"cluster_closest_hit": 4, "cluster_occluded": 4}
+    cluster = {"cluster_closest_hit": 4, "cluster_occluded": 4, "threefry": draws(1)}
     saved = os.environ.get("PYRENDERER_WF_SORT")
     wf = {}
     try:
@@ -2467,7 +2538,8 @@ def golden_phase(dev, card):
     cfg = cfg.replace(spp=32, max_bounces=8, estimator="pbrt", seed=1)
     expect = cfg.spp * cfg.max_bounces
     hdr, _ = counted(lambda: render_image(scene, cam, cfg), "golden pbrt frame",
-                     {"closest_hit": expect, "occluded": expect})
+                     {"closest_hit": expect, "occluded": expect,
+                      "threefry": draws(cfg.spp, cfg.max_bounces, "pbrt")})
     hdr = hdr.cpu().numpy().astype(np.float64)
     gt = read_exr(os.path.join(ROOT, "tests", "data", "tungsten_gt_256.exr")).astype(np.float64)
     check(gt.shape == (256, 256, 3), f"ground truth shape {gt.shape}")
@@ -2623,7 +2695,8 @@ def dist_phases(dev, card, hdr_cornell, host_scene, host_camera, ctx):
         px, py = pixel_grid(camera)
         with torch.no_grad():
             block, _ = counted(lambda: render_field_sharded(scene, camera, cfg, mesh, px, py),
-                               "dp x sp render, world of one", {"closest_hit": 16, "occluded": 16})
+                               "dp x sp render, world of one",
+                               {"closest_hit": 16, "occluded": 16, "threefry": draws(4)})
             full = gather_dp(block, mesh)
             ref = render_field(scene, camera, cfg, px, py)
         check(torch.equal(full, ref), "render_field_sharded at dp = sp = 1 differs from "
@@ -2633,7 +2706,8 @@ def dist_phases(dev, card, hdr_cornell, host_scene, host_camera, ctx):
         lr = (1e-3, 0.5, 0.1)
         (loss_m, new_m), _ = counted(
             lambda: train_step(params, scene, camera, cfg, target, px, py, lr, mesh=mesh),
-            "train_step, world of one", {"closest_hit": 16, "occluded": 16})
+            "train_step, world of one",
+            {"closest_hit": 16, "occluded": 16, "threefry": draws(4)})
         loss_1, new_1 = train_step(params, scene, camera, cfg, target, px, py, lr)
         _, new_2 = train_step(params, scene, camera, cfg, target, px, py, lr)
         check(torch.equal(loss_m, loss_1), f"train_step(mesh=...) loss {float(loss_m)!r}, "
@@ -2676,7 +2750,8 @@ def dist_phases(dev, card, hdr_cornell, host_scene, host_camera, ctx):
     for r in res:
         check(r["device"] == torch.cuda.get_device_name(0) and r["backend"] == "gloo"
               and r["global_devices"] == 4, f"rank {r['process_id']}: {r}")
-        check(r["launches"] == {"closest_hit": 512, "occluded": 512} and not r["twin_calls"],
+        check(r["launches"] == {"closest_hit": 512, "occluded": 512, "threefry": draws(128)}
+              and not r["twin_calls"],
               f"rank {r['process_id']}: launches {r['launches']}, twins {r['twin_calls']}")
         check(r["image_mean"] == res[0]["image_mean"], "the ranks' frames differ")
         TALLY.update(r["launches"])
@@ -2729,9 +2804,11 @@ def dist_phases(dev, card, hdr_cornell, host_scene, host_camera, ctx):
         terrain = np.load(os.path.join(tmp, "terrain.npy"))
     for r in ranks:
         check(r["device"] == torch.cuda.get_device_name(0), f"rank {r['rank']} on {r['device']}")
-        check(r["cornell"]["launches"] == {"closest_hit": 16, "occluded": 16}
+        check(r["cornell"]["launches"] == {"closest_hit": 16, "occluded": 16,
+                                           "threefry": draws(4)}
               and not r["cornell"]["twin_calls"], f"rank {r['rank']}: Cornell {r['cornell']}")
-        check(r["terrain"]["launches"] == {"cluster_closest_hit": 64, "cluster_occluded": 64}
+        check(r["terrain"]["launches"] == {"cluster_closest_hit": 64, "cluster_occluded": 64,
+                                           "threefry": draws(16)}
               and not r["terrain"]["twin_calls"], f"rank {r['rank']}: terrain {r['terrain']}")
         TALLY.update(r["cornell"]["launches"])
         TALLY.update(r["terrain"]["launches"])
@@ -2756,30 +2833,89 @@ def dist_phases(dev, card, hdr_cornell, host_scene, host_camera, ctx):
           flush=True)
 
 
+def threefry_phase(dev, card):
+    """Phase 35: the Threefry kernel against its twin on the card at the
+    reference trace's operands; returns its kernel-line entries."""
+    from pyrenderer_tpu_torch import rng
+    from pyrenderer_tpu_torch.kernels.threefry import threefry
+    from pyrenderer_tpu_torch.perf.kernelbench import graph_ms
+
+    phase(f"35 the Threefry kernel (csrc/rng.cu) against its twin at {N_RAYS} lanes, "
+          "20 rounds")
+    check(rng._default_rounds() == 20, "PYRENDERER_TF_ROUNDS is set: the phase runs at 20")
+    # core/integrator.py's operands: pixel_id.to(torch.int64).expand(n) of
+    # a chunk of the 1024x1024 frame, a scalar sample, a BSDF draw
+    pixel = (torch.arange(N_RAYS, device=dev, dtype=torch.int32) + 7 * N_RAYS).to(
+        torch.int64).expand(N_RAYS)
+    seed, sample, bounce, use = 2**31 + 11, 5, 1, rng.U_BSDF_0
+    c1 = (sample << 12 | bounce << 4 | use) & rng._U32
+    x0, x1 = rng._words(seed, pixel, sample, bounce, use)
+    u0, u1 = rng.uniform2(seed, pixel, sample, bounce, use)
+    torch.cuda.synchronize()
+    w0, w1 = rng.threefry2x32(seed & rng._U32, rng._KEY_TAG, pixel & rng._U32, c1)
+    check(torch.equal(x0, w0) and torch.equal(x1, w1),
+          f"Threefry words differ on {int(((x0 != w0) | (x1 != w1)).sum())} lanes")
+    check(torch.equal(u0, rng._to_unit(w0, torch.float32))
+          and torch.equal(u1, rng._to_unit(w1, torch.float32)), "Threefry uniforms differ")
+    err = float(torch.maximum((x0 - w0).abs(), (x1 - w1).abs()).max())
+
+    def kernel():
+        return rng.uniform2(seed, pixel, sample, bounce, use)
+
+    def twin():
+        a, b = rng.threefry2x32(seed & rng._U32, rng._KEY_TAG, pixel & rng._U32, c1)
+        return rng._to_unit(a, torch.float32), rng._to_unit(b, torch.float32)
+
+    launches = threefry.launches
+    kernel()
+    check(threefry.launches == launches + 1, "uniform2 was not one launch")
+    ms, plain_ms = cuda_ms_pair(kernel, twin)
+    one = pixel[:1]
+    floor_ms = graph_ms(lambda: rng.uniform2(seed, one, sample, bounce, use), 20)
+    # the int64 pixel read once and the two float32 uniforms written once
+    b = bound(TF_OPS * N_RAYS, N_RAYS * (8 + 2 * 4), PEAK_INT32)
+    print(f"threefry: {N_RAYS} lanes (expanded int64 pixel, scalar sample), words and "
+          f"uniforms equal to the twin's on every lane; kernel {ms:.5f} ms, 1 lane "
+          f"{floor_ms:.5f} ms (the launch's floor), plain {plain_ms:.4f} ms, bound "
+          f"{b[0]:.6f} ms ({b[1]}) ({card})", flush=True)
+    return {"max_abs_err": {"threefry": err}, "ms": {"threefry": ms},
+            "plain_ms": {"threefry": plain_ms}, "bounds": {"threefry": b}}
+
+
 # phase 34: the stage-breakdown harnesses (perf/estbench.py ... binnedgran.py)
 Q1 = {"closest_hit": 1, "occluded": 1}
 Q4 = {"closest_hit": 4, "occluded": 4}
 SWEEP1 = {"cluster_closest_hit": 1}
+
+
+def tf(n):
+    """n Threefry launches: n draws of the counter RNG (a reference bounce
+    3, a pbrt bounce 4 before the roulette, the camera 2)."""
+    return {"threefry": n}
+
 
 # (module, argv at the harness's own width, the kernel launches of one call
 # of each row that launches any, the rule each row's output is held to on
 # the card against the CPU, the rays of that comparison)
 HARNESSES = (
     ("estbench", ["--reps", "2", "--no-profile"],
-     {"trace4_full": Q4, "pbrt_trace4_full": Q4, "kernel_pair": Q1},
+     {"rng1": tf(1), "rng2": tf(1), "rng_bounce": tf(3), "fetch_light": tf(2),
+      "shade": tf(1), "camera": tf(2), "trace4_full": Q4 | tf(12), "trace4_stub": tf(12),
+      "pbrt_trace4_full": Q4 | tf(16), "pbrt_trace4_stub": tf(16), "kernel_pair": Q1},
      {"fetch_light": "close", "shade": "close", "camera": "close", "trace4_full": "frame",
       "trace4_stub": "frame", "pbrt_trace4_full": "frame", "pbrt_trace4_stub": "frame"}, 4096),
     ("microbench", ["--reps", "2", "--no-profile"],
      {"cuda_closest": {"closest_hit": 1}, "cuda_occluded": {"occluded": 1},
-      "trace_4bounce_cuda": Q4},
+      "rng_8draws": tf(8), "trace_4bounce_cuda": Q4 | tf(12), "camera_raygen": tf(2)},
      {"intersect_matmul": "frame", "intersect_brute": "frame", "occluded_matmul": "frame",
       "frame_math": "close", "trace_4bounce_cuda": "frame", "camera_raygen": "close"}, 4096),
     ("ablate", ["--reps", "2", "--no-profile"],
-     {"full_4bounce": Q4, "isect_only_4x2": Q4},
+     {"full_4bounce": Q4 | tf(12), "isect_only_4x2": Q4, "fetch_only_4x": tf(8),
+      "rng_frame_4x": tf(4)},
      {"full_4bounce": "frame", "isect_only_4x2": "frame", "fetch_only_4x": "close",
       "rng_frame_4x": "close"}, 4096),
     ("glue2", ["--reps", "2", "--no-profile"],
-     {"wrap_full": SWEEP1, "wrap_bare": SWEEP1},
+     {"wrap_full": SWEEP1, "wrap_bare": SWEEP1, "bounce4x": tf(12)},
      {"wrap_full": "close", "bounce4x": "frame"}, 2048),
     ("binnedglue", ["--reps", "2", "--no-profile"],
      {"prepass": {"binned_prepass": 1}, "leaf": {"binned_leaf": 1},

@@ -104,6 +104,10 @@ def _declare(lib) -> None:
     lib.pr_kb_cond.restype = ctypes.c_int
     lib.pr_kb_ctz.argtypes = [p, p, i64, ctypes.c_uint32, p, p]
     lib.pr_kb_ctz.restype = ctypes.c_int
+    u32 = ctypes.c_uint32
+    lib.pr_threefry.argtypes = [p, i64, p, i64, p, i64, p, i64, i32, u32, u32, i32, i64, i32,
+                                p, p, p]
+    lib.pr_threefry.restype = ctypes.c_int
 
 
 def build() -> str:

@@ -15,9 +15,12 @@ Key = (seed, 0x70617468)  ("path" tag).
 Uniforms are ``(bits >> 8) * 2**-24`` computed in float32 and only then
 cast to the working dtype, exactly as the JAX path and the oracle do.
 
-32-bit words are carried in int64 tensors masked with 0xFFFFFFFF after
-every add and shift: PyTorch has no unsigned 32-bit shift on the CPU, and
-``>>`` on int32 is an arithmetic shift.
+On a CPU tensor, 32-bit words are carried in int64 tensors masked with
+0xFFFFFFFF after every add and shift (``threefry2x32``, the plain twin):
+PyTorch has no unsigned 32-bit shift on the CPU, and ``>>`` on int32 is an
+arithmetic shift. On a CUDA tensor one evaluation is one launch of the
+kernel of csrc/rng.cu (kernels/threefry.py), in uint32 registers, bit for
+bit the twin's words and uniforms; the device of `pixel` chooses the path.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import os
 
 import torch
 
+from pyrenderer_tpu_torch.kernels import build
+from pyrenderer_tpu_torch.kernels.threefry import threefry
 from pyrenderer_tpu_torch.utils.profiling import span
 
 # Use-slot assignments within one bounce (or the camera slot).
@@ -83,6 +88,10 @@ def _words(seed: int, pixel, sample, bounce, use):
     """Both Threefry output words for the counter (pixel, sample, bounce,
     use). `pixel` is an integer tensor; the others broadcast against it."""
     with span("rng"):
+        if build.on_cuda(pixel, "rng"):
+            return tuple(threefry(seed, pixel, sample, bounce, use, _default_rounds(), 2,
+                                  False))
+        threefry.twin_calls += 1
         pixel = pixel.to(torch.int64) & _U32
         if torch.is_tensor(sample):
             sample = sample.to(torch.int64)
@@ -101,11 +110,19 @@ def uniform_bits(seed: int, pixel, sample, bounce, use):
 
 def uniform(seed: int, pixel, sample, bounce, use, dtype=torch.float32):
     """Uniform in [0, 1) from the top 24 bits of the first output word."""
+    if build.on_cuda(pixel, "rng"):
+        with span("rng"):
+            (u,) = threefry(seed, pixel, sample, bounce, use, _default_rounds(), 1, True)
+        return u.to(dtype)
     return _to_unit(uniform_bits(seed, pixel, sample, bounce, use), dtype)
 
 
 def uniform2(seed: int, pixel, sample, bounce, use, dtype=torch.float32):
     """Two uniforms from ONE Threefry call (both output words), addressed by
     the first use-slot of the pair -- as the JAX path and the oracle do."""
+    if build.on_cuda(pixel, "rng"):
+        with span("rng"):
+            u0, u1 = threefry(seed, pixel, sample, bounce, use, _default_rounds(), 2, True)
+        return u0.to(dtype), u1.to(dtype)
     x0, x1 = _words(seed, pixel, sample, bounce, use)
     return _to_unit(x0, dtype), _to_unit(x1, dtype)

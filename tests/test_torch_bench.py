@@ -70,8 +70,10 @@ CLUSTER = ("cluster_closest_hit", "cluster_occluded")
 def test_bench_json_line_on_cpu(scene, estimator, backend, queries, monkeypatch, capsys):
     """BENCH_DEVICE=cpu at 16x16, 1 spp: one JSON line with bench.py's
     metric name, a finite value, device "cpu", no calibration, and the
-    wrappers' counts of the timed pass: no launch, and one twin call of
-    each query of a kernel backend per bounce of the one chunk."""
+    wrappers' counts of the timed pass: no launch, one twin call of each
+    query of a kernel backend per bounce of the one chunk, and one of the
+    Threefry wrapper per draw: two for the camera, then three a bounce
+    (reference) or four (pbrt; no roulette draw before bounce 4)."""
     for key, value in _env(scene, estimator, BENCH_BACKEND=backend).items():
         monkeypatch.setenv(key, value)
     assert bench.main() == 0
@@ -83,7 +85,9 @@ def test_bench_json_line_on_cpu(scene, estimator, backend, queries, monkeypatch,
     assert np.isfinite(row["value"]) and row["value"] > 0
     assert row["device"] == "cpu" and row["calib_ns_per_leaf"] is None
     assert row["rays"] >= RES * RES
-    assert row["launches"] == {} and row["twin_calls"] == dict.fromkeys(queries, 4)
+    draws = 2 + 4 * (3 if estimator == "reference" else 4)
+    assert row["launches"] == {}
+    assert row["twin_calls"] == {**dict.fromkeys(queries, 4), "threefry": draws}
 
 
 @pytest.mark.parametrize("scene,estimator", [
@@ -104,13 +108,15 @@ def test_bench_metric_suffixes():
 def test_bench_rounds_raise():
     """BENCH_ROUNDS=2 runs suspend/resume rounds: on terrain8k with backend
     "cluster" it counts the rays of rounds 1, and each closest-hit query
-    runs two twin passes (one suspend, one resume)."""
+    runs two twin passes (one suspend, one resume); the draws, 2 + 3 a
+    bounce, are the same."""
     env = _env("terrain8k", BENCH_BACKEND="cluster", BENCH_RES="8")
     one = bench.run(env)
     two = bench.run(dict(env, BENCH_ROUNDS="2", BENCH_BUDGET="1"))
     assert two["rays"] == one["rays"] > 0 and two["metric"] == one["metric"]
     assert two["twin_calls"] == {"cluster_closest_hit": 8, "cluster_closest_suspend": 4,
-                                 "cluster_closest_resume": 4, "cluster_occluded": 4}
+                                 "cluster_closest_resume": 4, "cluster_occluded": 4,
+                                 "threefry": 14}
     assert two["launches"] == {}
 
 

@@ -264,7 +264,9 @@ ROWS = ["rng1", "rng2", "rng_bounce", "fetch_face", "fetch_light", "shade", "cam
 def test_main_on_the_cpu_prints_every_row(capsys):
     """main(["--device", "cpu", ...]) prints every row and ends with one JSON
     line; the trace rows count 4 twin calls of each whole-table query, the
-    pair one, the stub rows and the other stages none."""
+    pair one, the stub rows and the other stages none; every row that
+    draws counts one twin call of the Threefry wrapper a draw (3 a
+    reference bounce, 4 a pbrt one, 2 for the camera)."""
     assert estbench.main(["--device", "cpu", "--n", "256", "--reps", "1"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
     for name in ROWS:
@@ -280,4 +282,8 @@ def test_main_on_the_cpu_prints_every_row(capsys):
     for name, r in rows.items():
         assert r["launches"] == {} and r["graph_ms"] is None
         want = {"trace4_full": 4, "pbrt_trace4_full": 4, "kernel_pair": 1}.get(name)
-        assert r["twin_calls"] == ({"closest_hit": want, "occluded": want} if want else {})
+        draws = {"rng1": 1, "rng2": 1, "rng_bounce": 3, "fetch_light": 2, "shade": 1,
+                 "camera": 2, "trace4_full": 12, "trace4_stub": 12, "pbrt_trace4_full": 16,
+                 "pbrt_trace4_stub": 16}.get(name)
+        assert r["twin_calls"] == (({"closest_hit": want, "occluded": want} if want else {})
+                                   | ({"threefry": draws} if draws else {}))

@@ -173,7 +173,8 @@ MB_ROWS = ["cuda_closest", "cuda_occluded", "packed_gather16", "intersect_matmul
 def test_microbench_main_on_the_cpu(capsys, monkeypatch):
     """Every row and one JSON line; MB_N sets the ray count, MB_ONLY keeps the
     rows whose names (or the JAX names, pallas_*) start with its prefixes;
-    the trace row carries a RenderStats summary."""
+    the trace row carries a RenderStats summary; the rows that draw count
+    one twin call of the Threefry wrapper a draw."""
     monkeypatch.setenv("MB_N", "256")
     assert microbench.main(["--device", "cpu", "--reps", "1"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
@@ -182,7 +183,12 @@ def test_microbench_main_on_the_cpu(capsys, monkeypatch):
     result = json.loads(out[-1])
     assert result["n"] == 256 and [r["name"] for r in result["rows"]] == MB_ROWS
     trace = result["rows"][MB_ROWS.index("trace_4bounce_brute")]
-    assert trace["twin_calls"] == {} and "Mrays/s" in (trace.get("summary") or "Mrays/s")
+    assert trace["twin_calls"] == {"threefry": 12}
+    assert "Mrays/s" in (trace.get("summary") or "Mrays/s")
+    assert {r["name"]: r["twin_calls"] for r in result["rows"] if r["twin_calls"]} == {
+        "cuda_closest": {"closest_hit": 1}, "cuda_occluded": {"occluded": 1},
+        "rng_8draws": {"threefry": 8}, "trace_4bounce_brute": {"threefry": 12},
+        "camera_raygen": {"threefry": 2}}
     monkeypatch.setenv("MB_ONLY", "pallas,rng")
     assert microbench.main(["--device", "cpu", "--reps", "1", "--n", "128"]) == 0
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -261,4 +267,7 @@ def test_ablate_main_on_the_cpu(capsys):
         assert any(line.startswith(name + " ") for line in out), name
     result = json.loads(out[-1])
     assert [r["name"] for r in result["rows"]] == names and result["backend"] == "brute"
-    assert all(r["launches"] == {} and r["twin_calls"] == {} for r in result["rows"])
+    draws = {"full_4bounce": 12, "fetch_only_4x": 8, "rng_frame_4x": 4}
+    assert all(r["launches"] == {} for r in result["rows"])
+    assert {r["name"]: r["twin_calls"] for r in result["rows"]} == {
+        name: {"threefry": draws[name]} if name in draws else {} for name in names}

@@ -9,6 +9,7 @@ import importlib
 import inspect
 import json
 import os
+import re
 import types
 
 import jax.numpy as jnp
@@ -178,6 +179,24 @@ def test_read_profile_keeps_only_complete_profiles():
     assert prof.read_profile(events, 2) == (None, None, None)
     assert prof.read_profile(events[1:], 1) == (None, None, None)
     assert prof.read_profile(events[1:], 0) == (1.0 / 1e3, 1, 1)
+
+
+def _global_functions():
+    """The __global__ functions of csrc/*.cu, by name."""
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)\s*\(")
+    csrc = os.path.join(os.path.dirname(prof.__file__), "..", "csrc")
+    return sorted({m for f in sorted(os.listdir(csrc)) if f.endswith(".cu")
+                   for m in pat.findall(open(os.path.join(csrc, f)).read())})
+
+
+@pytest.mark.parametrize("name", _global_functions())
+def test_port_kernel_names_every_global_function(name):
+    """read_profile counts a record of every kernel of csrc/*.cu (the
+    Threefry kernel of csrc/rng.cu among them) as one of the port's
+    launches, as the profiler names it, templated or not."""
+    assert prof.PORT_KERNEL.match(f"void (anonymous namespace)::{name}<8>(float const*)")
+    assert prof.PORT_KERNEL.match(f"(anonymous namespace)::{name}(long, int)")
+    assert not prof.PORT_KERNEL.match(f"at::native::{name}(long)")
 
 
 @pytest.mark.parametrize("name", HARNESSES)

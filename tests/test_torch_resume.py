@@ -178,7 +178,8 @@ def test_rounds_route_launches_twice_per_query(terrain, monkeypatch, sort):
 def test_render_rounds_equal_one_pass(terrain):
     """render_image through backend "cluster" with cluster_rounds=2 (budget
     1, MT, and budget 8, watertight) equals the rounds=1 image bit for bit;
-    each closest-hit query runs two twin passes on the CPU."""
+    each closest-hit query runs two twin passes on the CPU, beside the
+    Threefry twin's 2 + 3 a bounce draws."""
     host, camera, cs = terrain
     scene, cam = to_device(host, camera._replace(resolution=(12, 12)), "cpu")
     for budget, wt in ((1, False), (8, True)):
@@ -192,7 +193,7 @@ def test_render_rounds_equal_one_pass(terrain):
         kernels.reset_counters()
         assert img.max() > 0 and torch.equal(img, img2)
         assert twins == {"cluster_closest_hit": 6, "cluster_closest_suspend": 3,
-                         "cluster_closest_resume": 3, "cluster_occluded": 3}
+                         "cluster_closest_resume": 3, "cluster_occluded": 3, "threefry": 11}
 
 
 @pytest.mark.cuda

@@ -109,6 +109,8 @@ def test_pass_spans(cornell, estimator):
                <= rec.spans[s.parent].end_ns for s in rec.spans if s.parent is not None)
     summary = rec.summary("pass")
     assert rec.counters == {} and "syncs" not in summary
+    # the CPU's Threefry is the twin's: no evaluation went to the kernel
+    assert summary["rng_kernel"] == 0.0
     assert summary["units"] == 1
     assert {k: v["count"] for k, v in summary["spans"].items()} == names
     # the children cover the pass but for its own Python
@@ -240,6 +242,41 @@ def test_self_time_and_per_unit_exact():
     assert passes["syncs"] == 3.0 and steps["syncs"] == 0.0
     assert rec.counters == {"syncs": 6}
     assert [s.unit for s in rec.spans] == [0] * 6 + [6] * 6 + [12]
+
+
+def test_count_charges_the_innermost_span():
+    """count() does nothing outside recording(); inside, it adds to the
+    recorder's counters and to the innermost open span of its thread (or
+    to no span where none is open), and summary reports each counter per
+    unit, with COUNTERS at 0 where nothing was counted."""
+    prof.count("rng_kernel", 5)
+    assert prof._recorder is None
+    with prof.recording("cpu") as rec:
+        prof.count("rng_kernel")
+        for _ in range(2):
+            with prof.span("pass"):
+                with prof.span("bounce"):
+                    with prof.span("rng"):
+                        prof.count("rng_kernel")
+                    prof.count("rng_kernel", 2)
+                prof.count("other")
+        with prof.span("step"):
+            pass
+    assert rec.counters == {"rng_kernel": 7, "other": 2}
+    by_name = collections.defaultdict(list)
+    for s in rec.spans:
+        by_name[s.name].append(s.counts)
+    assert by_name["rng"] == [{"rng_kernel": 1}] * 2
+    assert by_name["bounce"] == [{"rng_kernel": 2}] * 2
+    assert by_name["pass"] == [{"other": 1}] * 2 and by_name["step"] == [{}]
+    passes = rec.summary("pass")
+    assert passes["rng_kernel"] == 3.0 and passes["other"] == 1.0
+    assert rec.summary("step")["rng_kernel"] == 0.0 and rec.summary("step")["other"] == 0.0
+    with prof.recording("cpu") as rec:
+        with prof.span("pass"):
+            pass
+    assert rec.counters == {} and rec.summary("pass")["rng_kernel"] == 0.0
+    assert set(prof.COUNTERS) == {"rng_kernel"}
 
 
 def test_threads_keep_their_own_stacks():
