@@ -12,6 +12,11 @@ table:
   scattering, per core/bsdf.py;
 - Russian roulette on the throughput from cfg.russian_roulette_start on.
 
+Each bounce is the span `bounce` (utils/profiling.span), as
+trace_reference's; inside it `nee` holds the light sample, the shadow
+query and the NEE contribution, and `scatter` the three BSDF samplers,
+the throughput update and Russian roulette.
+
 RNG slots per bounce, as the NumPy oracle (the JAX package's
 ref/scalar_pbrt.py) draws them:
   uniform2(U_BSDF_0) -> (u1, u2)  lambert cosine / metal fuzz direction
@@ -146,61 +151,64 @@ def trace_pbrt(
             is_metal = mat_type == MAT_METAL
 
             # ---- NEE from diffuse vertices (the MIS partner) ----
-            p2, n2, em, pdf_a = _sample_light_point(
-                scene, tables, pixel_id, sample_id, bounce, seed, dtype)
-            to_light = p2 - p
-            dist_sq = sampling.maximum(_dot(to_light, to_light), 1e-12)
-            dist = torch.sqrt(dist_sq)
-            wl = to_light / dist[:, None]
-            cos_surf = _dot(nrm, wl)
-            cos_light = _dot(n2, -wl)
-            nee_candidate = alive & is_lambert & (cos_surf > 0) & (cos_light > 0)
-            shadow_t1 = torch.where(nee_candidate, dist.detach() * (1.0 - cfg.shadow_eps), 0.0)
-            occ = _any_hit(scene, tables, cfg, p.detach(), wl.detach(), shadow_t1, sort=sort)
-            n_rays = n_rays + alive.sum(dtype=torch.float32)
-            pdf_nee_sa = pdf_a * dist_sq / sampling.maximum(cos_light, 1e-6)
-            w_nee = bsdf.power_heuristic(pdf_nee_sa, bsdf.lambert_pdf(nrm, wl))
-            contrib = albedo * INV_PI * em * (
-                w_nee * cos_surf / sampling.maximum(pdf_nee_sa, 1e-12))[:, None]
-            radiance = radiance + torch.where((nee_candidate & (~occ))[:, None], beta * contrib,
-                                              0.0)
+            with span("nee"):
+                p2, n2, em, pdf_a = _sample_light_point(
+                    scene, tables, pixel_id, sample_id, bounce, seed, dtype)
+                to_light = p2 - p
+                dist_sq = sampling.maximum(_dot(to_light, to_light), 1e-12)
+                dist = torch.sqrt(dist_sq)
+                wl = to_light / dist[:, None]
+                cos_surf = _dot(nrm, wl)
+                cos_light = _dot(n2, -wl)
+                nee_candidate = alive & is_lambert & (cos_surf > 0) & (cos_light > 0)
+                shadow_t1 = torch.where(nee_candidate, dist.detach() * (1.0 - cfg.shadow_eps), 0.0)
+                occ = _any_hit(scene, tables, cfg, p.detach(), wl.detach(), shadow_t1, sort=sort)
+                n_rays = n_rays + alive.sum(dtype=torch.float32)
+                pdf_nee_sa = pdf_a * dist_sq / sampling.maximum(cos_light, 1e-6)
+                w_nee = bsdf.power_heuristic(pdf_nee_sa, bsdf.lambert_pdf(nrm, wl))
+                contrib = albedo * INV_PI * em * (
+                    w_nee * cos_surf / sampling.maximum(pdf_nee_sa, 1e-12))[:, None]
+                radiance = radiance + torch.where((nee_candidate & (~occ))[:, None],
+                                                  beta * contrib, 0.0)
 
             # ---- BSDF sampling ----
-            u1, u2 = rng.uniform2(seed, pixel_id, sample_id, bounce, rng.U_BSDF_0, dtype)
-            u3 = rng.uniform(seed, pixel_id, sample_id, bounce, rng.U_BSDF_2, dtype)
-            wi_l, pdf_l = bsdf.lambert_sample(nrm, u1, u2)
-            wi_m, metal_ok = bsdf.metal_sample(rd, nrm, roughness, u1, u2, u3)
-            # the dielectric takes the unflipped geometric normal
-            wi_d = bsdf.dielectric_sample(rd, n_geo, ior, u3)
-            # every face that is neither lambert nor metal scatters as glass
-            # (MAT_DIELECTRIC; light faces have ended their paths above)
-            wi = torch.where(is_lambert[:, None], wi_l,
-                             torch.where(is_metal[:, None], wi_m, wi_d))
-            # throughput scale: lambert f*cos/pdf = albedo; metal albedo (or the
-            # path ends); dielectric 1 (clear glass)
-            scale = torch.where(
-                is_lambert[:, None], albedo,
-                torch.where(is_metal[:, None], albedo * metal_ok[:, None].to(dtype),
-                            torch.ones_like(albedo)))
-            beta = torch.where(alive[:, None], beta * scale, beta)
-            alive = alive & torch.where(is_metal, metal_ok, True)
+            with span("scatter"):
+                u1, u2 = rng.uniform2(seed, pixel_id, sample_id, bounce, rng.U_BSDF_0, dtype)
+                u3 = rng.uniform(seed, pixel_id, sample_id, bounce, rng.U_BSDF_2, dtype)
+                wi_l, pdf_l = bsdf.lambert_sample(nrm, u1, u2)
+                wi_m, metal_ok = bsdf.metal_sample(rd, nrm, roughness, u1, u2, u3)
+                # the dielectric takes the unflipped geometric normal
+                wi_d = bsdf.dielectric_sample(rd, n_geo, ior, u3)
+                # every face that is neither lambert nor metal scatters as glass
+                # (MAT_DIELECTRIC; light faces have ended their paths above)
+                wi = torch.where(is_lambert[:, None], wi_l,
+                                 torch.where(is_metal[:, None], wi_m, wi_d))
+                # throughput scale: lambert f*cos/pdf = albedo; metal albedo (or
+                # the path ends); dielectric 1 (clear glass)
+                scale = torch.where(
+                    is_lambert[:, None], albedo,
+                    torch.where(is_metal[:, None], albedo * metal_ok[:, None].to(dtype),
+                                torch.ones_like(albedo)))
+                beta = torch.where(alive[:, None], beta * scale, beta)
+                alive = alive & torch.where(is_metal, metal_ok, True)
 
-            prev_pdf = torch.where(is_lambert, pdf_l, 1.0)
-            prev_spec = ~is_lambert
+                prev_pdf = torch.where(is_lambert, pdf_l, 1.0)
+                prev_spec = ~is_lambert
 
-            # ---- Russian roulette ----
-            # (the draw only matters from russian_roulette_start on, so it is
-            # made only there)
-            if bounce >= cfg.russian_roulette_start:
-                u_rr = rng.uniform(seed, pixel_id, sample_id, bounce, rng.U_RR, dtype)
-                # amax splits the gradient among tied channels, as jnp.max
-                # does (max(dim) gives it all to one), and the bounds split a
-                # tie as jnp.clip does
-                p_cont = sampling.minimum(sampling.maximum(torch.amax(beta, dim=-1), 0.05), 1.0)
-                survive = u_rr < p_cont
-                beta = torch.where((alive & survive)[:, None],
-                                   beta * (1.0 / p_cont)[:, None], beta)
-                alive = alive & survive
+                # ---- Russian roulette ----
+                # (the draw only matters from russian_roulette_start on, so it is
+                # made only there)
+                if bounce >= cfg.russian_roulette_start:
+                    u_rr = rng.uniform(seed, pixel_id, sample_id, bounce, rng.U_RR, dtype)
+                    # amax splits the gradient among tied channels, as jnp.max
+                    # does (max(dim) gives it all to one), and the bounds split a
+                    # tie as jnp.clip does
+                    p_cont = sampling.minimum(
+                        sampling.maximum(torch.amax(beta, dim=-1), 0.05), 1.0)
+                    survive = u_rr < p_cont
+                    beta = torch.where((alive & survive)[:, None],
+                                       beta * (1.0 / p_cont)[:, None], beta)
+                    alive = alive & survive
 
             ro = torch.where(alive[:, None], p, ro)
             rd = torch.where(alive[:, None], wi, rd)

@@ -17,8 +17,9 @@ Counterpart of pyrenderer_tpu/utils/profiling.py:
   CUDA-graph replay where the stage can be captured, and the launches of
   one call.
 - ``span``, ``count`` and ``recording``: the program's own spans at its
-  layer boundaries (a pass, a chunk, a bounce, a Threefry evaluation, a
-  query, a launch, a training step and its halves) and its counters
+  layer boundaries (a pass, a chunk, a bounce and the pbrt bounce's NEE
+  and scatter, a Threefry evaluation, a query, a launch, a training step
+  and its halves) and its counters
   (COUNTERS), recorded only inside a ``recording()`` block, with the count
   of the host's waits for the device and each counter charged to the
   innermost open span. The JAX package has nothing like them (it has only

@@ -84,24 +84,34 @@ def test_pass_spans(cornell, estimator):
     """One pass records one `pass`; four `chunk`s under it, each with one
     `camera` and four `bounce`s; the Threefry evaluations under `camera`
     and `bounce`; two `query`s a bounce; `readback` and `film` under the
-    pass. Every span belongs to the pass's unit. On the CPU the whole-table
-    twins run, so no `launch`, and no sync is counted."""
+    pass. In the pbrt bounce, `nee` holds the light sample's draws and the
+    shadow query, `scatter` the BSDF draws. Every span belongs to the
+    pass's unit. On the CPU the whole-table twins run, so no `launch`, and
+    no sync is counted."""
     r = _renderer(cornell, estimator)
     assert r.backend == "brute"
     with prof.recording("cpu") as rec:
         r.render_one_pass()
     names = collections.Counter(s.name for s in rec.spans)
     n_rng = N_CHUNKS * RNG_A_TRACE[estimator]
+    n_bounce = N_CHUNKS * BOUNCES
+    pbrt = {"nee": n_bounce, "scatter": n_bounce} if estimator == "pbrt" else {}
     assert names == {"pass": 1, "chunk": N_CHUNKS, "camera": N_CHUNKS,
-                     "bounce": N_CHUNKS * BOUNCES, "rng": n_rng,
-                     "query": N_CHUNKS * BOUNCES * 2, "readback": 1, "film": 1}
+                     "bounce": n_bounce, "rng": n_rng,
+                     "query": n_bounce * 2, "readback": 1, "film": 1, **pbrt}
     parent = collections.Counter(
         (s.name, None if s.parent is None else rec.spans[s.parent].name) for s in rec.spans)
+    in_bounce = {("rng", "bounce"): n_rng - 2 * N_CHUNKS, ("query", "bounce"): n_bounce * 2}
+    if pbrt:
+        # light face and light point under `nee`, the BSDF pair and the
+        # third BSDF draw under `scatter` (no roulette before bounce 4)
+        in_bounce = {("nee", "bounce"): n_bounce, ("scatter", "bounce"): n_bounce,
+                     ("rng", "nee"): 2 * n_bounce, ("rng", "scatter"): 2 * n_bounce,
+                     ("query", "bounce"): n_bounce, ("query", "nee"): n_bounce}
     assert parent == {
         ("pass", None): 1, ("chunk", "pass"): N_CHUNKS, ("readback", "pass"): 1,
         ("film", "pass"): 1, ("camera", "chunk"): N_CHUNKS,
-        ("bounce", "chunk"): N_CHUNKS * BOUNCES, ("rng", "camera"): 2 * N_CHUNKS,
-        ("rng", "bounce"): n_rng - 2 * N_CHUNKS, ("query", "bounce"): N_CHUNKS * BOUNCES * 2}
+        ("bounce", "chunk"): n_bounce, ("rng", "camera"): 2 * N_CHUNKS, **in_bounce}
     root = rec.spans[0]
     assert root.name == "pass" and root.index == root.unit == 0
     assert all(s.unit == 0 and s.end_ns >= s.start_ns for s in rec.spans)
