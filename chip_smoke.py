@@ -111,7 +111,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    latencies cannot be measured.
 14. The pbrt path: the CLI with its default estimator (pbrt), Cornell,
    1024x1024, 4 bounces, 16 spp, with exactly 16 x 16 x 4 launches of each
-   whole-table kernel and no twin call; GPU against CPU images at 64x64
+   whole-table kernel and of each pbrt bounce kernel and no twin call; GPU against CPU images at 64x64
    (2 spp) for the Cornell box with a metal tall box and a glass short box
    and for scenes/spheres.json; the whole-table kernels against their
    twins at T = 3,852 (spheres) on its bounce-1 wavefront and shadow rays,
@@ -309,12 +309,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    one lane's time (the launch's floor) and its bound (TF_OPS int32
    operations a lane at half the fp32 rate, the pixel read and the
    uniforms written once).
+36. The pbrt bounce's kernels (csrc/pbrt.cu) against the eager bounce, their
+   plain twin, on the card: Cornell and spheres.json at 2^16 lanes, traces
+   of 1 and 2 bounces and a 16-bounce trace (Russian roulette from 4), the
+   radiance of the kernels' path against the eager loop's (1 and 2
+   bounces: at least 99.9% of the values bit-equal and close at rtol
+   1e-3; 16 bounces: phase 14's image criterion); each kernel's device time a
+   launch over a 1024x1024 Cornell pass of 16 bounces (torch.profiler, the
+   mean over its 256 launches and over the bounce-0 launches, whose lanes
+   are all live) beside the eager bounce's time a bounce and its bound
+   (the bytes a live lane reads and writes, each once).
 
 Wherever a phase counts launches exactly, the Threefry kernel's are among
 them: one launch a draw of the counter RNG, draws() a chunk-trace (2 + 3
-a bounce for the reference estimator, 2 + 4 a bounce and one more a
-bounce from the roulette's start for pbrt), the analytic tracer's 1 + 4 a
-bounce, a harness row's own draws.
+a bounce for the reference estimator; for pbrt on the bounce kernels' path
+only the camera's 2, the kernels drawing their own; the eager pbrt bounce,
+under autograd, 2 + 4 a bounce and one more a bounce from the roulette's
+start), the analytic tracer's 1 + 4 a bounce, a harness row's own draws.
+Where the pbrt bounce runs on the kernels' path, each chunk-bounce is one
+launch of each of pbrt_hit and pbrt_scatter (pbrt_launches()).
 
 Every main-path run above (the frames of phases 3, 7, 11, 14, 17-21,
 24-25, 27 and 30-33, the CLI runs, the bench rows, the harness, the gradient and
@@ -403,6 +416,16 @@ SLAB_OPS = 26
 # int32 operations a second: an SM issues half as many int32 as fp32
 # operations a clock (64 against 128 lanes)
 PEAK_INT32 = PEAK_FP32 / 2
+# bytes a live lane reads and writes in each pbrt bounce kernel
+# (csrc/pbrt.cu), each once: pbrt_hit reads ro, rd, beta (12 each), hit,
+# tri, alive, prev_pdf, prev_spec (1, 4, 1, 4, 1) and radiance (12), and
+# writes radiance, the shadow ray (12, 12, 4), nrm, nee (12 each), alive
+# and flags (1 each); pbrt_scatter reads alive, flags, occ (1 each), nee,
+# radiance, nrm, rd, beta, the hit point (12 each) and tri (4), and
+# writes radiance, beta, ro, rd (12 each), alive, prev_pdf, prev_spec, t1
+# (1, 4, 1, 4). The face and light tables are read once a launch.
+PBRT_HIT_BYTES = 12 * 3 + 1 + 4 + 1 + 4 + 1 + 12 + 12 + 12 + 12 + 4 + 12 + 12 + 1 + 1
+PBRT_SCATTER_BYTES = 3 + 12 * 6 + 4 + 12 * 4 + 1 + 4 + 1 + 4
 # int32 operations of one Threefry-2x32 lane at 20 rounds (csrc/rng.cu):
 # an add, a funnel shift and a xor a round, three adds at each of the five
 # key injections, the counter's shifts and ors, the key's xors and the
@@ -441,6 +464,12 @@ KERNELS = {
     # no Pallas kernel: the JAX RNG is jnp ops that XLA fuses
     "threefry": ("pyrenderer_tpu_torch/csrc/rng.cu",
                  "none (pyrenderer_tpu/rng.py threefry2x32 is jnp ops)"),
+    # the pbrt bounce, one row a kernel: no Pallas kernel, the JAX bounce
+    # is jnp ops that XLA fuses
+    "pbrt_hit": ("pyrenderer_tpu_torch/csrc/pbrt.cu",
+                 "none (pyrenderer_tpu/core/integrator_pbrt.py is jnp ops)"),
+    "pbrt_scatter": ("pyrenderer_tpu_torch/csrc/pbrt.cu",
+                     "none (pyrenderer_tpu/core/integrator_pbrt.py is jnp ops)"),
 }
 
 
@@ -457,12 +486,28 @@ def draws(traces, depth=4, estimator="reference"):
     """The Threefry evaluations (on the card, launches of csrc/rng.cu) of
     `traces` chunk-traces at `depth` bounces in a scene of one light (every
     scene of this script): the camera's pixel and lens pairs, then each
-    bounce's BSDF pair and the light's face and point, and with the pbrt
-    estimator the BSDF's third draw and, from russian_roulette_start (4)
-    on, the roulette's."""
+    bounce's BSDF pair and the light's face and point. With "pbrt" (the
+    bounce kernels' path: a float32 trace with no gradient) the camera's
+    alone: the kernels draw the bounce's. With "pbrt_eager" (the eager
+    pbrt bounce, under autograd) the reference's, the BSDF's third draw and,
+    from russian_roulette_start (4) on, the roulette's."""
+    if estimator == "pbrt":
+        return traces * 2
     per_bounce = 3 if estimator == "reference" else 4
-    roulette = max(0, depth - 4) if estimator == "pbrt" else 0
+    roulette = max(0, depth - 4) if estimator == "pbrt_eager" else 0
     return traces * (2 + per_bounce * depth + roulette)
+
+
+def eager(estimator):
+    """draws()'s name for `estimator` traced under autograd, where the pbrt
+    bounce runs eager."""
+    return "pbrt_eager" if estimator == "pbrt" else estimator
+
+
+def pbrt_launches(chunk_bounces):
+    """The pbrt bounce kernels' launches of `chunk_bounces` bounces of
+    chunk-traces on their path: one of each a bounce."""
+    return {"pbrt_hit": chunk_bounces, "pbrt_scatter": chunk_bounces}
 
 
 def counted(fn, label, expect=None, twins=None):
@@ -677,7 +722,8 @@ def main() -> int:
     dist_phases(dev, card, hdr, host_scene, host_camera, ctx)
     harness_phase(dev, card)
     rng_entries = threefry_phase(dev, card)
-    for entries in (large, binned, probes, rounds, rng_entries):
+    pbrt_entries = pbrt_phase(dev, card)
+    for entries in (large, binned, probes, rounds, rng_entries, pbrt_entries):
         max_abs_err.update(entries["max_abs_err"])
         ms.update(entries["ms"])
         plain_ms.update(entries["plain_ms"])
@@ -1408,7 +1454,8 @@ def pbrt_phases(dev, card, mrays_reference):
                 "--out", os.path.join(tmp, "pbrt.png"), "--hdr-out", exr]
         (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI pbrt frame",
                                {"closest_hit": expect, "occluded": expect,
-                                "threefry": draws(expect // depth, depth, "pbrt")})
+                                "threefry": draws(expect // depth, depth, "pbrt"),
+                                **pbrt_launches(expect)})
         check(rc == 0, f"cli.main returned {rc}")
         hdr = read_exr(exr)
     check(hdr.shape == (res, res, 3) and bool(np.isfinite(hdr).all()), "pbrt HDR not finite")
@@ -1696,6 +1743,8 @@ def accel_phases(dev, card, ctx):
         c = ctx["cfg"].replace(estimator=estimator)
         expect = {"cluster_closest_hit": 64, "cluster_occluded": 64,
                   "threefry": draws(16, 4, estimator)}
+        if estimator == "pbrt":
+            expect.update(pbrt_launches(64))
         hdr = {}
         for wf in ("0", "1"):
             os.environ["PYRENDERER_WF_SORT"] = wf
@@ -1807,7 +1856,7 @@ def gradient_phases(dev, card):
             lambda: image_and_grads(scene, cam, cfg),
             f"{label}, 256x256, {cfg.spp} spp, backend cuda",
             {"closest_hit": per, "occluded": per,
-             "threefry": draws(cfg.spp, cfg.max_bounces, cfg.estimator)}))
+             "threefry": draws(cfg.spp, cfg.max_bounces, eager(cfg.estimator))}))
         (img_b, g_b), t_b = timed(lambda: image_and_grads(scene, cam, cfg, "brute"))
         check_grads(g_k, label)
         n_diff = int((img_k != img_b).any(dim=-1).sum())
@@ -1833,7 +1882,8 @@ def gradient_phases(dev, card):
     (img_g, p_g), _ = counted(lambda: field_graph(scene, cam, cfg, accel=cs.to(dev)),
                               f"{label}, 64x64, {cfg.spp} spp, backend cluster (forward)",
                               {"cluster_closest_hit": per, "cluster_occluded": per,
-                               "threefry": draws(cfg.spp, cfg.max_bounces, cfg.estimator)})
+                               "threefry": draws(cfg.spp, cfg.max_bounces,
+                                                 eager(cfg.estimator))})
     g_g, _ = counted(lambda: grads_of(img_g.sum(), p_g), f"{label} (backward)", {})
     check_grads(g_g, label)
     t = time.perf_counter()
@@ -1959,6 +2009,8 @@ def entry_point_phases(dev, card):
         expect = {name: n * per_query for name, n in per_query_launches.items()}
         expect["kb_leaf"] = bench.CALIB_WARMUP + bench.CALIB_REPS
         expect["threefry"] = draws(per_query // 4, 4, estimator)
+        if estimator == "pbrt":
+            expect.update(pbrt_launches(per_query))
         env = dict(base_env, BENCH_SCENE=scene, BENCH_ESTIMATOR=estimator, **extra_env)
         label = "/".join([scene, estimator] + [f"{k}={v}" for k, v in extra_env.items()])
         proc = subprocess.run([sys.executable, "-m", "pyrenderer_tpu_torch.bench"], cwd=ROOT,
@@ -2539,7 +2591,8 @@ def golden_phase(dev, card):
     expect = cfg.spp * cfg.max_bounces
     hdr, _ = counted(lambda: render_image(scene, cam, cfg), "golden pbrt frame",
                      {"closest_hit": expect, "occluded": expect,
-                      "threefry": draws(cfg.spp, cfg.max_bounces, "pbrt")})
+                      "threefry": draws(cfg.spp, cfg.max_bounces, "pbrt"),
+                      **pbrt_launches(expect)})
     hdr = hdr.cpu().numpy().astype(np.float64)
     gt = read_exr(os.path.join(ROOT, "tests", "data", "tungsten_gt_256.exr")).astype(np.float64)
     check(gt.shape == (256, 256, 3), f"ground truth shape {gt.shape}")
@@ -2882,15 +2935,128 @@ def threefry_phase(dev, card):
             "plain_ms": {"threefry": plain_ms}, "bounds": {"threefry": b}}
 
 
+def pbrt_phase(dev, card):
+    """Phase 36: the pbrt bounce's kernels against the eager bounce on the
+    card, and their device time a launch in a 16-bounce Cornell pass;
+    returns their kernel-line entries."""
+    from torch.autograd import DeviceType
+
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.core.camera import generate_rays
+    from pyrenderer_tpu_torch.core import integrator_pbrt as ip
+    from pyrenderer_tpu_torch.core.integrator import TraceTables
+    from pyrenderer_tpu_torch.kernels import pbrt as pk
+    from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
+    from pyrenderer_tpu_torch.scene import load_tungsten, to_device
+
+    phase(f"36 the pbrt bounce kernels (csrc/pbrt.cu) against the eager bounce, {N_RAYS} lanes")
+    res, seed, sample = 256, 2**31 + 7, 3
+    ys, xs = np.mgrid[0:res, 0:res]
+    px = torch.as_tensor(xs.reshape(-1), device=dev)
+    py = torch.as_tensor(ys.reshape(-1), device=dev)
+    err, walls = 0.0, {}
+    for name, path in (("cornell", SCENE), ("spheres", os.path.join(ROOT, "scenes",
+                                                                    "spheres.json"))):
+        host, cam, _ = load_tungsten(path)
+        scene, camera = to_device(host, cam._replace(resolution=(res, res)), dev)
+        ro, rd = generate_rays(camera, px, py, sample, seed)
+        for depth in (1, 2, 16):
+            cfg = RenderConfig(max_bounces=depth, seed=seed, estimator="pbrt")
+            tables = TraceTables(scene, cfg)
+
+            def kernels():
+                return ip.trace_pbrt(scene, cfg, ro, rd, py * res + px, sample, seed,
+                                     tables=tables)
+
+            def twin():
+                # the eager loop, its gate closed for the call
+                gate = ip.use_bounce_kernels
+                ip.use_bounce_kernels = lambda *args: False
+                try:
+                    return kernels()
+                finally:
+                    ip.use_bounce_kernels = gate
+
+            launches = pk.hit.launches
+            got, want = kernels(), twin()
+            check(pk.hit.launches == launches + depth, f"{name}: the kernels' path was not taken")
+            equal = float((got == want).float().mean())
+            close = float(np.isclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-3,
+                                     atol=1e-4).mean())
+            med = float((got - want).abs().median())
+            print(f"pbrt kernels, {name} ({host.faces.shape[0]} tris), {depth} bounces: "
+                  f"values bit-equal to the eager loop's {equal:.6f}, close {close:.6f}, "
+                  f"median |diff| {med:.3g}, max |diff| {float((got - want).abs().max()):.3g}",
+                  flush=True)
+            check(bool(torch.isfinite(got).all()), f"{name}: radiance not finite")
+            if depth <= 2:
+                err = max(err, float((got - want).abs().max()))
+                check(equal >= 0.999 and close >= 0.999,
+                      f"{name}, {depth} bounces: the kernels part from the eager bounce")
+            else:
+                check(close > 0.95 and med < 1e-5,
+                      f"{name}, {depth} bounces: the kernels' image differs from the eager one")
+            if name == "cornell" and depth == 1:
+                for label, fn in (("kernels", kernels), ("eager", twin), ("eager", twin),
+                                  ("kernels", kernels)):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for _ in range(5):
+                        fn()
+                    torch.cuda.synchronize()
+                    walls.setdefault(label, []).append((time.perf_counter() - t) / 5 * 1e3)
+
+    # device time a launch over a 1024x1024 pass of 16 bounces (16 chunks)
+    host, cam, _ = load_tungsten(SCENE)
+    scene, camera = to_device(host, cam, dev)
+    cfg = RenderConfig(max_bounces=16, seed=1, estimator="pbrt")
+    renderer = ProgressiveRenderer(scene, camera, cfg, chunk=N_RAYS)
+    renderer.render_one_pass()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        renderer.render_one_pass()
+        torch.cuda.synchronize()
+        # a sentinel kernel last: a window's last device record was seen to
+        # go missing (perf/harness.py)
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    chunks = -(-1024 * 1024 // N_RAYS)
+    tables = renderer.tables
+    ms, plain_ms, bounds = {}, {}, {}
+    for kernel, per_lane in (("pbrt_hit", PBRT_HIT_BYTES), ("pbrt_scatter", PBRT_SCATTER_BYTES)):
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and f"{kernel}_kernel" in e.name)
+        check(len(spans) == chunks * 16, f"{kernel}: {len(spans)} device records, "
+              f"expected {chunks * 16}")
+        us = [b - a for a, b in spans]
+        first = us[::16]
+        ms[kernel] = float(np.mean(first)) / 1e3
+        plain_ms[kernel] = float(np.median(walls["eager"]))
+        bounds[kernel] = bound(0, N_RAYS * per_lane + nbytes(tables.face_data,
+                                                              tables.light_data))
+        print(f"{kernel}: {float(np.mean(us)):.2f} us a launch over a 1024x1024 16-bounce "
+              f"pass ({len(us)} launches), {float(np.mean(first)):.2f} us at bounce 0 "
+              f"({N_RAYS} live lanes); bound {bounds[kernel][0] * 1e3:.2f} us "
+              f"({bounds[kernel][1]}) ({card})", flush=True)
+    print(f"a 1-bounce trace of {N_RAYS} Cornell lanes: kernels' path "
+          f"{float(np.median(walls['kernels'])):.3f} ms, eager {plain_ms['pbrt_hit']:.3f} ms "
+          f"(wall, median of 2 x 5 calls in turns) ({card})", flush=True)
+    return {"max_abs_err": {"pbrt_hit": err, "pbrt_scatter": err}, "ms": ms,
+            "plain_ms": plain_ms, "bounds": bounds}
+
+
 # phase 34: the stage-breakdown harnesses (perf/estbench.py ... binnedgran.py)
 Q1 = {"closest_hit": 1, "occluded": 1}
 Q4 = {"closest_hit": 4, "occluded": 4}
 SWEEP1 = {"cluster_closest_hit": 1}
+# a 4-bounce pbrt trace on the bounce kernels' path (no camera: no draw)
+P4 = {"pbrt_hit": 4, "pbrt_scatter": 4}
 
 
 def tf(n):
     """n Threefry launches: n draws of the counter RNG (a reference bounce
-    3, a pbrt bounce 4 before the roulette, the camera 2)."""
+    3, the camera 2; a pbrt bounce on its kernels' path none)."""
     return {"threefry": n}
 
 
@@ -2901,7 +3067,7 @@ HARNESSES = (
     ("estbench", ["--reps", "2", "--no-profile"],
      {"rng1": tf(1), "rng2": tf(1), "rng_bounce": tf(3), "fetch_light": tf(2),
       "shade": tf(1), "camera": tf(2), "trace4_full": Q4 | tf(12), "trace4_stub": tf(12),
-      "pbrt_trace4_full": Q4 | tf(16), "pbrt_trace4_stub": tf(16), "kernel_pair": Q1},
+      "pbrt_trace4_full": Q4 | P4, "pbrt_trace4_stub": P4, "kernel_pair": Q1},
      {"fetch_light": "close", "shade": "close", "camera": "close", "trace4_full": "frame",
       "trace4_stub": "frame", "pbrt_trace4_full": "frame", "pbrt_trace4_stub": "frame"}, 4096),
     ("microbench", ["--reps", "2", "--no-profile"],

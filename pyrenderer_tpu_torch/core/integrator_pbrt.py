@@ -12,10 +12,20 @@ table:
   scattering, per core/bsdf.py;
 - Russian roulette on the throughput from cfg.russian_roulette_start on.
 
+On a CUDA float32 wavefront that carries no gradient a bounce is four
+launches: the closest-hit query, the hit kernel, the any-hit query and the
+scatter kernel (csrc/pbrt.cu, kernels/pbrt.py), the same arithmetic as the
+eager bounce below. Everything else (CPU tensors, float64, a wavefront or
+table that requires grad under grad mode) runs the eager loop. The two
+paths share no logic: autograd needs the eager ops, the renderer needs few
+launches.
+
 Each bounce is the span `bounce` (utils/profiling.span), as
-trace_reference's; inside it `nee` holds the light sample, the shadow
-query and the NEE contribution, and `scatter` the three BSDF samplers,
-the throughput update and Russian roulette.
+trace_reference's. In the eager loop `nee` holds the light sample, the
+shadow query and the NEE contribution, and `scatter` the three BSDF
+samplers, the throughput update and Russian roulette. On the kernels'
+path `bounce` holds the closest query and the hit kernel, `nee` the
+any-hit query, and `scatter` the scatter kernel.
 
 RNG slots per bounce, as the NumPy oracle (the JAX package's
 ref/scalar_pbrt.py) draws them:
@@ -50,6 +60,8 @@ from pyrenderer_tpu_torch.core.integrator import (
     wavefront_sort_perm,
 )
 from pyrenderer_tpu_torch.core.sampling import INV_PI
+from pyrenderer_tpu_torch.kernels import build
+from pyrenderer_tpu_torch.kernels import pbrt as pbrt_kernels
 from pyrenderer_tpu_torch.scene.types import MAT_LAMBERT, MAT_METAL, Scene
 from pyrenderer_tpu_torch.utils.profiling import span
 
@@ -76,11 +88,15 @@ def trace_pbrt(
     closest-hit rays plus one shadow ray per live lane and bounce (the JAX
     estimator's count, which includes lanes that need no shadow test).
     The wavefront sort (use_wavefront_sort) permutes this loop's state as
-    trace_reference's, prev_pdf and prev_spec included."""
+    trace_reference's, prev_pdf and prev_spec included. Where
+    use_bounce_kernels holds, the bounce runs as the CUDA kernels of
+    kernels/pbrt.py instead (_trace_kernels)."""
     check_supported(cfg)
     dtype = ro.dtype
     if tables is None:
         tables = TraceTables(scene, cfg.replace(estimator="pbrt"), backend)
+    if use_bounce_kernels(ro, rd, tables):
+        return _trace_kernels(scene, cfg, ro, rd, pixel_id, sample_id, seed, tables, with_stats)
     n = ro.shape[0]
     pixel_id = pixel_id.to(torch.int64).expand(n)
 
@@ -218,3 +234,62 @@ def trace_pbrt(
     if with_stats:
         return radiance, n_rays
     return radiance
+
+
+def use_bounce_kernels(ro, rd, tables: TraceTables) -> bool:
+    """True where the bounce runs as the CUDA kernels of kernels/pbrt.py: a
+    CUDA float32 wavefront, and no gradient to carry (grad mode off, or
+    none of the rays and the face and light tables requires grad)."""
+    if not build.on_cuda(ro, "pbrt") or ro.dtype != torch.float32:
+        return False
+    return not (torch.is_grad_enabled() and any(
+        x.requires_grad for x in (ro, rd, tables.face_data, tables.light_data)))
+
+
+def _trace_kernels(scene, cfg, ro, rd, pixel_id, sample_id, seed, tables, with_stats):
+    """trace_pbrt on the kernels' path: each bounce the closest query, the
+    hit kernel, the any-hit query and the scatter kernel, on a Wavefront
+    that they update in place; the queries, the wavefront sort and the
+    result as the eager loop has them."""
+    wf = pbrt_kernels.Wavefront.start(ro, rd, pixel_id, sample_id, cfg.t_max)
+    wf_sort = use_wavefront_sort(tables)
+    sort = False if wf_sort else None
+    if wf_sort:
+        orig = torch.arange(ro.shape[0], device=ro.device)
+    for bounce in range(cfg.max_bounces):
+        with span("bounce"):
+            if wf_sort:
+                perm = wavefront_sort_perm(tables.accel, wf.ro, wf.rd, wf.alive)
+                wf.permute(perm)
+                orig = orig[perm]
+            faces = _bounce_hit(scene, tables, cfg, wf, bounce, seed, sort)
+            with span("nee"):
+                occ = _any_hit(scene, tables, cfg, wf.s_ro, wf.s_rd, wf.s_t1, sort=sort)
+            with span("scatter"):
+                pbrt_kernels.scatter(wf, seed, bounce, rng._default_rounds(), *faces,
+                                     occ.contiguous(), bounce >= cfg.russian_roulette_start,
+                                     cfg.t_max)
+    radiance = wf.radiance
+    if wf_sort:
+        radiance = torch.zeros_like(radiance).index_put((orig,), radiance)
+    if with_stats:
+        return radiance, wf.n_rays
+    return radiance
+
+
+def _bounce_hit(scene, tables, cfg, wf, bounce, seed, sort):
+    """The closest query of `wf`'s rays and the hit kernel of bounce
+    `bounce`; returns the face operands (tri, rows, gather) the scatter
+    kernel takes: the face table gathered by the hit ids, or the rows
+    tables.fetch_face_fn returns for them."""
+    hit, _, tri = _closest(scene, tables, cfg, wf.ro, wf.rd, wf.t1, sort=sort)
+    tri = tri.contiguous()
+    if tables.fetch_face_fn is None:
+        rows, gather = tables.face_data, True
+    else:
+        rows, gather = tables.fetch_face(torch.clamp(tri, min=0).to(torch.int64)), False
+    f_max = scene.light_faces.shape[1]
+    pbrt_kernels.hit(wf, seed, bounce, rng._default_rounds(), hit.contiguous(), tri, rows,
+                     gather, tables.light_data, scene.light_nfaces, f_max,
+                     1.0 - cfg.shadow_eps)
+    return tri, rows, gather

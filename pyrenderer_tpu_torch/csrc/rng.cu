@@ -1,6 +1,7 @@
 // Threefry-2x32 (Random123's schedule) for the counter RNG of rng.py
 // (wrapper: kernels/threefry.py): one thread a lane, the 32-bit words in
-// registers.
+// registers. The round function is threefry.cuh's, which the pbrt bounce
+// (pbrt.cu) shares.
 //
 // Replaces no TPU kernel: the JAX package's RNG (pyrenderer_tpu/rng.py) is
 // jnp elementwise ops that XLA fuses into its consumers. Eager PyTorch has
@@ -29,38 +30,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr uint32_t kParity = 0x1BD11BDAu;
-constexpr uint32_t kKeyTag = 0x70617468u;
-
-// rng._ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24)), for round r
-__device__ __forceinline__ int rotation(int r) {
-  switch (((r >> 2) & 1) * 4 + (r & 3)) {
-    case 0: return 13;
-    case 1: return 15;
-    case 2: return 26;
-    case 3: return 6;
-    case 4: return 17;
-    case 5: return 29;
-    case 6: return 16;
-    default: return 24;
-  }
-}
-
-// ks[i % 3] without an indexed array (which would live in local memory
-// where the index is not a constant)
-__device__ __forceinline__ uint32_t subkey(int i, uint32_t k0, uint32_t k1, uint32_t k2) {
-  const int m = i % 3;
-  return m == 0 ? k0 : (m == 1 ? k1 : k2);
-}
-
-// The low 32 bits of operand p's lane i: int64 where wide, else int32.
-__device__ __forceinline__ uint32_t word(const void* p, int64_t stride, bool wide, int64_t i) {
-  return wide ? (uint32_t)((const int64_t*)p)[i * stride]
-              : (uint32_t)((const int32_t*)p)[i * stride];
-}
 
 // wide: bit 0 pixel, 1 sample, 2 bounce, 3 use are int64 (else int32); a
 // null sample, bounce or use pointer means the operand is in c1_const.
@@ -77,21 +51,11 @@ __global__ void __launch_bounds__(kThreads) threefry_kernel(
   if (sample) c1 |= word(sample, sample_stride, wide & 2, i) << 12;
   if (bounce) c1 |= word(bounce, bounce_stride, wide & 4, i) << 4;
   if (use) c1 |= word(use, use_stride, wide & 8, i);
-  const uint32_t k1 = kKeyTag, k2 = k0 ^ k1 ^ kParity;
-  uint32_t x0 = word(pixel, pixel_stride, wide & 1, i) + k0;
-  uint32_t x1 = c1 + k1;
-  for (int r = 0; r < rounds; ++r) {
-    x0 += x1;
-    x1 = __funnelshift_l(x1, x1, rotation(r)) ^ x0;
-    if ((r & 3) == 3) {
-      const int g = r >> 2;
-      x0 += subkey(g + 1, k0, k1, k2);
-      x1 += subkey(g + 2, k0, k1, k2) + (uint32_t)(g + 1);
-    }
-  }
+  uint32_t x0, x1;
+  threefry2x32(k0, word(pixel, pixel_stride, wide & 1, i), c1, rounds, &x0, &x1);
   if (unit) {
-    ((float*)out0)[i] = (float)(x0 >> 8) * 0x1p-24f;
-    if (out1) ((float*)out1)[i] = (float)(x1 >> 8) * 0x1p-24f;
+    ((float*)out0)[i] = to_unit(x0);
+    if (out1) ((float*)out1)[i] = to_unit(x1);
   } else {
     ((int64_t*)out0)[i] = (int64_t)x0;
     if (out1) ((int64_t*)out1)[i] = (int64_t)x1;

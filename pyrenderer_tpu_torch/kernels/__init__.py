@@ -8,7 +8,7 @@ def wrappers():
     """Every kernel wrapper of the port, by the kernel's name: each counts
     the launches of its kernel (``.launches``) and, apart from them, the
     calls it served with its plain twin (``.twin_calls``)."""
-    from pyrenderer_tpu_torch.kernels import binned, cluster, intersect, threefry
+    from pyrenderer_tpu_torch.kernels import binned, cluster, intersect, pbrt, threefry
     from pyrenderer_tpu_torch.perf import kernelbench
 
     return {
@@ -27,6 +27,8 @@ def wrappers():
         "kb_cond": kernelbench.cond,
         "kb_ctz": kernelbench.ctz,
         "threefry": threefry.threefry,
+        "pbrt_hit": pbrt.hit,
+        "pbrt_scatter": pbrt.scatter,
     }
 
 

@@ -1,0 +1,236 @@
+"""The pbrt estimator's bounce as two CUDA kernels: the wrapper.
+
+The kernels (csrc/pbrt.cu) replace no TPU kernel: the JAX package's bounce
+is jnp ops that XLA fuses. Eager PyTorch has no such fusion, so the eager
+bounce of core/integrator_pbrt.py is ~400 small launches; here a bounce is
+four: the closest-hit query, ``hit``, the any-hit query and ``scatter``.
+Their plain twin is that eager bounce, which trace_pbrt runs wherever these
+kernels do not (CPU tensors, float64, gradients).
+
+A ``Wavefront`` holds the trace's state on the device, contiguous, and the
+per-lane values that ``hit`` hands to ``scatter``; the two kernels update
+it in place. Each launch goes through build.launch on the current stream,
+waits for nothing and allocates nothing; each counts its launches
+(``hit.launches``, ``scatter.launches``) and, for the program's own
+tracing, one ``pbrt_kernel`` (utils/profiling.count) a launch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from pyrenderer_tpu_torch.kernels import build
+from pyrenderer_tpu_torch.kernels.threefry import _lanes
+from pyrenderer_tpu_torch.utils.profiling import count
+
+_U32 = 0xFFFFFFFF
+# the extended face row (integrator.pack_face_data) the kernels read: up
+# to light_pdf_A, column 21
+_FACE_COLS = 22
+_LIGHT_COLS = 14
+
+
+def _check(x, name, device, dtype, shape):
+    """Refuse an operand the kernels cannot take: another device or dtype,
+    another shape, or not contiguous."""
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
+        raise ValueError(f"pbrt: {name} is a {x.dtype} {tuple(x.shape)} tensor on {x.device}, "
+                         f"the kernel takes {dtype} {shape} on {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"pbrt: {name} is not contiguous")
+
+
+def _table(x, name, device, cols):
+    """A float32 table on `device` whose rows are read through their
+    stride: at least `cols` unit-stride columns."""
+    if x.device != device or x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] < cols:
+        raise ValueError(f"pbrt: {name} is a {x.dtype} {tuple(x.shape)} tensor on {x.device}, "
+                         f"the kernel takes float32 rows of at least {cols} columns on {device}")
+    if x.stride(1) != 1:
+        raise ValueError(f"pbrt: {name}'s columns are not contiguous")
+
+
+def _ids(x, name, device, n):
+    """An int32 or int64 operand of n lanes on `device`, read through its
+    stride: (tensor, stride, wide)."""
+    if x.device != device or x.dtype not in (torch.int32, torch.int64) or x.shape != (n,):
+        raise ValueError(f"pbrt: {name} is a {x.dtype} {tuple(x.shape)} tensor on {x.device}, "
+                         f"the kernel takes int32 or int64 ({n},) on {device}")
+    return x, x.stride(0), x.dtype == torch.int64
+
+
+@dataclasses.dataclass
+class Wavefront:
+    """The state of a pbrt trace on the device, and the values ``hit`` hands
+    to ``scatter``: n lanes, float32 rows of three, all contiguous.
+
+    ro, rd: the rays; beta, radiance: throughput and radiance; alive;
+    prev_pdf, prev_spec: the last scatter's pdf and whether it was
+    specular; t1: the next closest query's interval (t_max where alive,
+    else 0); pixel, sample: the counter operands (sample None where it is
+    the one value sample_const); n_rays: the rays traced (a float32
+    scalar, as the eager trace counts them). Written by ``hit``: the
+    shadow ray s_ro, s_rd, s_t1, the shading normal nrm, the NEE term
+    nee of a clear shadow ray, flags."""
+
+    ro: torch.Tensor
+    rd: torch.Tensor
+    beta: torch.Tensor
+    radiance: torch.Tensor
+    alive: torch.Tensor
+    prev_pdf: torch.Tensor
+    prev_spec: torch.Tensor
+    t1: torch.Tensor
+    pixel: torch.Tensor
+    sample: torch.Tensor | None
+    sample_const: int
+    n_rays: torch.Tensor
+    s_ro: torch.Tensor
+    s_rd: torch.Tensor
+    s_t1: torch.Tensor
+    nrm: torch.Tensor
+    nee: torch.Tensor
+    flags: torch.Tensor
+
+    # the fields a wavefront sort permutes: the rest is rewritten every bounce
+    STATE = ("ro", "rd", "beta", "radiance", "alive", "prev_pdf", "prev_spec", "t1", "pixel",
+             "sample")
+
+    @classmethod
+    def start(cls, ro, rd, pixel, sample, t_max: float) -> "Wavefront":
+        """A fresh wavefront on copies of the rays ro, rd (N, 3): beta 1,
+        radiance 0, every lane alive with t1 = t_max, prev_pdf 1. `pixel`
+        is an integer tensor broadcast to (N,), `sample` an int, a CPU
+        scalar or an integer tensor on the rays' device, one value or (N,)
+        (as kernels/threefry.py takes it)."""
+        n, dev = ro.shape[0], ro.device
+        ro = ro.clone(memory_format=torch.contiguous_format)
+        rd = rd.clone(memory_format=torch.contiguous_format)
+        if pixel.dtype not in (torch.int32, torch.int64):
+            pixel = pixel.to(torch.int64)
+        pixel = pixel.expand(n)
+        sample_t, sample_const = _lanes(sample, "sample", dev)
+        if sample_t is not None:
+            if sample_t.dtype not in (torch.int32, torch.int64):
+                sample_t = sample_t.to(torch.int64)
+            sample_t = sample_t.expand(n)
+        empty3 = lambda: torch.empty((n, 3), dtype=torch.float32, device=dev)  # noqa: E731
+        return cls(
+            ro=ro, rd=rd, beta=torch.ones_like(ro), radiance=torch.zeros_like(ro),
+            alive=torch.ones(n, dtype=torch.bool, device=dev),
+            prev_pdf=torch.ones(n, dtype=torch.float32, device=dev),
+            prev_spec=torch.zeros(n, dtype=torch.bool, device=dev),
+            t1=torch.full((n,), t_max, dtype=torch.float32, device=dev),
+            pixel=pixel, sample=sample_t, sample_const=sample_const & _U32,
+            n_rays=torch.zeros((), dtype=torch.float32, device=dev),
+            s_ro=empty3(), s_rd=empty3(), s_t1=torch.empty(n, dtype=torch.float32, device=dev),
+            nrm=empty3(), nee=empty3(), flags=torch.empty(n, dtype=torch.uint8, device=dev))
+
+    def permute(self, perm) -> None:
+        """Reorder the lanes' state by `perm` (the wavefront sort)."""
+        for name in self.STATE:
+            x = getattr(self, name)
+            if x is not None:
+                setattr(self, name, x[perm])
+
+    def _operands(self, seed: int, bounce: int, rounds: int):
+        """The counter's arguments of both C entry points and the checks of
+        the state they write."""
+        n, dev = self.ro.shape[0], self.ro.device
+        for name, shape in (("ro", (n, 3)), ("rd", (n, 3)), ("beta", (n, 3)),
+                            ("radiance", (n, 3)), ("prev_pdf", (n,)), ("t1", (n,)),
+                            ("s_ro", (n, 3)), ("s_rd", (n, 3)), ("s_t1", (n,)),
+                            ("nrm", (n, 3)), ("nee", (n, 3))):
+            _check(getattr(self, name), name, dev, torch.float32, shape)
+        for name in ("alive", "prev_spec"):
+            _check(getattr(self, name), name, dev, torch.bool, (n,))
+        _check(self.flags, "flags", dev, torch.uint8, (n,))
+        _check(self.n_rays, "n_rays", dev, torch.float32, ())
+        pixel, pixel_stride, wide = _ids(self.pixel, "pixel", dev, n)
+        sample_ptr, sample_stride = None, 0
+        if self.sample is not None:
+            sample, sample_stride, wide_s = _ids(self.sample, "sample", dev, n)
+            sample_ptr = sample.data_ptr()
+            wide |= wide_s << 1
+        return [n, bounce, int(seed & _U32), rounds, pixel.data_ptr(), pixel_stride, sample_ptr,
+                sample_stride, (self.sample_const << 12) & _U32], int(wide)
+
+
+def _faces(rows, gather: bool, tri, dev, n):
+    """The face-row operands: rows (T, K) gathered by the hit ids, or the
+    lanes' own rows (N, K) where not `gather`; (args, wide bit 2)."""
+    _table(rows, "rows", dev, _FACE_COLS)
+    if not gather and rows.shape[0] != n:
+        raise ValueError(f"pbrt: {rows.shape[0]} face rows for {n} lanes")
+    tri, _, wide = _ids(tri, "tri", dev, n)
+    if tri.stride(0) != 1:
+        raise ValueError("pbrt: tri is not contiguous")
+    return [tri.data_ptr(), rows.data_ptr(), rows.stride(0), int(gather)], int(wide) << 2
+
+
+def hit(wf: Wavefront, seed: int, bounce: int, rounds: int, hit_mask, tri, rows, gather: bool,
+        light_data, light_nfaces, f_max: int, shadow_scale: float) -> None:
+    """The hit half of pbrt bounce `bounce` (csrc/pbrt.cu pbrt_hit_kernel)
+    after the closest query's (hit_mask, tri): emission with its MIS weight
+    into wf.radiance, wf.alive, and the shadow ray, normal, NEE term and
+    flags that ``scatter`` reads. `rows`: the extended face table gathered
+    by tri, or (not `gather`) the lanes' own rows; light_data
+    (integrator.pack_light_data) and light_nfaces (L,) of L lights of
+    f_max faces; shadow_scale the shadow ray's extent over the light's
+    distance (1 - shadow_eps). One launch, none for no lanes."""
+    dev, n = wf.ro.device, wf.ro.shape[0]
+    counter, wide = wf._operands(seed, bounce, rounds)
+    _check(hit_mask, "hit", dev, torch.bool, (n,))
+    faces, wide_tri = _faces(rows, gather, tri, dev, n)
+    _table(light_data, "light_data", dev, _LIGHT_COLS)
+    n_lights = light_nfaces.shape[0]
+    nfaces, _, wide_l = _ids(light_nfaces, "light_nfaces", dev, n_lights)
+    if nfaces.stride(0) != 1 or light_data.shape[0] != n_lights * f_max:
+        raise ValueError(f"pbrt: light_nfaces {tuple(nfaces.shape)} (stride "
+                         f"{nfaces.stride(0)}) and {light_data.shape[0]} light rows for "
+                         f"{f_max} faces a light")
+    if n:
+        build.launch(
+            "pr_pbrt_hit", dev, *counter, wide | wide_tri | int(wide_l) << 3,
+            wf.ro.data_ptr(), wf.rd.data_ptr(), hit_mask.data_ptr(), *faces,
+            light_data.data_ptr(), light_data.stride(0),
+            nfaces.data_ptr(), n_lights, f_max, wf.beta.data_ptr(), wf.radiance.data_ptr(),
+            wf.alive.data_ptr(), wf.prev_pdf.data_ptr(), wf.prev_spec.data_ptr(),
+            float(shadow_scale), wf.s_ro.data_ptr(), wf.s_rd.data_ptr(), wf.s_t1.data_ptr(),
+            wf.nrm.data_ptr(), wf.nee.data_ptr(), wf.flags.data_ptr(), wf.n_rays.data_ptr())
+        hit.launches += 1
+        count("pbrt_kernel")
+
+
+def scatter(wf: Wavefront, seed: int, bounce: int, rounds: int, tri, rows, gather: bool,
+            occ, roulette: bool, t_max: float) -> None:
+    """The scatter half of pbrt bounce `bounce` (csrc/pbrt.cu
+    pbrt_scatter_kernel) after the any-hit query's `occ`: the NEE term of
+    a clear shadow ray, the lane's BSDF sampler, the throughput, Russian
+    roulette where `roulette`, and the next ray and interval, all in
+    place in `wf`. tri, rows, gather as ``hit`` took them. One launch,
+    none for no lanes."""
+    dev, n = wf.ro.device, wf.ro.shape[0]
+    counter, wide = wf._operands(seed, bounce, rounds)
+    faces, wide_tri = _faces(rows, gather, tri, dev, n)
+    _check(occ, "occ", dev, torch.bool, (n,))
+    if n:
+        build.launch(
+            "pr_pbrt_scatter", dev, *counter, wide | wide_tri, *faces, occ.data_ptr(),
+            wf.s_ro.data_ptr(), wf.nrm.data_ptr(), wf.nee.data_ptr(), wf.flags.data_ptr(),
+            wf.ro.data_ptr(), wf.rd.data_ptr(), wf.beta.data_ptr(), wf.radiance.data_ptr(),
+            wf.alive.data_ptr(), wf.prev_pdf.data_ptr(), wf.prev_spec.data_ptr(),
+            wf.t1.data_ptr(), int(roulette), float(t_max), wf.n_rays.data_ptr())
+        scatter.launches += 1
+        count("pbrt_kernel")
+
+
+def reset_counters() -> None:
+    for fn in (hit, scatter):
+        fn.launches = 0
+        fn.twin_calls = 0
+
+
+reset_counters()

@@ -179,7 +179,8 @@ def wavefronts(scene, camera, tables, cfg, px, py, module="cluster_kernels"):
     second closest-hit query and of the second shadow query that
     render_sample makes, recorded on their way to the kernel wrappers of
     `module` (the integrator's name for kernels/cluster.py, or "kernels"
-    for the whole-table kernels)."""
+    for the whole-table kernels). Recorded as copies: the pbrt bounce's
+    kernels update the rays in place after the query."""
     from pyrenderer_tpu_torch.core import integrator
 
     wrappers = getattr(integrator, module)
@@ -187,7 +188,8 @@ def wavefronts(scene, camera, tables, cfg, px, py, module="cluster_kernels"):
 
     def recorder(name):
         def record(table, ro, rd, t0, t1, **kw):
-            calls[name].append((ro.contiguous(), rd.contiguous(), t1.contiguous()))
+            calls[name].append(tuple(x.clone(memory_format=torch.contiguous_format)
+                                     for x in (ro, rd, t1)))
             return getattr(wrappers, name)(table, ro, rd, t0, t1, **kw)
         return record
 

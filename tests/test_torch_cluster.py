@@ -576,12 +576,12 @@ def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in c]
     assert sorted(c.split(" -c ")[1].split()[0].rsplit("/", 1)[1] for c in compiles) \
-        == ["binned.cu", "cluster.cu", "intersect.cu", "kernelbench.cu", "rng.cu"]
+        == ["binned.cu", "cluster.cu", "intersect.cu", "kernelbench.cu", "pbrt.cu", "rng.cu"]
     assert all(c.startswith(" ".join(build.NVCC_FLAGS)) for c in compiles)
     (link,) = [c for c in calls if " -c " not in c]
-    assert "-shared" in link and link.count(".o") == 5
+    assert "-shared" in link and link.count(".o") == 6
     assert os.path.exists(lib) and build.build() == lib   # reused by digest
-    assert len(log.read_text().splitlines()) == 6
+    assert len(log.read_text().splitlines()) == 7
 
 
 @pytest.mark.cuda

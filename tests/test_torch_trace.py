@@ -119,8 +119,9 @@ def test_pass_spans(cornell, estimator):
                <= rec.spans[s.parent].end_ns for s in rec.spans if s.parent is not None)
     summary = rec.summary("pass")
     assert rec.counters == {} and "syncs" not in summary
-    # the CPU's Threefry is the twin's: no evaluation went to the kernel
-    assert summary["rng_kernel"] == 0.0
+    # the CPU's Threefry is the twin's and its bounce the eager one: no
+    # evaluation or bounce went to a kernel
+    assert summary["rng_kernel"] == 0.0 and summary["pbrt_kernel"] == 0.0
     assert summary["units"] == 1
     assert {k: v["count"] for k, v in summary["spans"].items()} == names
     # the children cover the pass but for its own Python
@@ -286,7 +287,8 @@ def test_count_charges_the_innermost_span():
         with prof.span("pass"):
             pass
     assert rec.counters == {} and rec.summary("pass")["rng_kernel"] == 0.0
-    assert set(prof.COUNTERS) == {"rng_kernel"}
+    assert set(prof.COUNTERS) == {"rng_kernel", "pbrt_kernel"}
+    assert rec.summary("pass")["pbrt_kernel"] == 0.0
 
 
 def test_threads_keep_their_own_stacks():
