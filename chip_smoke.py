@@ -158,10 +158,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    backend "bvh" on the card and on the CPU (> 95% close, median |diff|
    < 1e-5; the CPU window counts the Threefry twin's calls instead), and
    its Mrays/s.
-21. The wavefront sort (PYRENDERER_WF_SORT=1): the terrain100k frame with
-   both estimators, each within rtol 1e-5 of the same frame with the
-   per-query sort, with the launches of phase 7, and all four Mrays/s.
-
+21. The pbrt bounce kernels behind the cluster queries: the terrain100k
+   frame of phase 7 with the pbrt estimator, with the per-query coherence
+   sort and without it (cluster_sort True and False), each with exactly 64
+   launches of each cluster kernel, the camera's Threefry draws and 64 of
+   each pbrt kernel, finite, the two frames within rtol 1e-5 of each other,
+   and both Mrays/s.
 22. Gradients on the card: the sum of dist/render.render_field over every
    pixel, differentiated by torch autograd w.r.t. vertices, albedo and
    emission in float32: (a) Cornell, reference, 256x256, 4 spp, 4 bounces,
@@ -243,9 +245,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    seed 0) with exactly 4 launches of each kernel, its last-bounce radiance
    bit-identical to trace_reference on the same rays; on a 64x64 grid its
    records against the CPU twins' (hit and tri equal on >= 99.9%); and
-   log_paths(backend="cluster") on terrain8k with cluster_sort=True, with
-   PYRENDERER_WF_SORT=1 and =0: 4 launches of each cluster kernel in each
-   run and every record equal.
+   log_paths(backend="cluster") on terrain8k with cluster_sort=True and
+   False: 4 launches of each cluster kernel in each run and every record
+   equal.
 30. The golden HDR check: Cornell, pbrt, 64x64, 32 spp, 8 bounces, seed 1
    through B1/B2 (exactly 256 launches of each) against the Tungsten
    renderer's EXR (tests/data/tungsten_gt_256.exr read by utils/exr.py,
@@ -1643,12 +1645,11 @@ def resume_phases(dev, card, ctx):
 
 def accel_phases(dev, card, ctx):
     """Phases 19-21: the chunked sweep at terrain330k, the BVH at terrain8k
-    and the wavefront sort at terrain100k."""
+    and the pbrt bounce kernels behind the cluster queries at terrain100k."""
     from pyrenderer_tpu_torch import native
     from pyrenderer_tpu_torch.accel import bvh as bvh_mod
     from pyrenderer_tpu_torch.accel import clusters as cl
     from pyrenderer_tpu_torch.config import RenderConfig
-    from pyrenderer_tpu_torch.core import integrator as integ
     from pyrenderer_tpu_torch.kernels import cluster as kc
     from pyrenderer_tpu_torch.perf.clusterbench import random_rays
     from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
@@ -1736,41 +1737,28 @@ def accel_phases(dev, card, ctx):
     check(close > 0.95 and med < 1e-5 and bool(np.isfinite(img_gpu).all()),
           "the GPU and CPU bvh images disagree")
 
-    phase("21 wavefront sort (PYRENDERER_WF_SORT=1): terrain100k, both estimators")
-    cs100 = ctx["cs"]
-    mrays = {}
-    for estimator in ("reference", "pbrt"):
-        c = ctx["cfg"].replace(estimator=estimator)
-        expect = {"cluster_closest_hit": 64, "cluster_occluded": 64,
-                  "threefry": draws(16, 4, estimator)}
-        if estimator == "pbrt":
-            expect.update(pbrt_launches(64))
-        hdr = {}
-        for wf in ("0", "1"):
-            os.environ["PYRENDERER_WF_SORT"] = wf
-            try:
-                renderer = ProgressiveRenderer(ctx["scene"], ctx["camera"], c, chunk=1 << 16,
-                                               accel=cs100)
-                check(integ.use_wavefront_sort(renderer.tables) == (wf == "1"),
-                      f"{estimator}: the wavefront sort is not {'on' if wf == '1' else 'off'}")
-                film, _ = counted(lambda r=renderer: r.run(quiet=True),
-                                  f"terrain100k {estimator} frame, PYRENDERER_WF_SORT={wf}",
-                                  expect)
-            finally:
-                del os.environ["PYRENDERER_WF_SORT"]
-            hdr[wf] = film.hdr
-            mrays[(estimator, wf)] = renderer.rays_traced / renderer.render_seconds / 1e6
-        if estimator == "reference":
-            check(np.array_equal(hdr["0"], ctx["hdr_cluster"]), "the frame differs from phase 7's")
-        check(bool(np.isfinite(hdr["1"]).all()), f"{estimator}: HDR not finite")
-        close = np.isclose(hdr["1"], hdr["0"], rtol=1e-5, atol=1e-7)
-        print(f"{estimator}: wavefront-sorted frame within rtol 1e-5 of the per-query-sorted "
-              f"one on {int(close.sum())}/{close.size} values, max|diff| "
-              f"{float(np.abs(hdr['1'] - hdr['0']).max()):.3g}", flush=True)
-        check(bool(close.all()), f"{estimator}: the wavefront sort changes the frame")
-    print("frames (terrain100k, 512x512, 4 spp, 4 bounces, Mrays/s): "
-          + ", ".join(f"{e} WF_SORT={wf} {m:.3f}" for (e, wf), m in mrays.items())
-          + f" ({card})", flush=True)
+    phase("21 pbrt bounce kernels behind the cluster queries: terrain100k, sort on and off")
+    expect = {"cluster_closest_hit": 64, "cluster_occluded": 64,
+              "threefry": draws(16, 4, "pbrt"), **pbrt_launches(64)}
+    hdr, mrays = {}, {}
+    for sort in (True, False):
+        c = ctx["cfg"].replace(estimator="pbrt", cluster_sort=sort)
+        renderer = ProgressiveRenderer(ctx["scene"], ctx["camera"], c, chunk=1 << 16,
+                                       accel=ctx["cs"])
+        check(renderer.backend == "cluster" and renderer.tables.cluster_sort == sort,
+              f"cluster_sort={sort}: not the cluster sweep with that sort")
+        film, _ = counted(lambda r=renderer: r.run(quiet=True),
+                          f"terrain100k pbrt frame, cluster_sort={sort}", expect)
+        check(bool(np.isfinite(film.hdr).all()), f"cluster_sort={sort}: HDR not finite")
+        hdr[sort] = film.hdr
+        mrays[sort] = renderer.rays_traced / renderer.render_seconds / 1e6
+    close = np.isclose(hdr[True], hdr[False], rtol=1e-5, atol=1e-7)
+    print(f"pbrt frame with the coherence sort within rtol 1e-5 of the one without on "
+          f"{int(close.sum())}/{close.size} values, max|diff| "
+          f"{float(np.abs(hdr[True] - hdr[False]).max()):.3g}; Mrays/s sorted "
+          f"{mrays[True]:.3f}, unsorted {mrays[False]:.3f} (terrain100k, 512x512, 4 spp, "
+          f"4 bounces, {card})", flush=True)
+    check(bool(close.all()), "the coherence sort changes the pbrt frame")
 
 
 WHOLE_TABLE = {"closest_hit": 1, "occluded": 1}
@@ -2372,8 +2360,8 @@ def matmul_decisions(scene, cam, cfg):
               for k in ("ieee", "tf32")}
     closest, any_hit = integ._closest, integ._any_hit
 
-    def both_closest(scene_, tables, cfg_, ro, rd, t1, sort=None):
-        hit, t, tri = closest(scene_, tables, cfg_, ro, rd, t1, sort)
+    def both_closest(scene_, tables, cfg_, ro, rd, t1):
+        hit, t, tri = closest(scene_, tables, cfg_, ro, rd, t1)
         live = t1 > 0
         others = {"ieee": isect.intersect_matmul(scene_, ro, rd, cfg_.t_min, t1, w),
                   "tf32": unguarded_closest(scene_, w, ro, rd, cfg_.t_min, t1)}
@@ -2385,8 +2373,8 @@ def matmul_decisions(scene, cam, cfg):
                               & (mat[tri.long()] != mat[tri_m.long()])).sum()
         return hit, t, tri
 
-    def both_any_hit(scene_, tables, cfg_, ro, rd, t1, sort=None):
-        occ = any_hit(scene_, tables, cfg_, ro, rd, t1, sort)
+    def both_any_hit(scene_, tables, cfg_, ro, rd, t1):
+        occ = any_hit(scene_, tables, cfg_, ro, rd, t1)
         live = t1 > 0
         det, t, u, v = unguarded_terms(w, ro, rd)
         others = {"ieee": isect.occluded_matmul(scene_, ro, rd, cfg_.t_min, t1, w),
@@ -2486,7 +2474,7 @@ def debug_path_phases(dev, card):
     from pyrenderer_tpu_torch.scene.tungsten import build_scene
 
     phase("29 debug paths: CLI --debug-paths on Cornell, log_paths at 1024x1024, "
-          "the CPU twins, terrain8k with the wavefront sort")
+          "the CPU twins, terrain8k with and without the coherence sort")
     host, host_cam, scene_cfg = load_tungsten(SCENE)
     bounces = scene_cfg.max_bounces
     with tempfile.TemporaryDirectory() as tmp:
@@ -2539,28 +2527,18 @@ def debug_path_phases(dev, card):
 
     host8, cam8, _ = build_scene(procgen.big_scene_data("terrain", res=64))
     scene8, cam8 = to_device(host8, cam8._replace(resolution=(64, 64)), dev)
-    cfg8 = RenderConfig(max_bounces=4, seed=0, estimator="reference", cluster_sort=True)
+    cfg8 = RenderConfig(max_bounces=4, seed=0, estimator="reference")
     cluster = {"cluster_closest_hit": 4, "cluster_occluded": 4, "threefry": draws(1)}
-    saved = os.environ.get("PYRENDERER_WF_SORT")
-    wf = {}
-    try:
-        for flag in ("1", "0"):
-            os.environ["PYRENDERER_WF_SORT"] = flag
-            wf[flag], _ = counted(
-                lambda: log_paths(scene8, cam8, cfg8, xs.reshape(-1), ys.reshape(-1),
-                                  backend="cluster"),
-                f"log_paths terrain8k cluster, PYRENDERER_WF_SORT={flag}", cluster)
-    finally:
-        if saved is None:
-            os.environ.pop("PYRENDERER_WF_SORT", None)
-        else:
-            os.environ["PYRENDERER_WF_SORT"] = saved
-    differ = [k for k in wf["0"].__dataclass_fields__
-              if not np.array_equal(getattr(wf["1"], k), getattr(wf["0"], k))]
-    print(f"log_paths terrain8k 64x64 4 bounces, PYRENDERER_WF_SORT=1 against =0: records "
-          f"that differ {differ}; hits per bounce {wf['0'].hit.sum(axis=1).tolist()}",
+    logs = {sort: counted(
+        lambda sort=sort: log_paths(scene8, cam8, cfg8.replace(cluster_sort=sort),
+                                    xs.reshape(-1), ys.reshape(-1), backend="cluster"),
+        f"log_paths terrain8k cluster, cluster_sort={sort}", cluster)[0] for sort in (True, False)}
+    differ = [k for k in logs[False].__dataclass_fields__
+              if not np.array_equal(getattr(logs[True], k), getattr(logs[False], k))]
+    print(f"log_paths terrain8k 64x64 4 bounces, cluster_sort=True against False: records "
+          f"that differ {differ}; hits per bounce {logs[False].hit.sum(axis=1).tolist()}",
           flush=True)
-    check(not differ, f"wavefront-sorted records differ: {differ}")
+    check(not differ, f"coherence-sorted records differ: {differ}")
 
 
 def golden_errors(hdr, gt):

@@ -39,7 +39,7 @@ scene above 4096 triangles: the JAX package sends them to
 card does not have.
 
 The loop is bench.py's: per sample, the Morton-ordered chunks through
-generate_rays and trace_reference / trace_pbrt with with_stats. One
+render_sample with with_stats (trace_reference or trace_pbrt). One
 warm-up sample, which builds the kernels and the accelerator, is not
 timed; then spp samples run under a host clock that ends in
 torch.cuda.synchronize().
@@ -132,9 +132,8 @@ def run(env=None, dtype=torch.float32):
     the scene in `dtype` (the tests count rays in float64); returns the
     JSON row. Raises RuntimeError without the CUDA device it asks for."""
     from pyrenderer_tpu_torch.config import RenderConfig
-    from pyrenderer_tpu_torch.core.camera import generate_rays, pixel_order
-    from pyrenderer_tpu_torch.core.integrator import TraceTables, trace_reference
-    from pyrenderer_tpu_torch.core.integrator_pbrt import trace_pbrt
+    from pyrenderer_tpu_torch.core.camera import pixel_order
+    from pyrenderer_tpu_torch.core.integrator import TraceTables, render_sample
     from pyrenderer_tpu_torch.scene import to_device
 
     env = os.environ if env is None else env
@@ -156,7 +155,6 @@ def run(env=None, dtype=torch.float32):
                        cluster_watertight=watertight, cluster_sort=sort,
                        cluster_rounds=int(env.get("BENCH_ROUNDS", "1")),
                        cluster_budget=int(env.get("BENCH_BUDGET", "8")))
-    trace = trace_reference if estimator == "reference" else trace_pbrt
 
     scene, camera = to_device(host, camera._replace(resolution=(res, res)), device, dtype)
     w, h = camera.resolution
@@ -175,9 +173,8 @@ def run(env=None, dtype=torch.float32):
         rays = torch.zeros((), dtype=torch.float64, device=device)
         for s in range(first, first + count):
             for px, py in chunks:
-                ro, rd = generate_rays(camera, px, py, s, cfg.seed)
-                rad, n_rays = trace(scene, cfg, ro, rd, py * w + px, s, cfg.seed,
-                                    tables=tables, with_stats=True)
+                rad, n_rays = render_sample(scene, camera, cfg, cfg.seed, s, px, py,
+                                            tables=tables, with_stats=True)
                 total = total + rad.sum(dim=0)
                 rays = rays + n_rays
         return total, rays

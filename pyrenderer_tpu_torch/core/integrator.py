@@ -85,12 +85,12 @@ from pyrenderer_tpu_torch.accel.clusters import (
     ClusterChunks,
     build_chunked_clusters,
     build_clusters,
-    sort_keys,
 )
 from pyrenderer_tpu_torch.config import RenderConfig
 from pyrenderer_tpu_torch.core import intersect as isect
 from pyrenderer_tpu_torch.core import sampling
 from pyrenderer_tpu_torch.core import watertight as wt
+from pyrenderer_tpu_torch.core.bsdf import _dot
 from pyrenderer_tpu_torch.core.camera import generate_rays, morton_pixel_order
 from pyrenderer_tpu_torch.core.sampling import INV_PI
 from pyrenderer_tpu_torch.kernels import binned as binned_kernels
@@ -123,10 +123,6 @@ BACKENDS = ("cuda", "brute", "matmul", "watertight", "bvh") + CLUSTER_BACKENDS
 _NOT_PORTED = {
     "pallas": 'A4 (its port is backend "cuda")',
 }
-
-
-def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
 
 
 def accel_backend(device) -> str:
@@ -365,9 +361,8 @@ class TraceTables:
         return self.face_data.index_select(0, tri)
 
 
-def _closest(scene, tables, cfg, ro, rd, t1, sort=None):
-    """Closest-hit query of the tables' backend; `sort` overrides the
-    cluster sweep's coherence sort (the wavefront sort turns it off)."""
+def _closest(scene, tables, cfg, ro, rd, t1):
+    """Closest-hit query of the tables' backend."""
     with span("query"):
         b = tables.backend
         if b == "custom":
@@ -380,8 +375,7 @@ def _closest(scene, tables, cfg, ro, rd, t1, sort=None):
             fn = (cluster_kernels.closest_hit if b == "cluster"
                   else cluster_kernels.closest_hit_chunked)
             # exact_t=False: the trace re-derives the hit geometry from the face
-            return fn(tables.accel, ro, rd, cfg.t_min, t1,
-                      sort=tables.cluster_sort if sort is None else sort,
+            return fn(tables.accel, ro, rd, cfg.t_min, t1, sort=tables.cluster_sort,
                       watertight=tables.cluster_watertight, exact_t=False,
                       rounds=cfg.cluster_rounds, budget=cfg.cluster_budget)
         if b == "bvh":
@@ -396,7 +390,7 @@ def _closest(scene, tables, cfg, ro, rd, t1, sort=None):
         return isect.intersect_brute(scene, ro, rd, cfg.t_min, t1)
 
 
-def _any_hit(scene, tables, cfg, ro, rd, t1, sort=None):
+def _any_hit(scene, tables, cfg, ro, rd, t1):
     with span("query"):
         b = tables.backend
         if b == "custom":
@@ -408,8 +402,7 @@ def _any_hit(scene, tables, cfg, ro, rd, t1, sort=None):
         if b in ("cluster", "cluster_chunked"):
             fn = (cluster_kernels.occluded if b == "cluster"
                   else cluster_kernels.occluded_chunked)
-            return fn(tables.accel, ro, rd, cfg.t_min, t1,
-                      sort=tables.cluster_sort if sort is None else sort,
+            return fn(tables.accel, ro, rd, cfg.t_min, t1, sort=tables.cluster_sort,
                       watertight=tables.cluster_watertight)
         if b == "bvh":
             return bvh_mod.traverse(tables.accel, tables.bvh_v0, tables.bvh_e1, tables.bvh_e2,
@@ -449,24 +442,27 @@ def _sample_light_point(scene, tables, pixel_id, sample_id, bounce, seed, dtype)
     return p2, n2, em, pdf_a
 
 
-def use_wavefront_sort(tables: TraceTables) -> bool:
-    """True when the bounce loop sorts the whole wavefront state once per
-    bounce (PYRENDERER_WF_SORT=1, read at every trace) instead of letting
-    each cluster query sort its own rays: only on backend "cluster" with
-    its coherence sort on, as in the JAX package
-    (pyrenderer_tpu/core/integrator.py:481-501). On the TPU it measured
-    slower than the per-query sort; the default stays off."""
-    if os.environ.get("PYRENDERER_WF_SORT", "0") != "1":
-        return False
-    return tables.backend == "cluster" and tables.cluster_sort
+def _hit_geometry(row, ro, rd):
+    """Differentiable geometry of each ray's hit on its packed face row
+    (pack_face_data; the selection of the row is detached): (t, p, n_geo,
+    nrm), the distance, the hit point, the geometric normal with the
+    face's sign, and that normal turned to face the ray on one-sided
+    faces."""
+    v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+    sign = row[:, 12]
+    sided = row[:, 14] > 0.5
+    c_e1_d = torch.linalg.cross(e1, rd, dim=-1)
+    det = _dot(c_e1_d, e2)
+    safe_det = torch.where(det == 0, 1.0, det)
+    s = ro - v0
+    c_s_e2 = torch.linalg.cross(s, e2, dim=-1)
+    t = -_dot(c_s_e2, e1) / safe_det
+    p = ro + t[:, None] * rd
 
-
-def wavefront_sort_perm(accel, ro, rd, alive):
-    """(N,) permutation: live rays in coherence-key order
-    (accel/clusters.sort_keys), dead lanes last; stable, so rays of equal
-    keys keep their order from the bounce before."""
-    keys = torch.where(alive, sort_keys(accel, ro.detach(), rd.detach()), 0xFFFFFFFF)
-    return torch.argsort(keys, stable=True)
+    n_geo = sign[:, None] * sampling.safe_normalize(torch.linalg.cross(e1, e2, dim=-1))
+    flip = (~sided) & (_dot(n_geo, -rd) < 0)
+    nrm = torch.where(flip[:, None], -n_geo, n_geo)
+    return t, p, n_geo, nrm
 
 
 def trace_reference(
@@ -491,18 +487,13 @@ def trace_reference(
     Mrays/s numerator of bench.py; masked dead lanes are not counted
     although their work still happens.
 
-    Under use_wavefront_sort the whole state is re-sorted at the start of
-    each bounce: pixel and sample ids travel with their lanes (the RNG is
-    keyed on them, so each pixel's radiance is the same), and the radiance
-    is scattered back to the caller's lane order at the end.
-
     With collect_paths, returns (radiance, records) instead: each bounce's
     hit records (the debug log of debug/logger.py), a dict of detached
-    tensors stacked to (B, N, ...) in the caller's lane order: hit_point,
-    normal, wi, t, tri, hit (the closest hit of a lane alive before the
-    bounce), alive (after it), beta, radiance (running), nee_visible (the
-    shadow ray of a live lane unoccluded) and light_point. The radiance is
-    the one the call returns without them.
+    tensors stacked to (B, N, ...): hit_point, normal, wi, t, tri, hit (the
+    closest hit of a lane alive before the bounce), alive (after it), beta,
+    radiance (running), nee_visible (the shadow ray of a live lane
+    unoccluded) and light_point. The radiance is the one the call returns
+    without them.
     """
     check_supported(cfg)
     dtype = ro.dtype
@@ -511,54 +502,31 @@ def trace_reference(
     n = ro.shape[0]
     pixel_id = pixel_id.to(torch.int64).expand(n)
     light_color = tables.light_color
-    wf_sort = use_wavefront_sort(tables)
-    sort = False if wf_sort else None
 
     beta = torch.ones_like(ro)
     radiance = torch.zeros_like(ro)
     alive = torch.ones(n, dtype=torch.bool, device=ro.device)
     n_rays = torch.zeros((), dtype=torch.float32, device=ro.device)
     t_max = torch.full((), cfg.t_max, dtype=dtype, device=ro.device)
-    if wf_sort:
-        sample_id = torch.as_tensor(sample_id, device=ro.device).to(torch.int64).expand(n)
-        orig = torch.arange(n, device=ro.device)
     records = []
 
     for bounce in range(cfg.max_bounces):
         with span("bounce"):
-            if wf_sort:
-                perm = wavefront_sort_perm(tables.accel, ro, rd, alive)
-                ro, rd, beta, radiance, alive, pixel_id, sample_id, orig = (
-                    x[perm] for x in (ro, rd, beta, radiance, alive, pixel_id, sample_id, orig))
             alive_in = alive
             n_rays = n_rays + alive.sum(dtype=torch.float32)
 
             # dead lanes trace with t1 = 0: they can never hit, and every result
             # is masked by `alive` below anyway
             t_clip = torch.where(alive, t_max, 0.0)
-            hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip, sort=sort)
+            hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip)
             tri = torch.clamp(tri, min=0).to(torch.int64)
 
             # packed-row fetch, then differentiable re-evaluation of the selected
             # triangle's geometry (the selection itself is detached)
             row = tables.fetch_face(tri)
-            v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
             albedo = row[:, 9:12]
-            sign = row[:, 12]
             emissive = row[:, 13] > 0.5
-            sided = row[:, 14] > 0.5
-
-            c_e1_d = torch.linalg.cross(e1, rd, dim=-1)
-            det = _dot(c_e1_d, e2)
-            safe_det = torch.where(det == 0, 1.0, det)
-            s = ro - v0
-            c_s_e2 = torch.linalg.cross(s, e2, dim=-1)
-            t = -_dot(c_s_e2, e1) / safe_det
-            p = ro + t[:, None] * rd
-
-            n_geo = sign[:, None] * sampling.safe_normalize(torch.linalg.cross(e1, e2, dim=-1))
-            flip = (~sided) & (_dot(n_geo, -rd) < 0)
-            nrm = torch.where(flip[:, None], -n_geo, n_geo)
+            t, p, _, nrm = _hit_geometry(row, ro, rd)
 
             # emissive hit (reference tracing.py:129-139): hardcoded light color,
             # weight 1 at bounce 0, cos afterwards; the path terminates either way
@@ -596,7 +564,7 @@ def trace_reference(
             dist = torch.sqrt(dist_sq)
             w = to_light / dist[:, None]
             shadow_t1 = torch.where(alive, dist.detach() * (1.0 - cfg.shadow_eps), 0.0)
-            occ = _any_hit(scene, tables, cfg, p.detach(), w.detach(), shadow_t1, sort=sort)
+            occ = _any_hit(scene, tables, cfg, p.detach(), w.detach(), shadow_t1)
             n_rays = n_rays + alive.sum(dtype=torch.float32)
             dot1 = _dot(nrm, w)
             dot2 = _dot(n2, -w)
@@ -610,16 +578,8 @@ def trace_reference(
                 rec = dict(hit_point=p, normal=nrm, wi=wi, t=t, tri=tri, hit=hit & alive_in,
                            alive=alive, beta=beta, radiance=radiance,
                            nee_visible=(~occ) & alive, light_point=p2)
-                rec = {k: v.detach() for k, v in rec.items()}
-                if wf_sort:
-                    # this bounce's lanes are in its sorted order: scatter each
-                    # record back to the caller's lane order
-                    rec = {k: torch.zeros_like(v).index_put((orig,), v) for k, v in rec.items()}
-                records.append(rec)
+                records.append({k: v.detach() for k, v in rec.items()})
 
-    if wf_sort:
-        # lanes end in the last bounce's order; orig maps each back
-        radiance = torch.zeros_like(radiance).index_put((orig,), radiance)
     if collect_paths:
         return radiance, {k: torch.stack([r[k] for r in records]) for k in records[0]}
     if with_stats:
@@ -658,18 +618,24 @@ def render_sample(
                  with_stats=with_stats)
 
 
+def sample_sum(scene, camera, cfg: RenderConfig, seed: int, tables: TraceTables, sample_ids,
+               pixel_x, pixel_y):
+    """Sum of the radiance of the given samples of a block of pixels, in
+    their order."""
+    total = None
+    for s in sample_ids:
+        r = render_sample(scene, camera, cfg, seed, s, pixel_x, pixel_y, tables=tables)
+        total = r if total is None else total + r
+    return total
+
+
 def render_block(scene, camera, cfg: RenderConfig, seed: int, spp: int,
                  pixel_x, pixel_y, backend: str = "auto",
                  tables: TraceTables | None = None, accel=None):
     """Mean radiance over `spp` samples for a block of pixels."""
     if tables is None:
         tables = TraceTables(scene, cfg, backend, accel=accel)
-    total = torch.zeros((pixel_x.shape[0], 3), dtype=camera.iview.dtype,
-                        device=pixel_x.device)
-    for s in range(spp):
-        total = total + render_sample(scene, camera, cfg, seed, s, pixel_x,
-                                      pixel_y, tables=tables)
-    return total / spp
+    return sample_sum(scene, camera, cfg, seed, tables, range(spp), pixel_x, pixel_y) / spp
 
 
 def render_image(scene: Scene, camera: Camera, cfg: RenderConfig,

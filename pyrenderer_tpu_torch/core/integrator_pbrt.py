@@ -50,24 +50,20 @@ import torch
 from pyrenderer_tpu_torch import rng
 from pyrenderer_tpu_torch.config import RenderConfig
 from pyrenderer_tpu_torch.core import bsdf, sampling
+from pyrenderer_tpu_torch.core.bsdf import _dot
 from pyrenderer_tpu_torch.core.integrator import (
     TraceTables,
     _any_hit,
     _closest,
+    _hit_geometry,
     _sample_light_point,
     check_supported,
-    use_wavefront_sort,
-    wavefront_sort_perm,
 )
 from pyrenderer_tpu_torch.core.sampling import INV_PI
 from pyrenderer_tpu_torch.kernels import build
 from pyrenderer_tpu_torch.kernels import pbrt as pbrt_kernels
 from pyrenderer_tpu_torch.scene.types import MAT_LAMBERT, MAT_METAL, Scene
 from pyrenderer_tpu_torch.utils.profiling import span
-
-
-def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
 
 
 def trace_pbrt(
@@ -87,9 +83,7 @@ def trace_pbrt(
     Arguments and the with_stats count as trace_reference: live
     closest-hit rays plus one shadow ray per live lane and bounce (the JAX
     estimator's count, which includes lanes that need no shadow test).
-    The wavefront sort (use_wavefront_sort) permutes this loop's state as
-    trace_reference's, prev_pdf and prev_spec included. Where
-    use_bounce_kernels holds, the bounce runs as the CUDA kernels of
+    Where use_bounce_kernels holds, the bounce runs as the CUDA kernels of
     kernels/pbrt.py instead (_trace_kernels)."""
     check_supported(cfg)
     dtype = ro.dtype
@@ -107,32 +101,19 @@ def trace_pbrt(
     prev_spec = torch.zeros(n, dtype=torch.bool, device=ro.device)
     n_rays = torch.zeros((), dtype=torch.float32, device=ro.device)
     t_max = torch.full((), cfg.t_max, dtype=dtype, device=ro.device)
-    wf_sort = use_wavefront_sort(tables)
-    sort = False if wf_sort else None
-    if wf_sort:
-        sample_id = torch.as_tensor(sample_id, device=ro.device).to(torch.int64).expand(n)
-        orig = torch.arange(n, device=ro.device)
 
     for bounce in range(cfg.max_bounces):
         with span("bounce"):
-            if wf_sort:
-                perm = wavefront_sort_perm(tables.accel, ro, rd, alive)
-                (ro, rd, beta, radiance, alive, prev_pdf, prev_spec, pixel_id, sample_id,
-                 orig) = (x[perm] for x in (ro, rd, beta, radiance, alive, prev_pdf, prev_spec,
-                                             pixel_id, sample_id, orig))
             n_rays = n_rays + alive.sum(dtype=torch.float32)
 
             # dead lanes trace a zero interval, as in trace_reference
             t_clip = torch.where(alive, t_max, 0.0)
-            hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip, sort=sort)
+            hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip)
             tri = torch.clamp(tri, min=0).to(torch.int64)
 
             row = tables.fetch_face(tri)
-            v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
             albedo = row[:, 9:12]
-            sign = row[:, 12]
             emissive = row[:, 13] > 0.5
-            sided = row[:, 14] > 0.5
             mat_type = row[:, 15].to(torch.int64)
             emission = row[:, 16:19]
             ior = row[:, 19]
@@ -140,15 +121,7 @@ def trace_pbrt(
             hit_pdf_a = row[:, 21]
 
             # differentiable hit geometry (the selection is detached)
-            det = _dot(torch.linalg.cross(e1, rd, dim=-1), e2)
-            safe_det = torch.where(det == 0, 1.0, det)
-            s = ro - v0
-            t = -_dot(torch.linalg.cross(s, e2, dim=-1), e1) / safe_det
-            p = ro + t[:, None] * rd
-
-            n_geo = sign[:, None] * sampling.safe_normalize(torch.linalg.cross(e1, e2, dim=-1))
-            flip = (~sided) & (_dot(n_geo, -rd) < 0)
-            nrm = torch.where(flip[:, None], -n_geo, n_geo)
+            t, p, n_geo, nrm = _hit_geometry(row, ro, rd)
 
             # ---- emission with MIS against the light sampler ----
             cos_l = _dot(-rd, nrm)
@@ -178,7 +151,7 @@ def trace_pbrt(
                 cos_light = _dot(n2, -wl)
                 nee_candidate = alive & is_lambert & (cos_surf > 0) & (cos_light > 0)
                 shadow_t1 = torch.where(nee_candidate, dist.detach() * (1.0 - cfg.shadow_eps), 0.0)
-                occ = _any_hit(scene, tables, cfg, p.detach(), wl.detach(), shadow_t1, sort=sort)
+                occ = _any_hit(scene, tables, cfg, p.detach(), wl.detach(), shadow_t1)
                 n_rays = n_rays + alive.sum(dtype=torch.float32)
                 pdf_nee_sa = pdf_a * dist_sq / sampling.maximum(cos_light, 1e-6)
                 w_nee = bsdf.power_heuristic(pdf_nee_sa, bsdf.lambert_pdf(nrm, wl))
@@ -229,8 +202,6 @@ def trace_pbrt(
             ro = torch.where(alive[:, None], p, ro)
             rd = torch.where(alive[:, None], wi, rd)
 
-    if wf_sort:
-        radiance = torch.zeros_like(radiance).index_put((orig,), radiance)
     if with_stats:
         return radiance, n_rays
     return radiance
@@ -249,40 +220,29 @@ def use_bounce_kernels(ro, rd, tables: TraceTables) -> bool:
 def _trace_kernels(scene, cfg, ro, rd, pixel_id, sample_id, seed, tables, with_stats):
     """trace_pbrt on the kernels' path: each bounce the closest query, the
     hit kernel, the any-hit query and the scatter kernel, on a Wavefront
-    that they update in place; the queries, the wavefront sort and the
-    result as the eager loop has them."""
+    that they update in place; the queries and the result as the eager
+    loop has them."""
     wf = pbrt_kernels.Wavefront.start(ro, rd, pixel_id, sample_id, cfg.t_max)
-    wf_sort = use_wavefront_sort(tables)
-    sort = False if wf_sort else None
-    if wf_sort:
-        orig = torch.arange(ro.shape[0], device=ro.device)
     for bounce in range(cfg.max_bounces):
         with span("bounce"):
-            if wf_sort:
-                perm = wavefront_sort_perm(tables.accel, wf.ro, wf.rd, wf.alive)
-                wf.permute(perm)
-                orig = orig[perm]
-            faces = _bounce_hit(scene, tables, cfg, wf, bounce, seed, sort)
+            faces = _bounce_hit(scene, tables, cfg, wf, bounce, seed)
             with span("nee"):
-                occ = _any_hit(scene, tables, cfg, wf.s_ro, wf.s_rd, wf.s_t1, sort=sort)
+                occ = _any_hit(scene, tables, cfg, wf.s_ro, wf.s_rd, wf.s_t1)
             with span("scatter"):
                 pbrt_kernels.scatter(wf, seed, bounce, rng._default_rounds(), *faces,
                                      occ.contiguous(), bounce >= cfg.russian_roulette_start,
                                      cfg.t_max)
-    radiance = wf.radiance
-    if wf_sort:
-        radiance = torch.zeros_like(radiance).index_put((orig,), radiance)
     if with_stats:
-        return radiance, wf.n_rays
-    return radiance
+        return wf.radiance, wf.n_rays
+    return wf.radiance
 
 
-def _bounce_hit(scene, tables, cfg, wf, bounce, seed, sort):
+def _bounce_hit(scene, tables, cfg, wf, bounce, seed):
     """The closest query of `wf`'s rays and the hit kernel of bounce
     `bounce`; returns the face operands (tri, rows, gather) the scatter
     kernel takes: the face table gathered by the hit ids, or the rows
     tables.fetch_face_fn returns for them."""
-    hit, _, tri = _closest(scene, tables, cfg, wf.ro, wf.rd, wf.t1, sort=sort)
+    hit, _, tri = _closest(scene, tables, cfg, wf.ro, wf.rd, wf.t1)
     tri = tri.contiguous()
     if tables.fetch_face_fn is None:
         rows, gather = tables.face_data, True

@@ -33,8 +33,9 @@ from pyrenderer_tpu_torch.config import RenderConfig
 from pyrenderer_tpu_torch.core.integrator import (
     TraceTables,
     maybe_build_accel,
-    render_sample,
+    render_block,
     resolve_backend,
+    sample_sum,
 )
 from pyrenderer_tpu_torch.scene.types import Camera, Scene
 from pyrenderer_tpu_torch.utils.profiling import span
@@ -175,15 +176,6 @@ def pixel_grid(camera: Camera):
     return xs.reshape(-1), ys.reshape(-1)
 
 
-def _sample_sum(scene, camera, cfg, tables, sample_ids, pixel_x, pixel_y):
-    """Sum of the radiance of the given samples, in their order."""
-    total = None
-    for s in sample_ids:
-        r = render_sample(scene, camera, cfg, cfg.seed, s, pixel_x, pixel_y, tables=tables)
-        total = r if total is None else total + r
-    return total
-
-
 def render_field(scene: Scene, camera: Camera, cfg: RenderConfig, pixel_x, pixel_y,
                  accel=None):
     """Mean radiance (N, 3) over cfg.spp samples for the given pixels.
@@ -197,7 +189,7 @@ def render_field(scene: Scene, camera: Camera, cfg: RenderConfig, pixel_x, pixel
     binned path under that variable."""
     backend = resolve_backend("auto", scene.faces.shape[0], scene.vertices.device, accel)
     tables = TraceTables(scene, cfg, backend, accel=accel)
-    return _sample_sum(scene, camera, cfg, tables, range(cfg.spp), pixel_x, pixel_y) / cfg.spp
+    return render_block(scene, camera, cfg, cfg.seed, cfg.spp, pixel_x, pixel_y, tables=tables)
 
 
 def _mesh_tables(scene: Scene, cfg: RenderConfig, accel):
@@ -220,8 +212,8 @@ def _sharded_chunk(scene, camera, cfg, mesh, tables, pixel_x, pixel_y):
     sp = axis_size(mesh, "sp")
     local_spp = cfg.spp // sp
     first = axis_index(mesh, "sp") * local_spp
-    local = _sample_sum(scene, camera, cfg, tables, range(first, first + local_spp),
-                        pixel_x, pixel_y)
+    local = sample_sum(scene, camera, cfg, cfg.seed, tables, range(first, first + local_spp),
+                       pixel_x, pixel_y)
     return psum(local, mesh.get_group("sp"), sum_grads=False) / cfg.spp
 
 

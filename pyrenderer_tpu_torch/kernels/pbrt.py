@@ -94,10 +94,6 @@ class Wavefront:
     nee: torch.Tensor
     flags: torch.Tensor
 
-    # the fields a wavefront sort permutes: the rest is rewritten every bounce
-    STATE = ("ro", "rd", "beta", "radiance", "alive", "prev_pdf", "prev_spec", "t1", "pixel",
-             "sample")
-
     @classmethod
     def start(cls, ro, rd, pixel, sample, t_max: float) -> "Wavefront":
         """A fresh wavefront on copies of the rays ro, rd (N, 3): beta 1,
@@ -127,13 +123,6 @@ class Wavefront:
             n_rays=torch.zeros((), dtype=torch.float32, device=dev),
             s_ro=empty3(), s_rd=empty3(), s_t1=torch.empty(n, dtype=torch.float32, device=dev),
             nrm=empty3(), nee=empty3(), flags=torch.empty(n, dtype=torch.uint8, device=dev))
-
-    def permute(self, perm) -> None:
-        """Reorder the lanes' state by `perm` (the wavefront sort)."""
-        for name in self.STATE:
-            x = getattr(self, name)
-            if x is not None:
-                setattr(self, name, x[perm])
 
     def _operands(self, seed: int, bounce: int, rounds: int):
         """The counter's arguments of both C entry points and the checks of

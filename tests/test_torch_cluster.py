@@ -534,27 +534,38 @@ def test_progressive_renderer_builds_accel_and_matches_render_image(terrain, bac
     np.testing.assert_allclose(film.hdr, img, rtol=1e-6, atol=1e-7)
 
 
-def test_wavefront_sort_optin_matches_default(terrain, monkeypatch):
-    """PYRENDERER_WF_SORT=1 (the whole wavefront state sorted once per
-    bounce, tests/test_cluster.py:349-380) gives each pixel the radiance of
-    the default per-query path, both estimators; it applies only to the
-    sorted "cluster" backend."""
+def test_cluster_sort_is_invisible_in_the_image(terrain, monkeypatch):
+    """The per-query coherence sort (cluster_sort=True: each cluster query
+    sorts its rays and scatters the results back) gives every pixel the
+    radiance of cluster_sort=False on one ClusterScene, bit for bit, both
+    estimators. Two suspend/resume rounds put the closest-hit query through
+    the sorted operands on the CPU too; the sort is seen to reorder rays."""
     host, camera = terrain
     scene, cam = to_device(host, camera._replace(resolution=(24, 24)), "cpu")
-    cfg = CFG.replace(spp=2, max_bounces=3, cluster_sort=True)
+    cfg = CFG.replace(spp=2, max_bounces=3, cluster_rounds=2, cluster_budget=2)
     accel = cl.build_clusters(host.vertices, host.faces)
+    perms = []
+    prepare = kc._prepare
+
+    def recording_prepare(*args):
+        rays, perm = prepare(*args)
+        perms.append(perm)
+        return rays, perm
+
+    monkeypatch.setattr(kc, "_prepare", recording_prepare)
     for estimator in ("reference", "pbrt"):
-        c = cfg.replace(estimator=estimator)
-        monkeypatch.delenv("PYRENDERER_WF_SORT", raising=False)
-        img = integ.render_image(scene, cam, c, backend="cluster", accel=accel)
-        assert not integ.use_wavefront_sort(integ.TraceTables(scene, c, "cluster", accel))
-        monkeypatch.setenv("PYRENDERER_WF_SORT", "1")
-        assert integ.use_wavefront_sort(integ.TraceTables(scene, c, "cluster", accel))
-        assert not integ.use_wavefront_sort(integ.TraceTables(
-            scene, c.replace(cluster_sort=False), "cluster", accel))
-        img_wf = integ.render_image(scene, cam, c, backend="cluster", accel=accel)
-        assert img.max() > 0
-        torch.testing.assert_close(img_wf, img, rtol=1e-5, atol=1e-7)
+        imgs = {}
+        for sort in (True, False):
+            c = cfg.replace(estimator=estimator, cluster_sort=sort)
+            tables = integ.TraceTables(scene, c, "cluster", accel)
+            assert tables.cluster_sort is sort
+            perms.clear()
+            imgs[sort] = integ.render_image(scene, cam, c, backend="cluster", accel=accel)
+            moved = [p for p in perms if p is not None and not torch.equal(
+                p, torch.arange(p.shape[0]))]
+            assert bool(moved) is sort and len(perms) == 2 * c.max_bounces
+        assert imgs[False].max() > 0
+        assert torch.equal(imgs[True], imgs[False])
 
 
 def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):

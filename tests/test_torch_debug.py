@@ -1,6 +1,6 @@
 """pyrenderer_tpu_torch/debug/logger.py, the ray-path records: the tests of
 tests/test_debug.py on the port, then parity with the JAX package's
-log_paths, the .npz layout, the records under the wavefront sort and the
+log_paths, the .npz layout, the records under the coherence sort and the
 CLI's --debug-paths."""
 
 import dataclasses
@@ -199,35 +199,41 @@ def test_collect_paths_leaves_radiance_unchanged(cornell64):
     assert all(v.shape[:2] == (CFG.max_bounces, 300) for v in records.values())
 
 
-def test_cluster_records_under_wavefront_sort(monkeypatch):
+def test_cluster_records_same_under_the_coherence_sort(monkeypatch):
     """log_paths with backend "cluster" on a procgen terrain (2,060
-    triangles) with cluster_sort=True: with PYRENDERER_WF_SORT=1 the
-    wavefront is re-sorted every bounce and the records are scattered back
-    to the caller's lane order; they equal those of PYRENDERER_WF_SORT=0,
-    every record bit for bit."""
+    triangles): the records with cluster_sort=True (each cluster query
+    sorts its rays and scatters the results back) equal those with
+    cluster_sort=False, every record bit for bit. Two suspend/resume rounds
+    put the closest-hit query through the sorted operands on the CPU too;
+    the sort is seen to reorder rays."""
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+
     host, camera, _ = build_scene(procgen.big_scene_data("terrain", res=32))
     scene, cam = to_device(host, camera._replace(resolution=(32, 32)), "cpu")
     ys, xs = np.mgrid[0:32, 0:32]
-    cfg = RenderConfig(max_bounces=3, seed=3, cluster_sort=True)
+    cfg = RenderConfig(max_bounces=3, seed=3, cluster_rounds=2, cluster_budget=2)
     perms = []
-    sort_perm = integ.wavefront_sort_perm
+    prepare = kc._prepare
 
-    def recording_perm(*args):
-        perms.append(sort_perm(*args))
-        return perms[-1]
+    def recording_prepare(*args):
+        rays, perm = prepare(*args)
+        perms.append(perm)
+        return rays, perm
 
-    monkeypatch.setattr(integ, "wavefront_sort_perm", recording_perm)
+    monkeypatch.setattr(kc, "_prepare", recording_prepare)
     logs = {}
-    for wf in ("0", "1"):
-        monkeypatch.setenv("PYRENDERER_WF_SORT", wf)
-        logs[wf] = dataclasses.asdict(
-            log_paths(scene, cam, cfg, xs.reshape(-1), ys.reshape(-1), backend="cluster"))
-    assert len(perms) == cfg.max_bounces
+    for sort in (False, True):
+        perms.clear()
+        logs[sort] = dataclasses.asdict(log_paths(
+            scene, cam, cfg.replace(cluster_sort=sort), xs.reshape(-1), ys.reshape(-1),
+            backend="cluster"))
+        assert len(perms) == cfg.max_bounces
+        assert all((p is not None) is sort for p in perms)
     assert not torch.equal(perms[0], torch.arange(32 * 32))
     # measured: 40%, 34% and 28% of the rays hit at bounces 0-2
-    assert logs["0"]["hit"][-1].mean() > 0.2 and logs["0"]["nee_visible"][-1].any()
-    for k, v in logs["0"].items():
-        np.testing.assert_array_equal(logs["1"][k], v, err_msg=k)
+    assert logs[False]["hit"][-1].mean() > 0.2 and logs[False]["nee_visible"][-1].any()
+    for k, v in logs[False].items():
+        np.testing.assert_array_equal(logs[True][k], v, err_msg=k)
 
 
 def test_cli_debug_paths(cornell_path, tmp_path, capsys):

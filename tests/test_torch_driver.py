@@ -123,22 +123,33 @@ def test_adaptive_run_matches_jax(cornell):
     assert (spp == film_jax.spp_map).mean() >= PIXEL_AGREEMENT
 
 
-@pytest.mark.parametrize("backend, estimator, wf_sort", [
-    ("brute", "reference", "0"), ("matmul", "pbrt", "0"), ("cuda", "reference", "0"),
-    ("cluster", "reference", "1"), ("cluster", "pbrt", "1")])
-def test_per_pixel_sample_ids(cornell, monkeypatch, backend, estimator, wf_sort):
+@pytest.mark.parametrize("backend, estimator", [
+    ("brute", "reference"), ("matmul", "pbrt"), ("cuda", "reference"),
+    ("cluster", "reference"), ("cluster", "pbrt")])
+def test_per_pixel_sample_ids(cornell, monkeypatch, backend, estimator):
     """render_sample with an (N,) tensor of per-pixel sample ids (the
     adaptive sweeps) gives each pixel, bit for bit, its radiance at its own
-    id, on each backend path; "cluster" with its coherence sort and
-    PYRENDERER_WF_SORT=1, where the ids travel with their sorted lanes."""
+    id, on each backend path; "cluster" with its coherence sort, in two
+    suspend/resume rounds so that the closest-hit query runs its sorted
+    operands on the CPU too."""
     from pyrenderer_tpu_torch.core import integrator as integ
+    from pyrenderer_tpu_torch.kernels import cluster as kc
 
-    monkeypatch.setenv("PYRENDERER_WF_SORT", wf_sort)
     _, _, scene, cam = cornell
     cam = cam._replace(resolution=(8, 8))
-    cfg = RenderConfig(max_bounces=3, spp=4, seed=2, estimator=estimator, cluster_sort=True)
+    rounds = {"cluster_rounds": 2, "cluster_budget": 2} if backend == "cluster" else {}
+    cfg = RenderConfig(max_bounces=3, spp=4, seed=2, estimator=estimator, cluster_sort=True,
+                       **rounds)
     tables = integ.TraceTables(scene, cfg, backend)
-    assert integ.use_wavefront_sort(tables) == (wf_sort == "1")
+    perms = []
+    prepare = kc._prepare
+
+    def recording_prepare(*args):
+        rays, perm = prepare(*args)
+        perms.append(perm)
+        return rays, perm
+
+    monkeypatch.setattr(kc, "_prepare", recording_prepare)
     px = torch.arange(64) % 8
     py = torch.arange(64) // 8
     ids = torch.as_tensor(np.random.RandomState(0).randint(0, 4, 64))
@@ -148,6 +159,7 @@ def test_per_pixel_sample_ids(cornell, monkeypatch, backend, estimator, wf_sort)
     got = integ.render_sample(scene, cam, cfg, cfg.seed, ids, px, py, tables=tables)
     assert got.abs().sum() > 0
     assert torch.equal(got, expect)
+    assert all(p is not None for p in perms) and bool(perms) is (backend == "cluster")
 
 
 def _small(cornell, **kw):

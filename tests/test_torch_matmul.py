@@ -230,8 +230,8 @@ def test_frame_decisions_against_brute(cornell_path, monkeypatch, capsys):
     counts = dict(rays=0, hit=0, material=0, shadow_rays=0, occluded=0)
     closest, any_hit = integ._closest, integ._any_hit
 
-    def both_closest(scene, tables, cfg, ro, rd, t1, sort=None):
-        hit, t, tri = closest(scene, tables, cfg, ro, rd, t1, sort)
+    def both_closest(scene, tables, cfg, ro, rd, t1):
+        hit, t, tri = closest(scene, tables, cfg, ro, rd, t1)
         hit_m, _, tri_m = isect.intersect_matmul(scene, ro, rd, cfg.t_min, t1, w)
         live, mat = t1 > 0, scene.face_material
         counts["rays"] += int(live.sum())
@@ -239,8 +239,8 @@ def test_frame_decisions_against_brute(cornell_path, monkeypatch, capsys):
         counts["material"] += int((live & hit & hit_m & (mat[tri.long()] != mat[tri_m.long()])).sum())
         return hit, t, tri
 
-    def both_any_hit(scene, tables, cfg, ro, rd, t1, sort=None):
-        occ = any_hit(scene, tables, cfg, ro, rd, t1, sort)
+    def both_any_hit(scene, tables, cfg, ro, rd, t1):
+        occ = any_hit(scene, tables, cfg, ro, rd, t1)
         live = t1 > 0
         counts["shadow_rays"] += int(live.sum())
         counts["occluded"] += int((occ != isect.occluded_matmul(scene, ro, rd, cfg.t_min, t1,

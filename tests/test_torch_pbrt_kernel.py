@@ -285,14 +285,14 @@ def _custom_tables(scene, cfg):
 
 
 CASES = [
-    # (name, metal_glass, backend, wavefront sort, sample)
-    ("cornell", False, "brute", False, 3),
-    ("cornell_lane_samples", False, "brute", False, "lanes"),
-    ("metal_glass", True, "brute", False, 2**20 - 1),
-    ("metal_glass_lane_samples", True, "brute", False, "lanes"),
-    ("fetch_face_fn", True, "custom", False, 5),
-    ("wavefront_sort", True, "cluster", True, 6),
-    ("wavefront_sort_lane_samples", False, "cluster", True, "lanes"),
+    # (name, metal_glass, backend, sample)
+    ("cornell", False, "brute", 3),
+    ("cornell_lane_samples", False, "brute", "lanes"),
+    ("metal_glass", True, "brute", 2**20 - 1),
+    ("metal_glass_lane_samples", True, "brute", "lanes"),
+    ("fetch_face_fn", True, "custom", 5),
+    ("cluster_sorted", True, "cluster", 6),
+    ("cluster_sorted_lane_samples", False, "cluster", "lanes"),
 ]
 
 
@@ -303,20 +303,34 @@ def test_kernel_operands_on_an_emulated_launch(case, monkeypatch):
     kernels' path equals the eager loop bit for bit (radiance and rays
     traced) on lambert, metal and glass, int and per-lane sample ids, the
     face table gathered by the hit ids or a fetch function's rows, and the
-    wavefront sort; two launches a bounce, each counted by its wrapper and
-    as one pbrt_kernel, and the spans `bounce`, `nee` and `scatter` with
-    the queries under the first two."""
-    _, metal_glass, backend, wf_sort, sample = case
-    monkeypatch.setenv("PYRENDERER_WF_SORT", "1" if wf_sort else "0")
+    cluster backend with its per-query coherence sort (two suspend/resume
+    rounds, so that the closest-hit query runs its sorted operands on the
+    CPU too); two launches a bounce, each counted by its wrapper and as one
+    pbrt_kernel, and the spans `bounce`, `nee` and `scatter` with the
+    queries under the first two."""
+    from pyrenderer_tpu_torch.kernels import cluster as kc
+
+    _, metal_glass, backend, sample = case
     monkeypatch.setenv("PYRENDERER_TF_ROUNDS", "13")
+    rounds = {"cluster_rounds": 2, "cluster_budget": 2} if backend == "cluster" else {}
     cfg = RenderConfig(max_bounces=7, seed=2**31 + 9, estimator="pbrt",
-                       russian_roulette_start=3, cluster_sort=True)
+                       russian_roulette_start=3, cluster_sort=True, **rounds)
     scene, pixel, sample, ro, rd = _wavefront(*_cornell(metal_glass), 12, "cpu", sample, cfg.seed)
     tables = (_custom_tables(scene, cfg) if backend == "custom"
               else integ.TraceTables(scene, cfg, backend))
-    assert ip.use_wavefront_sort(tables) is wf_sort
+    perms = []
+    prepare = kc._prepare
+
+    def recording_prepare(*args):
+        rays, perm = prepare(*args)
+        perms.append(perm)
+        return rays, perm
+
+    monkeypatch.setattr(kc, "_prepare", recording_prepare)
     want, want_rays = ip.trace_pbrt(scene, cfg, ro, rd, pixel, sample, cfg.seed,
                                     tables=tables, with_stats=True)
+    if backend == "cluster":
+        assert tables.cluster_sort and perms and all(p is not None for p in perms)
     calls = []
     _to_the_kernels(monkeypatch, calls)
     pk.reset_counters()
@@ -473,11 +487,11 @@ def _eager_states(monkeypatch, scene, cfg, ro, rd, pixel, sample, tables):
                                                   "prev_pdf", "prev_spec")})
         return closest(*args, **kw)
 
-    def spy_any_hit(scene_, tables_, cfg_, p, wl, t1, sort=None):
+    def spy_any_hit(scene_, tables_, cfg_, p, wl, t1):
         f = sys._getframe(1).f_locals
         shadows.append({"s_ro": p.clone(), "s_rd": wl.clone(), "s_t1": t1.clone(),
                         "alive": f["alive"].clone()})
-        return any_hit(scene_, tables_, cfg_, p, wl, t1, sort=sort)
+        return any_hit(scene_, tables_, cfg_, p, wl, t1)
 
     with monkeypatch.context() as m:
         m.setattr(ip, "use_bounce_kernels", lambda *a: False)
@@ -494,7 +508,7 @@ def _fused_bounce(scene, cfg, tables, state, pixel, sample, bounce):
     for k in ("beta", "radiance", "alive", "prev_pdf", "prev_spec"):
         getattr(wf, k).copy_(state[k])
     wf.t1.copy_(torch.where(wf.alive, cfg.t_max, 0.0))
-    faces = ip._bounce_hit(scene, tables, cfg, wf, bounce, cfg.seed, None)
+    faces = ip._bounce_hit(scene, tables, cfg, wf, bounce, cfg.seed)
     shadow = {"s_ro": wf.s_ro.clone(), "s_rd": wf.s_rd.clone(), "s_t1": wf.s_t1.clone()}
     occ = ip._any_hit(scene, tables, cfg, wf.s_ro, wf.s_rd, wf.s_t1)
     pk.scatter(wf, cfg.seed, bounce, rng._default_rounds(), *faces, occ,
