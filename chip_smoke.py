@@ -21,7 +21,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. The Cornell path through the CLI entry point: reference estimator,
    1024x1024, 4 bounces, 16 spp on cuda:0. Checks the PNG and EXR, a finite
    HDR, exactly 16 passes x 16 chunks x 4 bounces launches of each
-   whole-table kernel, and no call of a plain twin.
+   whole-table kernel and of each reference bounce kernel, and no call of
+   a plain twin.
 4. GPU against CPU: render_image at 64x64 (2 spp, 4 bounces, seed 3) on the
    card and with the CPU twins; then the mean radiance at 160x160
    (32 spp, 8 bounces, seed 1) against the JAX package's CPU value.
@@ -45,8 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    reference estimator, 512x512, 4 spp, 4 bounces, chunks of 2^16,
    cluster_sort and cluster_watertight on "auto" (both resolve to on).
    Checks a finite HDR, exactly 4 passes x 4 chunks x 4 bounces launches of
-   each cluster kernel, no twin call and no whole-table launch; prints
-   Mrays/s.
+   each cluster kernel and of each reference bounce kernel, no twin call
+   and no whole-table launch; prints Mrays/s.
 8. GPU against references: the terrain8k image (32x32, 2 spp) on the card
    and with the CPU twins, with MT and with watertight leaves; the
    terrain100k mean radiance (32x32, 2 spp, 4 bounces, seed 0) against the
@@ -290,7 +291,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    both estimators), microbench and ablate (2^20 rays), glue2 (262,144
    rays, fetch tables of 8,204 and 100,364 rows, terrain res 64) and
    binnedglue (terrain100k). Every row has a finite, positive eager ms; the
-   launches of one call are exact (4 of each of B1 and B2 in a trace, one
+   launches of one call are exact (4 of each of B1, B2 and the estimator's
+   two bounce kernels in a trace, one
    of each in kernel_pair, one B3 in wrap_full and wrap_bare, one of each
    binned kernel in its row, the streamed core's as its rounds through the
    twins count them, one Threefry launch a draw, none where a stage has no
@@ -321,15 +323,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    mean over its 256 launches and over the bounce-0 launches, whose lanes
    are all live) beside the eager bounce's time a bounce and its bound
    (the bytes a live lane reads and writes, each once).
+37. The reference bounce's kernels (csrc/reference.cu) against the eager
+   bounce, their plain twin, on the card: whole films, each a counting
+   window, of Cornell 1024x1024 (2 spp, 4 bounces, B1/B2) and of phase 7's
+   terrain100k frame (B3/B4 behind the cluster queries), on the kernels'
+   path (exactly one launch of each kernel a chunk-bounce and only the
+   camera's Threefry launches) and on the eager loop (the light color a
+   leaf that requires grad under grad mode: the eager bounce's draws, no
+   kernel launch), bit for bit equal; a 1-bounce trace of 2^16 Cornell
+   lanes on both paths (wall, in turns); each kernel's device time a
+   launch over a 1024x1024 Cornell pass of 4 bounces (torch.profiler, the
+   mean over its 64 launches and over the bounce-0 launches, whose lanes
+   are all live) beside its bound (the bytes a live lane reads and
+   writes, each once).
 
 Wherever a phase counts launches exactly, the Threefry kernel's are among
-them: one launch a draw of the counter RNG, draws() a chunk-trace (2 + 3
-a bounce for the reference estimator; for pbrt on the bounce kernels' path
-only the camera's 2, the kernels drawing their own; the eager pbrt bounce,
-under autograd, 2 + 4 a bounce and one more a bounce from the roulette's
-start), the analytic tracer's 1 + 4 a bounce, a harness row's own draws.
-Where the pbrt bounce runs on the kernels' path, each chunk-bounce is one
-launch of each of pbrt_hit and pbrt_scatter (pbrt_launches()).
+them: one launch a draw of the counter RNG, draws() a chunk-trace (on
+either estimator's bounce kernels' path only the camera's 2, the kernels
+drawing their own; the eager reference bounce, under autograd or with the
+debug records, 2 + 3 a bounce; the eager pbrt bounce, under autograd,
+2 + 4 a bounce and one more a bounce from the roulette's start), the
+analytic tracer's 1 + 4 a bounce, a harness row's own draws. Where a
+bounce runs on the kernels' path, each chunk-bounce is one launch of each
+of pbrt_hit and pbrt_scatter (pbrt_launches()) or of reference_hit and
+reference_nee (reference_launches()).
 
 Every main-path run above (the frames of phases 3, 7, 11, 14, 17-21,
 24-25, 27 and 30-33, the CLI runs, the bench rows, the harness, the gradient and
@@ -428,6 +445,15 @@ PEAK_INT32 = PEAK_FP32 / 2
 # (1, 4, 1, 4). The face and light tables are read once a launch.
 PBRT_HIT_BYTES = 12 * 3 + 1 + 4 + 1 + 4 + 1 + 12 + 12 + 12 + 12 + 4 + 12 + 12 + 1 + 1
 PBRT_SCATTER_BYTES = 3 + 12 * 6 + 4 + 12 * 4 + 1 + 4 + 1 + 4
+# bytes a live lane reads and writes in each reference bounce kernel
+# (csrc/reference.cu), each once: reference_hit reads ro, rd, beta,
+# radiance (12 each), hit, tri, alive (1, 4, 1), and writes ro, rd, beta,
+# radiance (12 each), the shadow ray (12, 12, 4), nee (12), t1 (4), alive
+# and flags (1 each); reference_nee reads flags, occ (1 each), nee and
+# radiance (12 each) and writes radiance (12). The face and light tables
+# are read once a launch.
+REF_HIT_BYTES = 12 * 4 + 1 + 4 + 1 + 12 * 4 + 12 + 12 + 4 + 12 + 4 + 1 + 1
+REF_NEE_BYTES = 1 + 1 + 12 + 12 + 12
 # int32 operations of one Threefry-2x32 lane at 20 rounds (csrc/rng.cu):
 # an add, a funnel shift and a xor a round, three adds at each of the five
 # key injections, the counter's shifts and ors, the key's xors and the
@@ -472,6 +498,11 @@ KERNELS = {
                  "none (pyrenderer_tpu/core/integrator_pbrt.py is jnp ops)"),
     "pbrt_scatter": ("pyrenderer_tpu_torch/csrc/pbrt.cu",
                      "none (pyrenderer_tpu/core/integrator_pbrt.py is jnp ops)"),
+    # the reference bounce, one row a kernel: no Pallas kernel either
+    "reference_hit": ("pyrenderer_tpu_torch/csrc/reference.cu",
+                      "none (pyrenderer_tpu/core/integrator.py trace_reference is jnp ops)"),
+    "reference_nee": ("pyrenderer_tpu_torch/csrc/reference.cu",
+                      "none (pyrenderer_tpu/core/integrator.py trace_reference is jnp ops)"),
 }
 
 
@@ -487,29 +518,37 @@ TALLY = collections.Counter()
 def draws(traces, depth=4, estimator="reference"):
     """The Threefry evaluations (on the card, launches of csrc/rng.cu) of
     `traces` chunk-traces at `depth` bounces in a scene of one light (every
-    scene of this script): the camera's pixel and lens pairs, then each
-    bounce's BSDF pair and the light's face and point. With "pbrt" (the
-    bounce kernels' path: a float32 trace with no gradient) the camera's
-    alone: the kernels draw the bounce's. With "pbrt_eager" (the eager
-    pbrt bounce, under autograd) the reference's, the BSDF's third draw and,
-    from russian_roulette_start (4) on, the roulette's."""
-    if estimator == "pbrt":
+    scene of this script). With "reference" or "pbrt" (the bounce kernels'
+    path: a float32 trace with no gradient) the camera's pixel and lens
+    pairs alone: the kernels draw the bounce's. With "reference_eager" (the
+    eager reference bounce: under autograd, or with the debug records) the
+    camera's, then each bounce's BSDF pair and the light's face and point;
+    with "pbrt_eager" (the eager pbrt bounce, under autograd) those, the
+    BSDF's third draw and, from russian_roulette_start (4) on, the
+    roulette's."""
+    if estimator in ("reference", "pbrt"):
         return traces * 2
-    per_bounce = 3 if estimator == "reference" else 4
+    per_bounce = 3 if estimator == "reference_eager" else 4
     roulette = max(0, depth - 4) if estimator == "pbrt_eager" else 0
     return traces * (2 + per_bounce * depth + roulette)
 
 
 def eager(estimator):
-    """draws()'s name for `estimator` traced under autograd, where the pbrt
-    bounce runs eager."""
-    return "pbrt_eager" if estimator == "pbrt" else estimator
+    """draws()'s name for `estimator` traced where its bounce runs eager
+    (under autograd)."""
+    return estimator + "_eager"
 
 
 def pbrt_launches(chunk_bounces):
     """The pbrt bounce kernels' launches of `chunk_bounces` bounces of
     chunk-traces on their path: one of each a bounce."""
     return {"pbrt_hit": chunk_bounces, "pbrt_scatter": chunk_bounces}
+
+
+def reference_launches(chunk_bounces):
+    """The reference bounce kernels' launches of `chunk_bounces` bounces of
+    chunk-traces on their path: one of each a bounce."""
+    return {"reference_hit": chunk_bounces, "reference_nee": chunk_bounces}
 
 
 def counted(fn, label, expect=None, twins=None):
@@ -665,7 +704,8 @@ def main() -> int:
                 "--out", png, "--hdr-out", exr]
         (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI reference frame",
                                {"closest_hit": expect, "occluded": expect,
-                                "threefry": draws(expect // depth)})
+                                "threefry": draws(expect // depth),
+                                **reference_launches(expect)})
         check(rc == 0, f"cli.main returned {rc}")
         check(os.path.getsize(png) > 0 and os.path.getsize(exr) > 0, "outputs missing")
         hdr = read_exr(exr)
@@ -725,7 +765,8 @@ def main() -> int:
     harness_phase(dev, card)
     rng_entries = threefry_phase(dev, card)
     pbrt_entries = pbrt_phase(dev, card)
-    for entries in (large, binned, probes, rounds, rng_entries, pbrt_entries):
+    ref_entries = reference_phase(dev, card, ctx)
+    for entries in (large, binned, probes, rounds, rng_entries, pbrt_entries, ref_entries):
         max_abs_err.update(entries["max_abs_err"])
         ms.update(entries["ms"])
         plain_ms.update(entries["plain_ms"])
@@ -864,7 +905,7 @@ def large_scene_phases(dev, card):
     expect = 4 * 4 * 4
     film, _ = counted(lambda: renderer.run(quiet=True), "terrain100k cluster frame",
                       {"cluster_closest_hit": expect, "cluster_occluded": expect,
-                       "threefry": draws(expect // 4)})
+                       "threefry": draws(expect // 4), **reference_launches(expect)})
     hdr = film.hdr
     check(hdr.shape == (512, 512, 3) and bool(np.isfinite(hdr).all()), "HDR not finite")
     print(f"HDR mean {float(hdr.mean()):.6f}", flush=True)
@@ -1579,9 +1620,9 @@ def resume_phases(dev, card, ctx):
     for rounds, c, expect in (
             (2, cfg2, {"cluster_closest_hit": 128, "cluster_closest_suspend": 64,
                        "cluster_closest_resume": 64, "cluster_occluded": 64,
-                       "threefry": draws(16)}),
+                       "threefry": draws(16), **reference_launches(64)}),
             (1, ctx["cfg"], {"cluster_closest_hit": 64, "cluster_occluded": 64,
-                             "threefry": draws(16)})):
+                             "threefry": draws(16), **reference_launches(64)})):
         renderer = ProgressiveRenderer(ctx["scene"], ctx["camera"], c, chunk=1 << 16, accel=cs)
         check(renderer.backend == "cluster" and renderer.tables.cluster_sort
               and renderer.tables.cluster_watertight, f"rounds {rounds}: not the sorted sweep")
@@ -1699,7 +1740,8 @@ def accel_phases(dev, card, ctx):
         film, _ = counted(lambda r=renderer: r.run(quiet=True), f"terrain330k {backend} frame",
                           {"cluster_closest_hit": per * per_query,
                            "cluster_occluded": per * per_query,
-                           "threefry": draws(per_query // 4)})
+                           "threefry": draws(per_query // 4),
+                           **reference_launches(per_query)})
         check(bool(np.isfinite(film.hdr).all()), f"{backend}: HDR not finite")
         frames[backend] = film.hdr
         mrays[backend] = renderer.rays_traced / renderer.render_seconds / 1e6
@@ -1722,11 +1764,14 @@ def accel_phases(dev, card, ctx):
         renderer = ProgressiveRenderer(*to_device(host8, cam32, where), cfg8, backend="bvh")
         check(renderer.backend == "bvh" and isinstance(renderer.accel, bvh_mod.FlatBVH),
               "not the BVH")
-        # no kernel but the RNG's; on the CPU its twin
-        rng_calls = {"threefry": draws(cfg8.spp * -(-32 * 32 // renderer.chunk))}
+        # no kernel but the RNG's and the bounce's; on the CPU the RNG's
+        # twin and the eager bounce
+        traces = cfg8.spp * -(-32 * 32 // renderer.chunk)
         on_card = where != "cpu"
+        launches = {"threefry": draws(traces), **reference_launches(traces * 4)}
+        twins = {"threefry": draws(traces, 4, "reference_eager")}
         film, _ = counted(lambda r=renderer: r.run(quiet=True), f"terrain8k bvh frame ({where})",
-                          rng_calls if on_card else {}, None if on_card else rng_calls)
+                          launches if on_card else {}, None if on_card else twins)
         films[str(where)] = (film.hdr, renderer.rays_traced / renderer.render_seconds / 1e6)
     (img_gpu, m_gpu), (img_cpu, m_cpu) = films[str(dev)], films["cpu"]
     close = float(np.isclose(img_gpu, img_cpu, rtol=1e-3, atol=1e-4).mean())
@@ -1896,12 +1941,13 @@ def gradient_phases(dev, card):
 
     phase("23 training on the card: examples/invrender at its defaults, then one train_step "
           "at 1024x1024")
-    fields = 80 + 1  # a target and 80 steps, one chunk each
+    fields = 80 + 1  # a target (under no_grad) and 80 steps, one chunk each
     per = 4 * 3
     out, _ = counted(lambda: invrender.recover(dev, log=lambda line: print(line, flush=True)),
                      "invrender (48x48, 4 spp, 3 bounces, 80 steps, albedo lr 30)",
                      {"closest_hit": fields * per, "occluded": fields * per,
-                      "threefry": draws(fields * 4, 3)})
+                      "threefry": draws(4, 3) + draws((fields - 1) * 4, 3, "reference_eager"),
+                      **reference_launches(per)})
     err = float(np.abs(out["albedo"] - out["true_albedo"]).max())
     print(f"invrender: loss {out['loss0']:.4e} -> {out['loss']:.4e} "
           f"({out['loss0'] / out['loss']:.1f}x), albedo max err {err:.5f} ({card})", flush=True)
@@ -1927,12 +1973,14 @@ def gradient_phases(dev, card):
         return train_step(params, scene, cam, cfg, target, px, py, lr)
 
     counted(step, f"train_step warm-up ({res}x{res}, {n_chunks} chunks)",
-            {"closest_hit": per, "occluded": per, "threefry": draws(n_chunks)})
+            {"closest_hit": per, "occluded": per,
+             "threefry": draws(n_chunks, 4, "reference_eager")})
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     (loss, new), t_step = timed(lambda: counted(step, f"train_step ({res}x{res})",
                                                 {"closest_hit": per, "occluded": per,
-                                                 "threefry": draws(n_chunks)})[0])
+                                                 "threefry": draws(n_chunks, 4,
+                                                                   "reference_eager")})[0])
     peak = torch.cuda.max_memory_allocated(dev)
     check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(p).all()) for p in new),
           "train_step: loss or params not finite")
@@ -1997,8 +2045,7 @@ def entry_point_phases(dev, card):
         expect = {name: n * per_query for name, n in per_query_launches.items()}
         expect["kb_leaf"] = bench.CALIB_WARMUP + bench.CALIB_REPS
         expect["threefry"] = draws(per_query // 4, 4, estimator)
-        if estimator == "pbrt":
-            expect.update(pbrt_launches(per_query))
+        expect.update((pbrt_launches if estimator == "pbrt" else reference_launches)(per_query))
         env = dict(base_env, BENCH_SCENE=scene, BENCH_ESTIMATOR=estimator, **extra_env)
         label = "/".join([scene, estimator] + [f"{k}={v}" for k, v in extra_env.items()])
         proc = subprocess.run([sys.executable, "-m", "pyrenderer_tpu_torch.bench"], cwd=ROOT,
@@ -2104,9 +2151,9 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
     print(f"adaptive sweeps refined k_i = {sweeps} pixels; launches of B1 and B2 expected "
           f"4 x (8 x {chunks} + sum ceil(k_i / 2^16)) = {expect}", flush=True)
     check(launches == {"closest_hit": expect, "occluded": expect,
-                       "threefry": draws(expect // depth)},
+                       "threefry": draws(expect // depth), **reference_launches(expect)},
           f"adaptive frame: launches {launches}, expected {expect} of each whole-table "
-          f"kernel and {draws(expect // depth)} Threefry launches")
+          f"and reference bounce kernel and {draws(expect // depth)} Threefry launches")
     spp = film.spp_map
     err = film.relative_error()
     check(spp.shape == (res, res) and spp.min() == 8 and spp.max() <= 16,
@@ -2149,7 +2196,8 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
     _, secs_clean = counted(lambda: timed(lambda: clean.run(quiet=True)),
                             "uninterrupted 4-spp frame",
                             {"closest_hit": per_run, "occluded": per_run,
-                             "threefry": draws(per_run // depth)})[0]
+                             "threefry": draws(per_run // depth),
+                             **reference_launches(per_run)})[0]
     render_pass = drv._render_pass
     calls = {"n": 0, "ran": 0}
     # a chunk call in the middle of pass 1 raises before it renders; the
@@ -2178,9 +2226,9 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
     check(calls["ran"] == raise_at - 1 + 5 * chunks and calls["n"] == calls["ran"] + 1,
           f"chunk calls {calls}: the injections did not fire as planned")
     check(launches == {"closest_hit": expect, "occluded": expect,
-                       "threefry": draws(calls["ran"])},
+                       "threefry": draws(calls["ran"]), **reference_launches(expect)},
           f"resilient frame: launches {launches}, expected {expect} of each whole-table "
-          f"kernel and {draws(calls['ran'])} Threefry launches")
+          f"and reference bounce kernel and {draws(calls['ran'])} Threefry launches")
     check(np.array_equal(film.radiance_sum, clean.film.radiance_sum)
           and np.array_equal(film.sq_sum, clean.film.sq_sum)
           and np.array_equal(film.spp_map, clean.film.spp_map),
@@ -2210,7 +2258,7 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
                 "--out", os.path.join(tmp, "l.png"), "--hdr-out", os.path.join(tmp, "l.exr")]
         (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI --live --resilient 256x256",
                                {"closest_hit": 2 * depth, "occluded": 2 * depth,
-                                "threefry": draws(2)})
+                                "threefry": draws(2), **reference_launches(2 * depth)})
     check(rc == 0, f"cli.main --live --resilient returned {rc}")
     check("\u2580" in log and "2/2 spp" in log and "Mrays/s" not in log,
           "--live drew no ANSI frame (or did not silence the progress prints)")
@@ -2246,7 +2294,9 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
                     "--res", str(res), str(res), "--backend", "matmul",
                     "--out", os.path.join(tmp, "m.png"), "--hdr-out", exr]
             ((rc, log), wall), _ = counted(lambda: timed(lambda: run_cli(cli, argv)),
-                                           "CLI matmul frame", {"threefry": draws(16 * chunks)})
+                                           "CLI matmul frame",
+                                           {"threefry": draws(16 * chunks),
+                                            **reference_launches(16 * chunks * depth)})
             check(rc == 0, f"cli.main --backend matmul returned {rc}")
             hdr = read_exr(exr)
         hit, t, tri = isect.intersect_matmul(scene, ro, rd, T0, T_MAX)
@@ -2258,7 +2308,7 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
             lambda: timed(lambda: matmul_decisions(scene, cam, cfg16)),
             "cuda frame with every query asked of the matmul backend too",
             {"closest_hit": 16 * chunks * depth, "occluded": 16 * chunks * depth,
-             "threefry": draws(16 * chunks)})
+             "threefry": draws(16 * chunks), **reference_launches(16 * chunks * depth)})
         check(torch.get_float32_matmul_precision() == "high",
               "the matmul backend did not restore the process's precision")
         # what the guard prevents, on phase 2's rays
@@ -2481,7 +2531,8 @@ def debug_path_phases(dev, card):
         html = os.path.join(tmp, "paths.html")
         ((rc, log), _), wall = timed(lambda: counted(
             lambda: run_cli(cli, [SCENE, "--debug-paths", html]), "CLI --debug-paths",
-            {"closest_hit": bounces, "occluded": bounces, "threefry": draws(1, bounces)}))
+            {"closest_hit": bounces, "occluded": bounces,
+             "threefry": draws(1, bounces, "reference_eager")}))
         check(rc == 0, f"cli.main --debug-paths returned {rc}")
         check("(49 paths)" in log, "the CLI did not report 49 paths")
         with open(html) as fh:
@@ -2505,7 +2556,7 @@ def debug_path_phases(dev, card):
     records, wall = timed(lambda: counted(lambda: log_paths(scene, cam, cfg, px, py),
                                           f"log_paths {res}x{res}",
                                           {"closest_hit": 4, "occluded": 4,
-                                           "threefry": draws(1)})[0])
+                                           "threefry": draws(1, 4, "reference_eager")})[0])
     px_t, py_t = (torch.as_tensor(a, device=dev) for a in (px, py))
     ro, rd = generate_rays(cam, px_t, py_t, 0, cfg.seed)
     rad = trace_reference(scene, cfg, ro, rd, py_t * res + px_t, 0, cfg.seed).cpu().numpy()
@@ -2528,7 +2579,8 @@ def debug_path_phases(dev, card):
     host8, cam8, _ = build_scene(procgen.big_scene_data("terrain", res=64))
     scene8, cam8 = to_device(host8, cam8._replace(resolution=(64, 64)), dev)
     cfg8 = RenderConfig(max_bounces=4, seed=0, estimator="reference")
-    cluster = {"cluster_closest_hit": 4, "cluster_occluded": 4, "threefry": draws(1)}
+    cluster = {"cluster_closest_hit": 4, "cluster_occluded": 4,
+               "threefry": draws(1, 4, "reference_eager")}
     logs = {sort: counted(
         lambda sort=sort: log_paths(scene8, cam8, cfg8.replace(cluster_sort=sort),
                                     xs.reshape(-1), ys.reshape(-1), backend="cluster"),
@@ -2727,7 +2779,8 @@ def dist_phases(dev, card, hdr_cornell, host_scene, host_camera, ctx):
         with torch.no_grad():
             block, _ = counted(lambda: render_field_sharded(scene, camera, cfg, mesh, px, py),
                                "dp x sp render, world of one",
-                               {"closest_hit": 16, "occluded": 16, "threefry": draws(4)})
+                               {"closest_hit": 16, "occluded": 16, "threefry": draws(4),
+                                **reference_launches(16)})
             full = gather_dp(block, mesh)
             ref = render_field(scene, camera, cfg, px, py)
         check(torch.equal(full, ref), "render_field_sharded at dp = sp = 1 differs from "
@@ -2738,7 +2791,7 @@ def dist_phases(dev, card, hdr_cornell, host_scene, host_camera, ctx):
         (loss_m, new_m), _ = counted(
             lambda: train_step(params, scene, camera, cfg, target, px, py, lr, mesh=mesh),
             "train_step, world of one",
-            {"closest_hit": 16, "occluded": 16, "threefry": draws(4)})
+            {"closest_hit": 16, "occluded": 16, "threefry": draws(4, 4, "reference_eager")})
         loss_1, new_1 = train_step(params, scene, camera, cfg, target, px, py, lr)
         _, new_2 = train_step(params, scene, camera, cfg, target, px, py, lr)
         check(torch.equal(loss_m, loss_1), f"train_step(mesh=...) loss {float(loss_m)!r}, "
@@ -2781,7 +2834,8 @@ def dist_phases(dev, card, hdr_cornell, host_scene, host_camera, ctx):
     for r in res:
         check(r["device"] == torch.cuda.get_device_name(0) and r["backend"] == "gloo"
               and r["global_devices"] == 4, f"rank {r['process_id']}: {r}")
-        check(r["launches"] == {"closest_hit": 512, "occluded": 512, "threefry": draws(128)}
+        check(r["launches"] == {"closest_hit": 512, "occluded": 512, "threefry": draws(128),
+                                **reference_launches(512)}
               and not r["twin_calls"],
               f"rank {r['process_id']}: launches {r['launches']}, twins {r['twin_calls']}")
         check(r["image_mean"] == res[0]["image_mean"], "the ranks' frames differ")
@@ -2836,10 +2890,10 @@ def dist_phases(dev, card, hdr_cornell, host_scene, host_camera, ctx):
     for r in ranks:
         check(r["device"] == torch.cuda.get_device_name(0), f"rank {r['rank']} on {r['device']}")
         check(r["cornell"]["launches"] == {"closest_hit": 16, "occluded": 16,
-                                           "threefry": draws(4)}
+                                           "threefry": draws(4), **reference_launches(16)}
               and not r["cornell"]["twin_calls"], f"rank {r['rank']}: Cornell {r['cornell']}")
         check(r["terrain"]["launches"] == {"cluster_closest_hit": 64, "cluster_occluded": 64,
-                                           "threefry": draws(16)}
+                                           "threefry": draws(16), **reference_launches(64)}
               and not r["terrain"]["twin_calls"], f"rank {r['rank']}: terrain {r['terrain']}")
         TALLY.update(r["cornell"]["launches"])
         TALLY.update(r["terrain"]["launches"])
@@ -3024,17 +3078,157 @@ def pbrt_phase(dev, card):
             "plain_ms": plain_ms, "bounds": bounds}
 
 
+def reference_phase(dev, card, ctx):
+    """Phase 37: the reference bounce's kernels against the eager bounce on
+    the card, whole films behind the whole-table and the cluster queries,
+    and their device time a launch in a 4-bounce Cornell pass; returns
+    their kernel-line entries."""
+    from torch.autograd import DeviceType
+
+    from pyrenderer_tpu_torch.config import RenderConfig
+    from pyrenderer_tpu_torch.core import integrator as integ
+    from pyrenderer_tpu_torch.core.camera import generate_rays
+    from pyrenderer_tpu_torch.kernels import reference as rk
+    from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
+    from pyrenderer_tpu_torch.scene import load_tungsten, to_device
+
+    phase("37 the reference bounce kernels (csrc/reference.cu) against the eager bounce: "
+          "Cornell 1024x1024 (B1/B2), terrain100k 512x512 (B3/B4)")
+    host, cam, _ = load_tungsten(SCENE)
+    cornell, cornell_cam = to_device(host, cam, dev)
+    err = 0.0
+    for name, scene, camera, cfg, accel, queries in (
+            ("Cornell 1024x1024, 2 spp", cornell, cornell_cam,
+             RenderConfig(max_bounces=4, spp=2, seed=2**31 + 11, estimator="reference"), None,
+             ("closest_hit", "occluded")),
+            ("terrain100k 512x512, 4 spp", ctx["scene"], ctx["camera"], ctx["cfg"], ctx["cs"],
+             ("cluster_closest_hit", "cluster_occluded"))):
+        tables = integ.TraceTables(scene, cfg, accel=accel)
+        w, h = camera.resolution
+        ys, xs = np.mgrid[0:h, 0:w]
+        px = torch.as_tensor(xs.reshape(-1), device=dev)
+        py = torch.as_tensor(ys.reshape(-1), device=dev)
+        chunks = [(px[k:k + N_RAYS], py[k:k + N_RAYS]) for k in range(0, w * h, N_RAYS)]
+        traces = cfg.spp * len(chunks)
+
+        def film():
+            out = [integ.sample_sum(scene, camera, cfg, cfg.seed, tables, range(cfg.spp), x, y)
+                   for x, y in chunks]
+            return torch.cat(out).detach()
+
+        per = traces * cfg.max_bounces
+        got, _ = counted(film, f"{name}: the kernels' film",
+                         {queries[0]: per, queries[1]: per, "threefry": draws(traces),
+                          **reference_launches(per)})
+        # the eager loop: the light color a leaf that requires grad
+        color = tables.light_color
+        tables.light_color = color.clone().requires_grad_()
+        try:
+            with torch.enable_grad():
+                want, _ = counted(film, f"{name}: the eager film (a grad leaf)",
+                                  {queries[0]: per, queries[1]: per,
+                                   "threefry": draws(traces, cfg.max_bounces,
+                                                     "reference_eager")})
+        finally:
+            tables.light_color = color
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        diff = float((got - want).abs().max())
+        err = max(err, diff)
+        print(f"reference kernels, {name}: film bit-equal to the eager loop's {same} "
+              f"(max |diff| {diff:.3g}, {int((got != want).any(dim=-1).sum())} of "
+              f"{got.shape[0]} pixels differ; {traces} chunk-traces, {per} launches of each "
+              f"kernel, only the camera's {draws(traces)} Threefry launches)", flush=True)
+        check(bool(torch.isfinite(got).all()) and float(got.sum()) > 0,
+              f"{name}: film not finite or black")
+        check(same, f"{name}: the kernels' film differs from the eager loop's")
+
+    # a 1-bounce trace of 2^16 Cornell lanes: the kernels' path against
+    # the eager bounce (its gate closed), wall in turns
+    res, seed = 256, 2**31 + 7
+    ys, xs = np.mgrid[0:res, 0:res]
+    px = torch.as_tensor(xs.reshape(-1), device=dev)
+    py = torch.as_tensor(ys.reshape(-1), device=dev)
+    scene, camera = to_device(host, cam._replace(resolution=(res, res)), dev)
+    ro, rd = generate_rays(camera, px, py, 3, seed)
+    cfg = RenderConfig(max_bounces=1, seed=seed, estimator="reference")
+    tables = integ.TraceTables(scene, cfg)
+
+    def kernels():
+        return integ.trace_reference(scene, cfg, ro, rd, py * res + px, 3, seed, tables=tables)
+
+    def twin():
+        gate = integ.use_bounce_kernels
+        integ.use_bounce_kernels = lambda *args: False
+        try:
+            return kernels()
+        finally:
+            integ.use_bounce_kernels = gate
+
+    walls = {}
+    for label, fn in (("kernels", kernels), ("eager", twin), ("eager", twin),
+                      ("kernels", kernels)):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        walls.setdefault(label, []).append((time.perf_counter() - t) / 5 * 1e3)
+
+    # device time a launch over a 1024x1024 pass of 4 bounces (16 chunks)
+    cfg = RenderConfig(max_bounces=4, seed=1, estimator="reference")
+    renderer = ProgressiveRenderer(cornell, cornell_cam, cfg, chunk=N_RAYS)
+    renderer.render_one_pass()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        renderer.render_one_pass()
+        torch.cuda.synchronize()
+        # a sentinel kernel last: a window's last device record was seen to
+        # go missing (perf/harness.py)
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    chunks = -(-1024 * 1024 // N_RAYS)
+    tables = renderer.tables
+    ms, plain_ms, bounds = {}, {}, {}
+    for kernel, per_lane in (("reference_hit", REF_HIT_BYTES), ("reference_nee", REF_NEE_BYTES)):
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and f"{kernel}_kernel" in e.name)
+        check(len(spans) == chunks * 4, f"{kernel}: {len(spans)} device records, "
+              f"expected {chunks * 4}")
+        us = [b - a for a, b in spans]
+        first = us[::4]
+        ms[kernel] = float(np.mean(first)) / 1e3
+        plain_ms[kernel] = float(np.median(walls["eager"]))
+        table_bytes = nbytes(tables.face_data, tables.light_data) if kernel == "reference_hit" else 0
+        bounds[kernel] = bound(0, N_RAYS * per_lane + table_bytes)
+        print(f"{kernel}: {float(np.mean(us)):.2f} us a launch over a 1024x1024 4-bounce "
+              f"pass ({len(us)} launches), {float(np.mean(first)):.2f} us at bounce 0 "
+              f"({N_RAYS} live lanes); bound {bounds[kernel][0] * 1e3:.2f} us "
+              f"({bounds[kernel][1]}) ({card})", flush=True)
+    print(f"a 1-bounce reference trace of {N_RAYS} Cornell lanes: kernels' path "
+          f"{float(np.median(walls['kernels'])):.3f} ms, eager "
+          f"{plain_ms['reference_hit']:.3f} ms (wall, median of 2 x 5 calls in turns) "
+          f"({card})", flush=True)
+    check(rk.hit.launches > 0, "the reference kernels were never launched")
+    return {"max_abs_err": {"reference_hit": err, "reference_nee": err}, "ms": ms,
+            "plain_ms": plain_ms, "bounds": bounds}
+
+
 # phase 34: the stage-breakdown harnesses (perf/estbench.py ... binnedgran.py)
 Q1 = {"closest_hit": 1, "occluded": 1}
 Q4 = {"closest_hit": 4, "occluded": 4}
 SWEEP1 = {"cluster_closest_hit": 1}
-# a 4-bounce pbrt trace on the bounce kernels' path (no camera: no draw)
-P4 = {"pbrt_hit": 4, "pbrt_scatter": 4}
+# a 4-bounce trace of either estimator on its bounce kernels' path (no
+# camera: no draw)
+P4 = pbrt_launches(4)
+R4 = reference_launches(4)
 
 
 def tf(n):
     """n Threefry launches: n draws of the counter RNG (a reference bounce
-    3, the camera 2; a pbrt bounce on its kernels' path none)."""
+    3 where it runs eager, the camera 2; a bounce on its kernels' path
+    none)."""
     return {"threefry": n}
 
 
@@ -3044,22 +3238,22 @@ def tf(n):
 HARNESSES = (
     ("estbench", ["--reps", "2", "--no-profile"],
      {"rng1": tf(1), "rng2": tf(1), "rng_bounce": tf(3), "fetch_light": tf(2),
-      "shade": tf(1), "camera": tf(2), "trace4_full": Q4 | tf(12), "trace4_stub": tf(12),
+      "shade": tf(1), "camera": tf(2), "trace4_full": Q4 | R4, "trace4_stub": R4,
       "pbrt_trace4_full": Q4 | P4, "pbrt_trace4_stub": P4, "kernel_pair": Q1},
      {"fetch_light": "close", "shade": "close", "camera": "close", "trace4_full": "frame",
       "trace4_stub": "frame", "pbrt_trace4_full": "frame", "pbrt_trace4_stub": "frame"}, 4096),
     ("microbench", ["--reps", "2", "--no-profile"],
      {"cuda_closest": {"closest_hit": 1}, "cuda_occluded": {"occluded": 1},
-      "rng_8draws": tf(8), "trace_4bounce_cuda": Q4 | tf(12), "camera_raygen": tf(2)},
+      "rng_8draws": tf(8), "trace_4bounce_cuda": Q4 | R4, "camera_raygen": tf(2)},
      {"intersect_matmul": "frame", "intersect_brute": "frame", "occluded_matmul": "frame",
       "frame_math": "close", "trace_4bounce_cuda": "frame", "camera_raygen": "close"}, 4096),
     ("ablate", ["--reps", "2", "--no-profile"],
-     {"full_4bounce": Q4 | tf(12), "isect_only_4x2": Q4, "fetch_only_4x": tf(8),
+     {"full_4bounce": Q4 | R4, "isect_only_4x2": Q4, "fetch_only_4x": tf(8),
       "rng_frame_4x": tf(4)},
      {"full_4bounce": "frame", "isect_only_4x2": "frame", "fetch_only_4x": "close",
       "rng_frame_4x": "close"}, 4096),
     ("glue2", ["--reps", "2", "--no-profile"],
-     {"wrap_full": SWEEP1, "wrap_bare": SWEEP1, "bounce4x": tf(12)},
+     {"wrap_full": SWEEP1, "wrap_bare": SWEEP1, "bounce4x": R4},
      {"wrap_full": "close", "bounce4x": "frame"}, 2048),
     ("binnedglue", ["--reps", "2", "--no-profile"],
      {"prepass": {"binned_prepass": 1}, "leaf": {"binned_leaf": 1},

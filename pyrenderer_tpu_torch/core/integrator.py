@@ -57,6 +57,13 @@ bounce 0, beta*cos after), the throughput update is
 attenuation*cos/pdf*(1/pi) with the 0/0 guard collapsing to zero, and NEE
 adds emissive*cos1*cos2/dist^2 without area pdf or 1/pi.
 
+Where use_bounce_kernels holds (a CUDA float32 wavefront that carries no
+gradient) and no debug records are asked for, a reference bounce is four
+launches: the closest-hit query, the hit kernel, the any-hit query and the
+NEE kernel (csrc/reference.cu, kernels/reference.py), the same arithmetic
+as the eager bounce of trace_reference. Everything else runs the eager
+loop. The pbrt estimator's bounce makes the same choice by the same gate.
+
 Gradients (torch autograd; dist/render.py's train_step takes them): the
 image is differentiable w.r.t. the scene's vertices, albedo and emission
 through the hit geometry re-derived from the face id (t, the hit point,
@@ -94,8 +101,11 @@ from pyrenderer_tpu_torch.core.bsdf import _dot
 from pyrenderer_tpu_torch.core.camera import generate_rays, morton_pixel_order
 from pyrenderer_tpu_torch.core.sampling import INV_PI
 from pyrenderer_tpu_torch.kernels import binned as binned_kernels
+from pyrenderer_tpu_torch.kernels import build
 from pyrenderer_tpu_torch.kernels import cluster as cluster_kernels
 from pyrenderer_tpu_torch.kernels import intersect as kernels
+from pyrenderer_tpu_torch.kernels import reference as reference_kernels
+from pyrenderer_tpu_torch.kernels.pbrt import Wavefront
 from pyrenderer_tpu_torch.scene.types import Camera, Scene
 from pyrenderer_tpu_torch.utils.profiling import span
 
@@ -361,6 +371,28 @@ class TraceTables:
         return self.face_data.index_select(0, tri)
 
 
+def use_bounce_kernels(ro, rd, tables: TraceTables, estimator: str) -> bool:
+    """True where a bounce of `estimator` ("reference" or "pbrt") runs as
+    its CUDA kernels (kernels/reference.py, kernels/pbrt.py): a CUDA
+    float32 wavefront, and no gradient to carry (grad mode off, or none of
+    the rays, the face and light tables and the light color requires
+    grad)."""
+    if not build.on_cuda(ro, estimator) or ro.dtype != torch.float32:
+        return False
+    return not (torch.is_grad_enabled() and any(
+        x.requires_grad for x in (ro, rd, tables.face_data, tables.light_data,
+                                  tables.light_color)))
+
+
+def face_operand(tables: TraceTables, tri):
+    """The face rows a bounce kernel reads for the hit ids `tri`: (the face
+    table, True) to gather by tri, or (the rows tables.fetch_face_fn
+    returns for them, False)."""
+    if tables.fetch_face_fn is None:
+        return tables.face_data, True
+    return tables.fetch_face(torch.clamp(tri, min=0).to(torch.int64)), False
+
+
 def _closest(scene, tables, cfg, ro, rd, t1):
     """Closest-hit query of the tables' backend."""
     with span("query"):
@@ -494,11 +526,17 @@ def trace_reference(
     radiance (running), nee_visible (the shadow ray of a live lane
     unoccluded) and light_point. The radiance is the one the call returns
     without them.
+
+    Without collect_paths and where use_bounce_kernels holds, the bounce
+    runs as the CUDA kernels of kernels/reference.py instead
+    (_trace_kernels).
     """
     check_supported(cfg)
     dtype = ro.dtype
     if tables is None:
         tables = TraceTables(scene, cfg, backend)
+    if not collect_paths and use_bounce_kernels(ro, rd, tables, "reference"):
+        return _trace_kernels(scene, cfg, ro, rd, pixel_id, sample_id, seed, tables, with_stats)
     n = ro.shape[0]
     pixel_id = pixel_id.to(torch.int64).expand(n)
     light_color = tables.light_color
@@ -585,6 +623,35 @@ def trace_reference(
     if with_stats:
         return radiance, n_rays
     return radiance
+
+
+def _trace_kernels(scene, cfg, ro, rd, pixel_id, sample_id, seed, tables, with_stats):
+    """trace_reference on the kernels' path: each bounce the closest query,
+    the hit kernel, the any-hit query and the NEE kernel, on a Wavefront
+    that the kernels update in place; the queries and the result as the
+    eager loop has them."""
+    wf = Wavefront.start(ro, rd, pixel_id, sample_id, cfg.t_max, pbrt=False)
+    for bounce in range(cfg.max_bounces):
+        with span("bounce"):
+            _kernel_bounce(scene, tables, cfg, wf, bounce, seed)
+    if with_stats:
+        return wf.radiance, wf.n_rays
+    return wf.radiance
+
+
+def _kernel_bounce(scene, tables, cfg, wf, bounce, seed):
+    """Reference bounce `bounce` of `wf` on the kernels' path: the closest
+    query, the hit kernel, the any-hit query of the shadow rays it wrote
+    (left in wf.s_ro, s_rd, s_t1) and the NEE kernel."""
+    hit, _, tri = _closest(scene, tables, cfg, wf.ro, wf.rd, wf.t1)
+    tri = tri.contiguous()
+    rows, gather = face_operand(tables, tri)
+    reference_kernels.hit(wf, seed, bounce, rng._default_rounds(), hit.contiguous(), tri, rows,
+                          gather, tables.light_data, scene.light_nfaces,
+                          scene.light_faces.shape[1], tables.light_color,
+                          1.0 - cfg.shadow_eps, cfg.t_max)
+    occ = _any_hit(scene, tables, cfg, wf.s_ro, wf.s_rd, wf.s_t1)
+    reference_kernels.nee(wf, occ.contiguous())
 
 
 def render_sample(

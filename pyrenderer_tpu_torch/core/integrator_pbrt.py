@@ -12,13 +12,14 @@ table:
   scattering, per core/bsdf.py;
 - Russian roulette on the throughput from cfg.russian_roulette_start on.
 
-On a CUDA float32 wavefront that carries no gradient a bounce is four
-launches: the closest-hit query, the hit kernel, the any-hit query and the
-scatter kernel (csrc/pbrt.cu, kernels/pbrt.py), the same arithmetic as the
-eager bounce below. Everything else (CPU tensors, float64, a wavefront or
-table that requires grad under grad mode) runs the eager loop. The two
-paths share no logic: autograd needs the eager ops, the renderer needs few
-launches.
+On a CUDA float32 wavefront that carries no gradient
+(integrator.use_bounce_kernels, the gate trace_reference takes too) a
+bounce is four launches: the closest-hit query, the hit kernel, the any-hit
+query and the scatter kernel (csrc/pbrt.cu, kernels/pbrt.py), the same
+arithmetic as the eager bounce below. Everything else (CPU tensors,
+float64, a wavefront or table that requires grad under grad mode) runs the
+eager loop. The two paths share no logic: autograd needs the eager ops,
+the renderer needs few launches.
 
 Each bounce is the span `bounce` (utils/profiling.span), as
 trace_reference's. In the eager loop `nee` holds the light sample, the
@@ -58,9 +59,10 @@ from pyrenderer_tpu_torch.core.integrator import (
     _hit_geometry,
     _sample_light_point,
     check_supported,
+    face_operand,
+    use_bounce_kernels,
 )
 from pyrenderer_tpu_torch.core.sampling import INV_PI
-from pyrenderer_tpu_torch.kernels import build
 from pyrenderer_tpu_torch.kernels import pbrt as pbrt_kernels
 from pyrenderer_tpu_torch.scene.types import MAT_LAMBERT, MAT_METAL, Scene
 from pyrenderer_tpu_torch.utils.profiling import span
@@ -89,7 +91,7 @@ def trace_pbrt(
     dtype = ro.dtype
     if tables is None:
         tables = TraceTables(scene, cfg.replace(estimator="pbrt"), backend)
-    if use_bounce_kernels(ro, rd, tables):
+    if use_bounce_kernels(ro, rd, tables, "pbrt"):
         return _trace_kernels(scene, cfg, ro, rd, pixel_id, sample_id, seed, tables, with_stats)
     n = ro.shape[0]
     pixel_id = pixel_id.to(torch.int64).expand(n)
@@ -207,16 +209,6 @@ def trace_pbrt(
     return radiance
 
 
-def use_bounce_kernels(ro, rd, tables: TraceTables) -> bool:
-    """True where the bounce runs as the CUDA kernels of kernels/pbrt.py: a
-    CUDA float32 wavefront, and no gradient to carry (grad mode off, or
-    none of the rays and the face and light tables requires grad)."""
-    if not build.on_cuda(ro, "pbrt") or ro.dtype != torch.float32:
-        return False
-    return not (torch.is_grad_enabled() and any(
-        x.requires_grad for x in (ro, rd, tables.face_data, tables.light_data)))
-
-
 def _trace_kernels(scene, cfg, ro, rd, pixel_id, sample_id, seed, tables, with_stats):
     """trace_pbrt on the kernels' path: each bounce the closest query, the
     hit kernel, the any-hit query and the scatter kernel, on a Wavefront
@@ -244,10 +236,7 @@ def _bounce_hit(scene, tables, cfg, wf, bounce, seed):
     tables.fetch_face_fn returns for them."""
     hit, _, tri = _closest(scene, tables, cfg, wf.ro, wf.rd, wf.t1)
     tri = tri.contiguous()
-    if tables.fetch_face_fn is None:
-        rows, gather = tables.face_data, True
-    else:
-        rows, gather = tables.fetch_face(torch.clamp(tri, min=0).to(torch.int64)), False
+    rows, gather = face_operand(tables, tri)
     f_max = scene.light_faces.shape[1]
     pbrt_kernels.hit(wf, seed, bounce, rng._default_rounds(), hit.contiguous(), tri, rows,
                      gather, tables.light_data, scene.light_nfaces, f_max,

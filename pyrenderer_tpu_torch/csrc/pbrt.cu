@@ -36,7 +36,8 @@
 // contracts as PyTorch's linalg.cross kernel does. The result is the eager
 // bounce's bit for bit on nearly every lane; the math library's functions
 // (sinf, cosf, powf), compiled here without contraction and in PyTorch
-// with it, may part in the last ulp on a few.
+// with it, may part in the last ulp on a few. The helpers it shares with
+// the reference estimator's bounce kernels (reference.cu) are bounce.cuh's.
 //
 // Each C entry point launches on the caller's stream, returns the
 // cudaError_t of the launch and never synchronises.
@@ -44,128 +45,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "threefry.cuh"
+#include "bounce.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-// rng.py's use slots
-constexpr int kBsdf0 = 4;       // U_BSDF_0: (u1, u2)
+// rng.py's use slots of the pbrt bounce alone (bounce.cuh has the shared ones)
 constexpr int kBsdf2 = 6;       // U_BSDF_2: u3
-constexpr int kLightPrim = 7;   // U_LIGHT_PRIM
-constexpr int kLightFace = 8;   // U_LIGHT_FACE
-constexpr int kLightU = 9;      // U_LIGHT_U: (u, v)
 constexpr int kRoulette = 11;   // U_RR
 
 // scene/types.py's material codes
 constexpr int kLambert = 0;
 constexpr int kMetal = 2;
 
-// core/sampling.py's constants, each the float of the double PyTorch takes
-constexpr double kPiD = 3.141592653589793;
-constexpr float kInvPi = (float)(1.0 / kPiD);
-constexpr float kPi4 = (float)(kPiD / 4);
-constexpr float kPi2 = (float)(kPiD / 2);
+// core/bsdf.py's constants, each the float of the double PyTorch takes
 constexpr float kTwoPi = (float)(2.0 * kPiD);
 constexpr float kThird = (float)(1.0 / 3.0);
-constexpr float kAxisEps = (float)1e-6;
 
 // flags: bit 0 the lane is an NEE candidate, bit 1 its normal was flipped
 // toward the ray (the geometric normal is -nrm)
 constexpr uint8_t kCandidate = 1;
 constexpr uint8_t kFlipped = 2;
-
-// The counter operands of one launch: the pixel (per lane, int32 or int64
-// by `wide` bit 0, stride 0 for one broadcast value), the sample (per lane
-// by `wide` bit 1, or null and folded into sample_const), the key and the
-// rounds.
-struct Counter {
-  const void* pixel;
-  int64_t pixel_stride;
-  const void* sample;
-  int64_t sample_stride;
-  uint32_t sample_const;
-  int wide;
-  uint32_t k0;
-  int rounds;
-  int bounce;
-
-  // both words of the lane's draw in use slot `use`
-  __device__ __forceinline__ void words(int64_t i, int use, uint32_t* w0, uint32_t* w1) const {
-    uint32_t c1 = sample_const;
-    if (sample) c1 |= word(sample, sample_stride, wide & 2, i) << 12;
-    c1 |= (uint32_t)bounce << 4;
-    c1 |= (uint32_t)use;
-    threefry2x32(k0, word(pixel, pixel_stride, wide & 1, i), c1, rounds, w0, w1);
-  }
-
-  __device__ __forceinline__ float uniform(int64_t i, int use) const {
-    uint32_t w0, w1;
-    words(i, use, &w0, &w1);
-    return to_unit(w0);
-  }
-
-  __device__ __forceinline__ void uniform2(int64_t i, int use, float* u0, float* u1) const {
-    uint32_t w0, w1;
-    words(i, use, &w0, &w1);
-    *u0 = to_unit(w0);
-    *u1 = to_unit(w1);
-  }
-};
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 load3(const float* p) { return {p[0], p[1], p[2]}; }
-
-__device__ __forceinline__ void store3(float* p, V3 v) {
-  p[0] = v.x;
-  p[1] = v.y;
-  p[2] = v.z;
-}
-
-__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 mul(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
-__device__ __forceinline__ V3 scale(float s, V3 a) { return {s * a.x, s * a.y, s * a.z}; }
-
-// torch.sum(x, dim=-1) over three elements: PyTorch's reduction splits a
-// row of three between two threads (x0 + x2 and x1) and adds their sums
-__device__ __forceinline__ float sum3(V3 a) { return (a.x + a.z) + a.y; }
-
-// _dot: the products, then their sum
-__device__ __forceinline__ float dot(V3 a, V3 b) { return sum3(mul(a, b)); }
-
-// a * b - c * d as torch.linalg.cross's kernel computes it (PyTorch builds
-// with contraction: the first product is fused into the subtraction of the
-// rounded second)
-__device__ __forceinline__ float cross_term(float a, float b, float c, float d) {
-  return __fmaf_rn(a, b, -(c * d));
-}
-
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {cross_term(a.y, b.z, a.z, b.y), cross_term(a.z, b.x, a.x, b.z),
-          cross_term(a.x, b.y, a.y, b.x)};
-}
-
-// torch.maximum / torch.minimum against a constant: NaN propagates
-__device__ __forceinline__ float maximum(float x, float c) { return isnan(x) ? x : fmaxf(x, c); }
-__device__ __forceinline__ float minimum(float x, float c) { return isnan(x) ? x : fminf(x, c); }
-
-// sampling.safe_sqrt
-__device__ __forceinline__ float safe_sqrt(float x) { return x <= 0.0f ? 0.0f : sqrtf(x); }
-
-// sampling.safe_normalize: v * (1 / sqrt(|v|^2)), 0 where |v| = 0
-__device__ __forceinline__ V3 safe_normalize(V3 v) {
-  const float ss = sum3(mul(v, v));
-  const bool zero = ss == 0.0f;
-  const float inv = 1.0f / sqrtf(zero ? 1.0f : ss);
-  const float k = zero ? 0.0f : inv;
-  return {v.x * k, v.y * k, v.z * k};
-}
 
 // bsdf.power_heuristic
 __device__ __forceinline__ float power_heuristic(float pf, float pg) {
@@ -177,36 +78,6 @@ __device__ __forceinline__ float power_heuristic(float pf, float pg) {
 // bsdf.reflect: v - (2 (v . n)) n
 __device__ __forceinline__ V3 reflect(V3 v, V3 n) {
   return sub(v, scale(2.0f * dot(v, n), n));
-}
-
-// bsdf.lambert_sample: the cosine-weighted direction in the frame of nrm
-// (sampling.concentric_sample_disk, cosine_sample_hemisphere, rotate_z_to
-// with make_frame's special cases at n ~ +-y) and its pdf
-__device__ __forceinline__ V3 lambert_sample(V3 n, float u1, float u2, float* pdf) {
-  const float ox = 2.0f * u1 - 1.0f;
-  const float oy = 2.0f * u2 - 1.0f;
-  const bool use_x = fabsf(ox) > fabsf(oy);
-  const float r = use_x ? ox : oy;
-  const float safe_ox = ox == 0.0f ? 1.0f : ox;
-  const float safe_oy = oy == 0.0f ? 1.0f : oy;
-  const float theta = use_x ? kPi4 * (oy / safe_ox) : kPi2 - kPi4 * (ox / safe_oy);
-  const bool zero = (ox == 0.0f) & (oy == 0.0f);
-  const float dx = zero ? 0.0f : r * cosf(theta);
-  const float dy = zero ? 0.0f : r * sinf(theta);
-  const float dz = safe_sqrt(1.0f - dx * dx - dy * dy);
-
-  const bool neg_y = fabsf(n.y + 1.0f) < kAxisEps;
-  const bool pos_y = fabsf(n.y - 1.0f) < kAxisEps;
-  const V3 n_frame = pos_y ? V3{0.0f, 1.0f, 0.0f} : (neg_y ? V3{-0.0f, -1.0f, -0.0f} : n);
-  const bool axis = pos_y | neg_y;
-  const V3 gx = safe_normalize({-n.z, 0.0f, n.x});
-  const V3 gz = safe_normalize(cross(gx, n));
-  const V3 x_hat = axis ? V3{1.0f, 0.0f, 0.0f} : gx;
-  const V3 z_hat = axis ? V3{0.0f, 0.0f, 1.0f} : gz;
-  const V3 world = add(add(scale(dx, x_hat), scale(dy, z_hat)), scale(dz, n_frame));
-  const V3 wi = safe_normalize(world);
-  *pdf = fabsf(dot(n, wi)) * kInvPi;
-  return wi;
 }
 
 // bsdf.metal_sample: the mirror direction plus roughness times a point in
@@ -250,24 +121,6 @@ __device__ __forceinline__ V3 dielectric_sample(V3 rd, V3 n, float ior, float u)
   return safe_normalize(wi);
 }
 
-// Add the warp's lanes with `live` to *n_rays: one atomic a warp. Every
-// thread of the warp calls it.
-__device__ __forceinline__ void count_lanes(bool live, float* n_rays) {
-  const unsigned int mask = __ballot_sync(0xffffffffu, live);
-  if ((threadIdx.x & 31) == 0 && mask) atomicAdd(n_rays, (float)__popc(mask));
-}
-
-// The face row of lane i: a gather from the (T, K) face table by the hit id
-// (clamped at 0, int32 or int64 by wide_tri) or, where gather is 0, the
-// lane's own row of an (N, K) table (TraceTables.fetch_face_fn's rows).
-__device__ __forceinline__ const float* face_row(const float* rows, int64_t row_stride,
-                                                 int gather, const void* tri, bool wide_tri,
-                                                 int64_t i) {
-  if (!gather) return rows + i * row_stride;
-  int64_t f = wide_tri ? ((const int64_t*)tri)[i] : (int64_t)((const int32_t*)tri)[i];
-  return rows + (f < 0 ? 0 : f) * row_stride;
-}
-
 // wide: bit 0 pixel, 1 sample, 2 tri, 3 light_nfaces are int64 (else int32).
 // In: the rays ro, rd (N, 3), the closest query's hit and tri, the face
 // rows (K >= 22, the extended table of integrator.pack_face_data), the
@@ -305,22 +158,15 @@ __global__ void __launch_bounds__(kThreads) pbrt_hit_kernel(
   }
 
   const float* row = face_row(rows, row_stride, gather, tri, ctr.wide & 4, i);
-  const V3 v0 = load3(row), e1 = load3(row + 3), e2 = load3(row + 6);
-  const float sign = row[12];
   const bool emissive = row[13] > 0.5f;
-  const bool sided = row[14] > 0.5f;
   const int mat = (int)row[15];
   const float hit_pdf_a = row[21];
 
   // the hit geometry, re-derived from the face
-  const float det = dot(cross(e1, d), e2);
-  const float safe_det = det == 0.0f ? 1.0f : det;
-  const V3 s = sub(o, v0);
-  const float t = -dot(cross(s, e2), e1) / safe_det;
-  const V3 p = add(o, scale(t, d));
-  const V3 n_geo = scale(sign, safe_normalize(cross(e1, e2)));
-  const bool flip = !sided && dot(n_geo, neg(d)) < 0.0f;
-  const V3 nrm = flip ? neg(n_geo) : n_geo;
+  const Hit h = hit_geometry(o, d, row);
+  const float t = h.t;
+  const V3 p = h.p, nrm = h.nrm;
+  const bool flip = h.flip;
 
   // emission with MIS against the light sampler
   const float cos_l = dot(neg(d), nrm);
@@ -351,31 +197,10 @@ __global__ void __launch_bounds__(kThreads) pbrt_hit_kernel(
   if (mat == kLambert) {
     // NEE: a uniform light prim, a uniform face of it, a sqrt-barycentric
     // point (integrator._sample_light_point)
-    int64_t li = 0;
-    if (n_lights > 1) {
-      const float up = ctr.uniform(i, kLightPrim);
-      li = (int64_t)(up * (float)n_lights);
-      li = li < 0 ? 0 : (li > n_lights - 1 ? n_lights - 1 : li);
-    }
-    const int64_t nfaces = (ctr.wide & 8) ? ((const int64_t*)light_nfaces)[li]
-                                          : (int64_t)((const int32_t*)light_nfaces)[li];
-    const float uf = ctr.uniform(i, kLightFace);
-    int64_t fi = (int64_t)(uf * (float)nfaces);
-    fi = fi < 0 ? 0 : fi;
-    fi = fi < nfaces - 1 ? fi : nfaces - 1;
-    const float* lrow = light_data + (li * f_max + fi) * light_stride;
-    const V3 l0 = load3(lrow), l1 = load3(lrow + 3), l2 = load3(lrow + 6);
-    const V3 em = load3(lrow + 9);
-    const float lsign = lrow[12];
-    const float pdf_a = lrow[13];
-    float u, v;
-    ctr.uniform2(i, kLightU, &u, &v);
-    const float su = sqrtf(u);
-    const float a = su * (1.0f - v);
-    const float b = su * v;
-    const V3 p2 = add(add(scale(a, l0), scale(b, l1)), scale(1.0f - a - b, l2));
-    const V3 n2 = scale(lsign, safe_normalize(cross(sub(l1, l0), sub(l2, l0))));
-
+    const LightPoint lp = light_point(ctr, i, light_data, light_stride, light_nfaces,
+                                      ctr.wide & 8, n_lights, f_max);
+    const V3 p2 = lp.p, n2 = lp.n, em = lp.em;
+    const float pdf_a = lp.pdf_a;
     const V3 to_light = sub(p2, p);
     const float dist_sq = maximum(dot(to_light, to_light), (float)1e-12);
     const float dist = sqrtf(dist_sq);

@@ -1,6 +1,7 @@
 // Threefry-2x32 (Random123's schedule) of the counter RNG of rng.py, as
 // device functions: the round function shared by the Threefry kernel
-// (rng.cu) and the pbrt bounce (pbrt.cu), which draws its own uniforms.
+// (rng.cu) and the bounce kernels (bounce.cuh: pbrt.cu, reference.cu),
+// which draw their own uniforms.
 //
 // The counter is (c0, c1) = (pixel, (sample << 12) | (bounce << 4) | use)
 // under the key (k0, rng._KEY_TAG). All arithmetic is modulo 2^32, as the

@@ -8,7 +8,8 @@ def wrappers():
     """Every kernel wrapper of the port, by the kernel's name: each counts
     the launches of its kernel (``.launches``) and, apart from them, the
     calls it served with its plain twin (``.twin_calls``)."""
-    from pyrenderer_tpu_torch.kernels import binned, cluster, intersect, pbrt, threefry
+    from pyrenderer_tpu_torch.kernels import (binned, cluster, intersect, pbrt, reference,
+                                              threefry)
     from pyrenderer_tpu_torch.perf import kernelbench
 
     return {
@@ -29,6 +30,8 @@ def wrappers():
         "threefry": threefry.threefry,
         "pbrt_hit": pbrt.hit,
         "pbrt_scatter": pbrt.scatter,
+        "reference_hit": reference.hit,
+        "reference_nee": reference.nee,
     }
 
 

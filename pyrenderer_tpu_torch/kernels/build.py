@@ -114,6 +114,11 @@ def _declare(lib) -> None:
     lib.pr_pbrt_hit.restype = ctypes.c_int
     lib.pr_pbrt_scatter.argtypes = counter + [p, p, i64, i32] + [p] * 13 + [i32, f32, p, p]
     lib.pr_pbrt_scatter.restype = ctypes.c_int
+    lib.pr_reference_hit.argtypes = counter + [p, p, p, p, p, i64, i32, p, i64, p, i32, i32, p,
+                                               f32, f32] + [p] * 11
+    lib.pr_reference_hit.restype = ctypes.c_int
+    lib.pr_reference_nee.argtypes = [i64, p, p, p, p, p]
+    lib.pr_reference_nee.restype = ctypes.c_int
 
 
 def build() -> str:

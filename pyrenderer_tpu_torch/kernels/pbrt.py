@@ -9,7 +9,8 @@ kernels do not (CPU tensors, float64, gradients).
 
 A ``Wavefront`` holds the trace's state on the device, contiguous, and the
 per-lane values that ``hit`` hands to ``scatter``; the two kernels update
-it in place. Each launch goes through build.launch on the current stream,
+it in place. The reference estimator's bounce kernels (kernels/reference.py)
+take it too, without the fields only these kernels read. Each launch goes through build.launch on the current stream,
 waits for nothing and allocates nothing; each counts its launches
 (``hit.launches``, ``scatter.launches``) and, for the program's own
 tracing, one ``pbrt_kernel`` (utils/profiling.count) a launch.
@@ -32,31 +33,32 @@ _FACE_COLS = 22
 _LIGHT_COLS = 14
 
 
-def _check(x, name, device, dtype, shape):
+def _check(x, name, device, dtype, shape, who="pbrt"):
     """Refuse an operand the kernels cannot take: another device or dtype,
-    another shape, or not contiguous."""
+    another shape, or not contiguous. `who` names the kernels in the
+    message."""
     if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
-        raise ValueError(f"pbrt: {name} is a {x.dtype} {tuple(x.shape)} tensor on {x.device}, "
+        raise ValueError(f"{who}: {name} is a {x.dtype} {tuple(x.shape)} tensor on {x.device}, "
                          f"the kernel takes {dtype} {shape} on {device}")
     if not x.is_contiguous():
-        raise ValueError(f"pbrt: {name} is not contiguous")
+        raise ValueError(f"{who}: {name} is not contiguous")
 
 
-def _table(x, name, device, cols):
+def _table(x, name, device, cols, who="pbrt"):
     """A float32 table on `device` whose rows are read through their
     stride: at least `cols` unit-stride columns."""
     if x.device != device or x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] < cols:
-        raise ValueError(f"pbrt: {name} is a {x.dtype} {tuple(x.shape)} tensor on {x.device}, "
+        raise ValueError(f"{who}: {name} is a {x.dtype} {tuple(x.shape)} tensor on {x.device}, "
                          f"the kernel takes float32 rows of at least {cols} columns on {device}")
     if x.stride(1) != 1:
-        raise ValueError(f"pbrt: {name}'s columns are not contiguous")
+        raise ValueError(f"{who}: {name}'s columns are not contiguous")
 
 
-def _ids(x, name, device, n):
+def _ids(x, name, device, n, who="pbrt"):
     """An int32 or int64 operand of n lanes on `device`, read through its
     stride: (tensor, stride, wide)."""
     if x.device != device or x.dtype not in (torch.int32, torch.int64) or x.shape != (n,):
-        raise ValueError(f"pbrt: {name} is a {x.dtype} {tuple(x.shape)} tensor on {x.device}, "
+        raise ValueError(f"{who}: {name} is a {x.dtype} {tuple(x.shape)} tensor on {x.device}, "
                          f"the kernel takes int32 or int64 ({n},) on {device}")
     return x, x.stride(0), x.dtype == torch.int64
 
@@ -73,15 +75,16 @@ class Wavefront:
     the one value sample_const); n_rays: the rays traced (a float32
     scalar, as the eager trace counts them). Written by ``hit``: the
     shadow ray s_ro, s_rd, s_t1, the shading normal nrm, the NEE term
-    nee of a clear shadow ray, flags."""
+    nee of a clear shadow ray, flags. prev_pdf, prev_spec and nrm are None
+    in a wavefront started for the reference estimator's kernels."""
 
     ro: torch.Tensor
     rd: torch.Tensor
     beta: torch.Tensor
     radiance: torch.Tensor
     alive: torch.Tensor
-    prev_pdf: torch.Tensor
-    prev_spec: torch.Tensor
+    prev_pdf: torch.Tensor | None
+    prev_spec: torch.Tensor | None
     t1: torch.Tensor
     pixel: torch.Tensor
     sample: torch.Tensor | None
@@ -90,17 +93,18 @@ class Wavefront:
     s_ro: torch.Tensor
     s_rd: torch.Tensor
     s_t1: torch.Tensor
-    nrm: torch.Tensor
+    nrm: torch.Tensor | None
     nee: torch.Tensor
     flags: torch.Tensor
 
     @classmethod
-    def start(cls, ro, rd, pixel, sample, t_max: float) -> "Wavefront":
+    def start(cls, ro, rd, pixel, sample, t_max: float, pbrt: bool = True) -> "Wavefront":
         """A fresh wavefront on copies of the rays ro, rd (N, 3): beta 1,
         radiance 0, every lane alive with t1 = t_max, prev_pdf 1. `pixel`
         is an integer tensor broadcast to (N,), `sample` an int, a CPU
         scalar or an integer tensor on the rays' device, one value or (N,)
-        (as kernels/threefry.py takes it)."""
+        (as kernels/threefry.py takes it). Without `pbrt`, the fields only
+        the pbrt kernels read (prev_pdf, prev_spec, nrm) are None."""
         n, dev = ro.shape[0], ro.device
         ro = ro.clone(memory_format=torch.contiguous_format)
         rd = rd.clone(memory_format=torch.contiguous_format)
@@ -116,47 +120,73 @@ class Wavefront:
         return cls(
             ro=ro, rd=rd, beta=torch.ones_like(ro), radiance=torch.zeros_like(ro),
             alive=torch.ones(n, dtype=torch.bool, device=dev),
-            prev_pdf=torch.ones(n, dtype=torch.float32, device=dev),
-            prev_spec=torch.zeros(n, dtype=torch.bool, device=dev),
+            prev_pdf=torch.ones(n, dtype=torch.float32, device=dev) if pbrt else None,
+            prev_spec=torch.zeros(n, dtype=torch.bool, device=dev) if pbrt else None,
             t1=torch.full((n,), t_max, dtype=torch.float32, device=dev),
             pixel=pixel, sample=sample_t, sample_const=sample_const & _U32,
             n_rays=torch.zeros((), dtype=torch.float32, device=dev),
             s_ro=empty3(), s_rd=empty3(), s_t1=torch.empty(n, dtype=torch.float32, device=dev),
-            nrm=empty3(), nee=empty3(), flags=torch.empty(n, dtype=torch.uint8, device=dev))
+            nrm=empty3() if pbrt else None, nee=empty3(),
+            flags=torch.empty(n, dtype=torch.uint8, device=dev))
 
-    def _operands(self, seed: int, bounce: int, rounds: int):
-        """The counter's arguments of both C entry points and the checks of
-        the state they write."""
+    def _operands(self, seed: int, bounce: int, rounds: int, who: str = "pbrt"):
+        """The counter's arguments of the C entry points that draw, and the
+        checks of the state they write (a None field is refused where
+        `who` is "pbrt")."""
         n, dev = self.ro.shape[0], self.ro.device
         for name, shape in (("ro", (n, 3)), ("rd", (n, 3)), ("beta", (n, 3)),
                             ("radiance", (n, 3)), ("prev_pdf", (n,)), ("t1", (n,)),
                             ("s_ro", (n, 3)), ("s_rd", (n, 3)), ("s_t1", (n,)),
                             ("nrm", (n, 3)), ("nee", (n, 3))):
-            _check(getattr(self, name), name, dev, torch.float32, shape)
+            self._field(name, torch.float32, shape, who)
         for name in ("alive", "prev_spec"):
-            _check(getattr(self, name), name, dev, torch.bool, (n,))
-        _check(self.flags, "flags", dev, torch.uint8, (n,))
-        _check(self.n_rays, "n_rays", dev, torch.float32, ())
-        pixel, pixel_stride, wide = _ids(self.pixel, "pixel", dev, n)
+            self._field(name, torch.bool, (n,), who)
+        _check(self.flags, "flags", dev, torch.uint8, (n,), who)
+        _check(self.n_rays, "n_rays", dev, torch.float32, (), who)
+        pixel, pixel_stride, wide = _ids(self.pixel, "pixel", dev, n, who)
         sample_ptr, sample_stride = None, 0
         if self.sample is not None:
-            sample, sample_stride, wide_s = _ids(self.sample, "sample", dev, n)
+            sample, sample_stride, wide_s = _ids(self.sample, "sample", dev, n, who)
             sample_ptr = sample.data_ptr()
             wide |= wide_s << 1
         return [n, bounce, int(seed & _U32), rounds, pixel.data_ptr(), pixel_stride, sample_ptr,
                 sample_stride, (self.sample_const << 12) & _U32], int(wide)
 
+    def _field(self, name, dtype, shape, who):
+        """_check of field `name`; the pbrt-only fields may be None for
+        another estimator's kernels."""
+        x = getattr(self, name)
+        if x is None and who != "pbrt" and name in ("prev_pdf", "prev_spec", "nrm"):
+            return
+        if x is None:
+            raise ValueError(f"{who}: the wavefront has no {name} (started without pbrt)")
+        _check(x, name, self.ro.device, dtype, shape, who)
 
-def _faces(rows, gather: bool, tri, dev, n):
-    """The face-row operands: rows (T, K) gathered by the hit ids, or the
-    lanes' own rows (N, K) where not `gather`; (args, wide bit 2)."""
-    _table(rows, "rows", dev, _FACE_COLS)
+
+def _faces(rows, gather: bool, tri, dev, n, cols=_FACE_COLS, who="pbrt"):
+    """The face-row operands: rows (T, K >= cols) gathered by the hit ids,
+    or the lanes' own rows (N, K) where not `gather`; (args, wide bit 2)."""
+    _table(rows, "rows", dev, cols, who)
     if not gather and rows.shape[0] != n:
-        raise ValueError(f"pbrt: {rows.shape[0]} face rows for {n} lanes")
-    tri, _, wide = _ids(tri, "tri", dev, n)
+        raise ValueError(f"{who}: {rows.shape[0]} face rows for {n} lanes")
+    tri, _, wide = _ids(tri, "tri", dev, n, who)
     if tri.stride(0) != 1:
-        raise ValueError("pbrt: tri is not contiguous")
+        raise ValueError(f"{who}: tri is not contiguous")
     return [tri.data_ptr(), rows.data_ptr(), rows.stride(0), int(gather)], int(wide) << 2
+
+
+def _lights(light_data, light_nfaces, f_max: int, dev, who="pbrt"):
+    """The light operands: light_data (integrator.pack_light_data) and
+    light_nfaces (L,) of L lights of f_max faces; (args, wide bit 3)."""
+    _table(light_data, "light_data", dev, _LIGHT_COLS, who)
+    n_lights = light_nfaces.shape[0]
+    nfaces, _, wide = _ids(light_nfaces, "light_nfaces", dev, n_lights, who)
+    if nfaces.stride(0) != 1 or light_data.shape[0] != n_lights * f_max:
+        raise ValueError(f"{who}: light_nfaces {tuple(nfaces.shape)} (stride "
+                         f"{nfaces.stride(0)}) and {light_data.shape[0]} light rows for "
+                         f"{f_max} faces a light")
+    return ([light_data.data_ptr(), light_data.stride(0), nfaces.data_ptr(), n_lights, f_max],
+            int(wide) << 3)
 
 
 def hit(wf: Wavefront, seed: int, bounce: int, rounds: int, hit_mask, tri, rows, gather: bool,
@@ -173,19 +203,12 @@ def hit(wf: Wavefront, seed: int, bounce: int, rounds: int, hit_mask, tri, rows,
     counter, wide = wf._operands(seed, bounce, rounds)
     _check(hit_mask, "hit", dev, torch.bool, (n,))
     faces, wide_tri = _faces(rows, gather, tri, dev, n)
-    _table(light_data, "light_data", dev, _LIGHT_COLS)
-    n_lights = light_nfaces.shape[0]
-    nfaces, _, wide_l = _ids(light_nfaces, "light_nfaces", dev, n_lights)
-    if nfaces.stride(0) != 1 or light_data.shape[0] != n_lights * f_max:
-        raise ValueError(f"pbrt: light_nfaces {tuple(nfaces.shape)} (stride "
-                         f"{nfaces.stride(0)}) and {light_data.shape[0]} light rows for "
-                         f"{f_max} faces a light")
+    lights, wide_l = _lights(light_data, light_nfaces, f_max, dev)
     if n:
         build.launch(
-            "pr_pbrt_hit", dev, *counter, wide | wide_tri | int(wide_l) << 3,
+            "pr_pbrt_hit", dev, *counter, wide | wide_tri | wide_l,
             wf.ro.data_ptr(), wf.rd.data_ptr(), hit_mask.data_ptr(), *faces,
-            light_data.data_ptr(), light_data.stride(0),
-            nfaces.data_ptr(), n_lights, f_max, wf.beta.data_ptr(), wf.radiance.data_ptr(),
+            *lights, wf.beta.data_ptr(), wf.radiance.data_ptr(),
             wf.alive.data_ptr(), wf.prev_pdf.data_ptr(), wf.prev_spec.data_ptr(),
             float(shadow_scale), wf.s_ro.data_ptr(), wf.s_rd.data_ptr(), wf.s_t1.data_ptr(),
             wf.nrm.data_ptr(), wf.nee.data_ptr(), wf.flags.data_ptr(), wf.n_rays.data_ptr())

@@ -5,7 +5,8 @@ Counterpart of perf/ablate.py, on its inputs (n = 2^20 rays from numpy
 RandomState(0), perf/microbench.py's):
 
   full_4bounce    trace_reference, 4 bounces (backend "auto": the
-                  whole-table kernels on the card)
+                  whole-table kernels on the card, the bounce the kernels
+                  of csrc/reference.cu)
   isect_only_4x2  4 x (the closest hit, then the any hit to it) on a
                   carried ray: the integrator's _closest and _any_hit, 4
                   launches each of B1 and B2

@@ -15,9 +15,11 @@ numpy.random.default_rng(0), seed 3, the 36-triangle Cornell box):
                 throughput update
   camera        generate_rays for one wavefront
   trace4_full   trace_reference, 4 bounces, with the kernels (4 launches
-                each of B1 and B2, csrc/intersect.cu)
+                each of B1 and B2, csrc/intersect.cu, and on the card of
+                the bounce kernels, csrc/reference.cu)
   trace4_stub   the same with both queries stubbed (TraceTables.custom):
-                the estimator's arithmetic alone
+                the estimator's arithmetic alone (on the card its bounce
+                kernels)
   pbrt_trace4_full, pbrt_trace4_stub
                 the same two rows for trace_pbrt
   kernel_pair   one closest-hit and one any-hit launch (B1 + B2)

@@ -28,7 +28,8 @@ of terrain res 64, 8,192 triangles):
                      same rays, unsorted, operands from _operands
                      (_prepare and _sc_order) made beforehand
   bounce4x           trace_reference, 4 bounces, on terrain res 64 with
-                     both queries stubbed (TraceTables.custom)
+                     both queries stubbed (TraceTables.custom); on the
+                     card the bounce is the kernels of csrc/reference.cu
 
 Each stage is a function of this module; the tests hold each against its
 JAX counterpart on the CPU, where wrap_full and wrap_bare run the sweep's

@@ -17,7 +17,8 @@ numpy RandomState(0): origins in the box, unit directions):
   vertex_gather  three vertex gathers through the face table
   trace_4bounce_{backend}
                  trace_reference, 4 bounces (MB_BACKEND, default "auto":
-                 "cuda" on the card), its rays counted into a RenderStats
+                 "cuda" on the card, where the bounce is the kernels of
+                 csrc/reference.cu), its rays counted into a RenderStats
                  for Mrays/s
   camera_raygen  generate_rays for one wavefront
 

@@ -222,7 +222,7 @@ GRAPH_REPS = 8
 PORT_KERNEL = re.compile(
     r"(void )?\(anonymous namespace\)::(closest|anyhit|cluster_closest|cluster_anyhit|"
     r"binned_prepass|binned_peel|binned_leaf|binned_leaf_streamed|kb_leaf|kb_extract|"
-    r"kb_cond|kb_ctz|threefry|pbrt_hit|pbrt_scatter)_kernel\b")
+    r"kb_cond|kb_ctz|threefry|pbrt_hit|pbrt_scatter|reference_hit|reference_nee)_kernel\b")
 # torch.cuda._sleep's kernel
 SENTINEL = "spin_kernel"
 
@@ -331,8 +331,9 @@ _recorder = None
 # the program's counters (count()) that Recorder.summary reports, 0 where
 # none was counted: rng_kernel, the launches of kernels/threefry.py's
 # Threefry kernel (a share of the `rng` spans' count); pbrt_kernel, the
-# launches of kernels/pbrt.py's two bounce kernels
-COUNTERS = ("rng_kernel", "pbrt_kernel")
+# launches of kernels/pbrt.py's two bounce kernels; reference_kernel, those
+# of kernels/reference.py's two
+COUNTERS = ("rng_kernel", "pbrt_kernel", "reference_kernel")
 
 
 def span(name: str):

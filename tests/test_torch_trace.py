@@ -121,7 +121,7 @@ def test_pass_spans(cornell, estimator):
     assert rec.counters == {} and "syncs" not in summary
     # the CPU's Threefry is the twin's and its bounce the eager one: no
     # evaluation or bounce went to a kernel
-    assert summary["rng_kernel"] == 0.0 and summary["pbrt_kernel"] == 0.0
+    assert summary["rng_kernel"] == summary["pbrt_kernel"] == summary["reference_kernel"] == 0.0
     assert summary["units"] == 1
     assert {k: v["count"] for k, v in summary["spans"].items()} == names
     # the children cover the pass but for its own Python
@@ -287,8 +287,8 @@ def test_count_charges_the_innermost_span():
         with prof.span("pass"):
             pass
     assert rec.counters == {} and rec.summary("pass")["rng_kernel"] == 0.0
-    assert set(prof.COUNTERS) == {"rng_kernel", "pbrt_kernel"}
-    assert rec.summary("pass")["pbrt_kernel"] == 0.0
+    assert set(prof.COUNTERS) == {"rng_kernel", "pbrt_kernel", "reference_kernel"}
+    assert rec.summary("pass")["pbrt_kernel"] == rec.summary("pass")["reference_kernel"] == 0.0
 
 
 def test_threads_keep_their_own_stacks():
