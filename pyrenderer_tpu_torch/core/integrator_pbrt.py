@@ -21,6 +21,19 @@ float64, a wavefront or table that requires grad under grad mode) runs the
 eager loop. The two paths share no logic: autograd needs the eager ops,
 the renderer needs few launches.
 
+Inside a recording() block a trace counts two program counters
+(utils/profiling.count) once it ends: closest_rays, the lanes live at
+the start of a bounce (those its closest-hit query tests), and
+shadow_rays, the lanes given a shadow ray with an open interval (the NEE
+candidates, those its any-hit query tests), summed over the bounces. On
+the kernels' path pbrt_hit counts both on the device and they are read
+when the block closes; the eager loop sums them only while a block is
+open. With with_stats the trace's rays traced are closest_rays plus the
+lanes still live after each hit (every non-emissive hit), so closest_rays
++ shadow_rays <= rays traced, equal where every such lane is an NEE
+candidate; the gap is the metal and glass vertices and the lambert
+vertices whose light sample faces away.
+
 Each bounce is the span `bounce` (utils/profiling.span), as
 trace_reference's. In the eager loop `nee` holds the light sample, the
 shadow query and the NEE contribution, and `scatter` the three BSDF
@@ -65,7 +78,7 @@ from pyrenderer_tpu_torch.core.integrator import (
 from pyrenderer_tpu_torch.core.sampling import INV_PI
 from pyrenderer_tpu_torch.kernels import pbrt as pbrt_kernels
 from pyrenderer_tpu_torch.scene.types import MAT_LAMBERT, MAT_METAL, Scene
-from pyrenderer_tpu_torch.utils.profiling import span
+from pyrenderer_tpu_torch.utils.profiling import count, counting, span
 
 
 def trace_pbrt(
@@ -103,10 +116,15 @@ def trace_pbrt(
     prev_spec = torch.zeros(n, dtype=torch.bool, device=ro.device)
     n_rays = torch.zeros((), dtype=torch.float32, device=ro.device)
     t_max = torch.full((), cfg.t_max, dtype=dtype, device=ro.device)
+    counted = counting()
+    closest_rays = shadow_rays = 0
 
     for bounce in range(cfg.max_bounces):
         with span("bounce"):
-            n_rays = n_rays + alive.sum(dtype=torch.float32)
+            live = alive.sum(dtype=torch.float32)
+            n_rays = n_rays + live
+            if counted:
+                closest_rays = closest_rays + live
 
             # dead lanes trace a zero interval, as in trace_reference
             t_clip = torch.where(alive, t_max, 0.0)
@@ -155,6 +173,8 @@ def trace_pbrt(
                 shadow_t1 = torch.where(nee_candidate, dist.detach() * (1.0 - cfg.shadow_eps), 0.0)
                 occ = _any_hit(scene, tables, cfg, p.detach(), wl.detach(), shadow_t1)
                 n_rays = n_rays + alive.sum(dtype=torch.float32)
+                if counted:
+                    shadow_rays = shadow_rays + nee_candidate.sum(dtype=torch.float32)
                 pdf_nee_sa = pdf_a * dist_sq / sampling.maximum(cos_light, 1e-6)
                 w_nee = bsdf.power_heuristic(pdf_nee_sa, bsdf.lambert_pdf(nrm, wl))
                 contrib = albedo * INV_PI * em * (
@@ -204,6 +224,9 @@ def trace_pbrt(
             ro = torch.where(alive[:, None], p, ro)
             rd = torch.where(alive[:, None], wi, rd)
 
+    if counted:
+        count("closest_rays", closest_rays)
+        count("shadow_rays", shadow_rays)
     if with_stats:
         return radiance, n_rays
     return radiance
@@ -224,6 +247,8 @@ def _trace_kernels(scene, cfg, ro, rd, pixel_id, sample_id, seed, tables, with_s
                 pbrt_kernels.scatter(wf, seed, bounce, rng._default_rounds(), *faces,
                                      occ.contiguous(), bounce >= cfg.russian_roulette_start,
                                      cfg.t_max)
+    count("closest_rays", wf.closest_rays)
+    count("shadow_rays", wf.shadow_rays)
     if with_stats:
         return wf.radiance, wf.n_rays
     return wf.radiance

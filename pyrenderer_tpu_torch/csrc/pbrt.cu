@@ -26,7 +26,8 @@
 // they are read. Likewise only the lane's own sampler runs (lambert, metal
 // or glass), where the eager bounce computes all three on every lane and
 // selects. Both kernels add their live lanes to the rays traced with one
-// atomic a warp, of integer counts, exact below 2^24.
+// atomic a warp, of integer counts, exact below 2^24; the hit kernel counts
+// the same way the lanes each query tests (closest_rays, shadow_rays).
 //
 // Arithmetic follows the eager bounce operation for operation and with
 // its functions (sqrtf, sinf, cosf, powf(u, 1/3) and IEEE division; the
@@ -121,17 +122,10 @@ __device__ __forceinline__ V3 dielectric_sample(V3 rd, V3 n, float ior, float u)
   return safe_normalize(wi);
 }
 
-// wide: bit 0 pixel, 1 sample, 2 tri, 3 light_nfaces are int64 (else int32).
-// In: the rays ro, rd (N, 3), the closest query's hit and tri, the face
-// rows (K >= 22, the extended table of integrator.pack_face_data), the
-// light table (integrator.pack_light_data) and light_nfaces, beta (N, 3),
-// prev_pdf, prev_spec. In place: radiance (N, 3), alive. Out: the shadow
-// ray s_ro (the hit point of a live lane, else ro), s_rd, s_t1 (0 where
-// the lane is no NEE candidate), the shading normal nrm (N, 3), the NEE
-// term nee (N, 3) that a clear shadow ray adds (candidates only), flags.
-// n_rays gets the lanes alive on entry.
-__global__ void __launch_bounds__(kThreads) pbrt_hit_kernel(
-    int64_t n, Counter ctr, const float* __restrict__ ro, const float* __restrict__ rd,
+// One live lane of pbrt_hit_kernel, its operands as the kernel's; returns
+// whether the lane is an NEE candidate (a shadow ray with an open interval).
+__device__ __forceinline__ bool hit_lane(
+    int64_t i, const Counter& ctr, const float* __restrict__ ro, const float* __restrict__ rd,
     const bool* __restrict__ hit, const void* __restrict__ tri,
     const float* __restrict__ rows, int64_t row_stride, int gather,
     const float* __restrict__ light_data, int64_t light_stride,
@@ -139,22 +133,16 @@ __global__ void __launch_bounds__(kThreads) pbrt_hit_kernel(
     const float* __restrict__ beta, float* __restrict__ radiance, bool* __restrict__ alive,
     const float* __restrict__ prev_pdf, const bool* __restrict__ prev_spec, float shadow_scale,
     float* __restrict__ s_ro, float* __restrict__ s_rd, float* __restrict__ s_t1,
-    float* __restrict__ nrm_out, float* __restrict__ nee_out, uint8_t* __restrict__ flags,
-    float* __restrict__ n_rays) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const bool in = i < n;
-  const bool live = in && alive[i];
-  count_lanes(live, n_rays);
-  if (!in) return;
+    float* __restrict__ nrm_out, float* __restrict__ nee_out, uint8_t* __restrict__ flags) {
   const V3 o = load3(ro + 3 * i), d = load3(rd + 3 * i);
-  if (!live || !hit[i]) {
-    // dead, or escaped: no emission, no shadow ray
-    if (live) alive[i] = false;
+  if (!hit[i]) {
+    // escaped: no emission, no shadow ray
+    alive[i] = false;
     store3(s_ro + 3 * i, o);
     store3(s_rd + 3 * i, d);
     s_t1[i] = 0.0f;
     flags[i] = 0;
-    return;
+    return false;
   }
 
   const float* row = face_row(rows, row_stride, gather, tri, ctr.wide & 4, i);
@@ -187,7 +175,7 @@ __global__ void __launch_bounds__(kThreads) pbrt_hit_kernel(
     store3(s_rd + 3 * i, d);
     s_t1[i] = 0.0f;
     flags[i] = 0;
-    return;
+    return false;
   }
   store3(s_ro + 3 * i, p);
   store3(nrm_out + 3 * i, nrm);
@@ -222,6 +210,51 @@ __global__ void __launch_bounds__(kThreads) pbrt_hit_kernel(
   store3(s_rd + 3 * i, wl);
   s_t1[i] = t1;
   flags[i] = f;
+  return (f & kCandidate) != 0;
+}
+
+// wide: bit 0 pixel, 1 sample, 2 tri, 3 light_nfaces are int64 (else int32).
+// In: the rays ro, rd (N, 3), the closest query's hit and tri, the face
+// rows (K >= 22, the extended table of integrator.pack_face_data), the
+// light table (integrator.pack_light_data) and light_nfaces, beta (N, 3),
+// prev_pdf, prev_spec. In place: radiance (N, 3), alive. Out: the shadow
+// ray s_ro (the hit point of a live lane, else ro), s_rd, s_t1 (0 where
+// the lane is no NEE candidate), the shading normal nrm (N, 3), the NEE
+// term nee (N, 3) that a clear shadow ray adds (candidates only), flags.
+// n_rays and closest_rays get the lanes alive on entry (those the closest
+// query tested), shadow_rays the NEE candidates (those the any-hit query
+// tests).
+__global__ void __launch_bounds__(kThreads) pbrt_hit_kernel(
+    int64_t n, Counter ctr, const float* __restrict__ ro, const float* __restrict__ rd,
+    const bool* __restrict__ hit, const void* __restrict__ tri,
+    const float* __restrict__ rows, int64_t row_stride, int gather,
+    const float* __restrict__ light_data, int64_t light_stride,
+    const void* __restrict__ light_nfaces, int n_lights, int f_max,
+    const float* __restrict__ beta, float* __restrict__ radiance, bool* __restrict__ alive,
+    const float* __restrict__ prev_pdf, const bool* __restrict__ prev_spec, float shadow_scale,
+    float* __restrict__ s_ro, float* __restrict__ s_rd, float* __restrict__ s_t1,
+    float* __restrict__ nrm_out, float* __restrict__ nee_out, uint8_t* __restrict__ flags,
+    float* __restrict__ n_rays, float* __restrict__ closest_rays,
+    float* __restrict__ shadow_rays) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const bool in = i < n;
+  const bool live = in && alive[i];
+  count_lanes(live, n_rays);
+  count_lanes(live, closest_rays);
+  bool candidate = false;
+  if (live) {
+    candidate = hit_lane(i, ctr, ro, rd, hit, tri, rows, row_stride, gather, light_data,
+                         light_stride, light_nfaces, n_lights, f_max, beta, radiance, alive,
+                         prev_pdf, prev_spec, shadow_scale, s_ro, s_rd, s_t1, nrm_out, nee_out,
+                         flags);
+  } else if (in) {
+    // dead: no emission, no shadow ray
+    store3(s_ro + 3 * i, load3(ro + 3 * i));
+    store3(s_rd + 3 * i, load3(rd + 3 * i));
+    s_t1[i] = 0.0f;
+    flags[i] = 0;
+  }
+  count_lanes(candidate, shadow_rays);
 }
 
 // In: the counter, the face rows as pbrt_hit_kernel took them, the any-hit
@@ -316,14 +349,15 @@ int pr_pbrt_hit(int64_t n, int bounce, uint32_t k0, int rounds, const void* pixe
                 const void* light_nfaces, int n_lights, int f_max, const float* beta,
                 float* radiance, bool* alive, const float* prev_pdf, const bool* prev_spec,
                 float shadow_scale, float* s_ro, float* s_rd, float* s_t1, float* nrm,
-                float* nee, uint8_t* flags, float* n_rays, void* stream) {
+                float* nee, uint8_t* flags, float* n_rays, float* closest_rays,
+                float* shadow_rays, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const Counter ctr = {pixel, pixel_stride, sample, sample_stride, sample_const,
                        wide, k0, rounds, bounce};
   pbrt_hit_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       n, ctr, ro, rd, hit, tri, rows, row_stride, gather, light_data, light_stride,
       light_nfaces, n_lights, f_max, beta, radiance, alive, prev_pdf, prev_spec, shadow_scale,
-      s_ro, s_rd, s_t1, nrm, nee, flags, n_rays);
+      s_ro, s_rd, s_t1, nrm, nee, flags, n_rays, closest_rays, shadow_rays);
   return (int)cudaGetLastError();
 }
 

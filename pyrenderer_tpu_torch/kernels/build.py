@@ -110,7 +110,7 @@ def _declare(lib) -> None:
     lib.pr_threefry.restype = ctypes.c_int
     counter = [i64, i32, u32, i32, p, i64, p, i64, u32, i32]
     lib.pr_pbrt_hit.argtypes = counter + [p, p, p, p, p, i64, i32, p, i64, p, i32, i32,
-                                          p, p, p, p, p, f32] + [p] * 8
+                                          p, p, p, p, p, f32] + [p] * 10
     lib.pr_pbrt_hit.restype = ctypes.c_int
     lib.pr_pbrt_scatter.argtypes = counter + [p, p, i64, i32] + [p] * 13 + [i32, f32, p, p]
     lib.pr_pbrt_scatter.restype = ctypes.c_int

@@ -73,7 +73,11 @@ class Wavefront:
     specular; t1: the next closest query's interval (t_max where alive,
     else 0); pixel, sample: the counter operands (sample None where it is
     the one value sample_const); n_rays: the rays traced (a float32
-    scalar, as the eager trace counts them). Written by ``hit``: the
+    scalar, as the eager trace counts them); closest_rays, shadow_rays:
+    the lanes ``hit`` found live on entry (those the closest query
+    tested) and those it gave a shadow ray with an open interval (those
+    the any-hit query tests), float32 scalars that share one tensor with
+    n_rays, so that one fill zeroes all three. Written by ``hit``: the
     shadow ray s_ro, s_rd, s_t1, the shading normal nrm, the NEE term
     nee of a clear shadow ray, flags. prev_pdf, prev_spec and nrm are None
     in a wavefront started for the reference estimator's kernels."""
@@ -90,6 +94,8 @@ class Wavefront:
     sample: torch.Tensor | None
     sample_const: int
     n_rays: torch.Tensor
+    closest_rays: torch.Tensor
+    shadow_rays: torch.Tensor
     s_ro: torch.Tensor
     s_rd: torch.Tensor
     s_t1: torch.Tensor
@@ -117,6 +123,7 @@ class Wavefront:
                 sample_t = sample_t.to(torch.int64)
             sample_t = sample_t.expand(n)
         empty3 = lambda: torch.empty((n, 3), dtype=torch.float32, device=dev)  # noqa: E731
+        counts = torch.zeros(3, dtype=torch.float32, device=dev)
         return cls(
             ro=ro, rd=rd, beta=torch.ones_like(ro), radiance=torch.zeros_like(ro),
             alive=torch.ones(n, dtype=torch.bool, device=dev),
@@ -124,7 +131,7 @@ class Wavefront:
             prev_spec=torch.zeros(n, dtype=torch.bool, device=dev) if pbrt else None,
             t1=torch.full((n,), t_max, dtype=torch.float32, device=dev),
             pixel=pixel, sample=sample_t, sample_const=sample_const & _U32,
-            n_rays=torch.zeros((), dtype=torch.float32, device=dev),
+            n_rays=counts[0], closest_rays=counts[1], shadow_rays=counts[2],
             s_ro=empty3(), s_rd=empty3(), s_t1=torch.empty(n, dtype=torch.float32, device=dev),
             nrm=empty3() if pbrt else None, nee=empty3(),
             flags=torch.empty(n, dtype=torch.uint8, device=dev))
@@ -198,10 +205,13 @@ def hit(wf: Wavefront, seed: int, bounce: int, rounds: int, hit_mask, tri, rows,
     by tri, or (not `gather`) the lanes' own rows; light_data
     (integrator.pack_light_data) and light_nfaces (L,) of L lights of
     f_max faces; shadow_scale the shadow ray's extent over the light's
-    distance (1 - shadow_eps). One launch, none for no lanes."""
+    distance (1 - shadow_eps). Adds its lanes to wf.n_rays,
+    wf.closest_rays and wf.shadow_rays. One launch, none for no lanes."""
     dev, n = wf.ro.device, wf.ro.shape[0]
     counter, wide = wf._operands(seed, bounce, rounds)
     _check(hit_mask, "hit", dev, torch.bool, (n,))
+    for name in ("closest_rays", "shadow_rays"):
+        _check(getattr(wf, name), name, dev, torch.float32, ())
     faces, wide_tri = _faces(rows, gather, tri, dev, n)
     lights, wide_l = _lights(light_data, light_nfaces, f_max, dev)
     if n:
@@ -211,7 +221,8 @@ def hit(wf: Wavefront, seed: int, bounce: int, rounds: int, hit_mask, tri, rows,
             *lights, wf.beta.data_ptr(), wf.radiance.data_ptr(),
             wf.alive.data_ptr(), wf.prev_pdf.data_ptr(), wf.prev_spec.data_ptr(),
             float(shadow_scale), wf.s_ro.data_ptr(), wf.s_rd.data_ptr(), wf.s_t1.data_ptr(),
-            wf.nrm.data_ptr(), wf.nee.data_ptr(), wf.flags.data_ptr(), wf.n_rays.data_ptr())
+            wf.nrm.data_ptr(), wf.nee.data_ptr(), wf.flags.data_ptr(), wf.n_rays.data_ptr(),
+            wf.closest_rays.data_ptr(), wf.shadow_rays.data_ptr())
         hit.launches += 1
         count("pbrt_kernel")
 

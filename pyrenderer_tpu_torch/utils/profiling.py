@@ -328,11 +328,14 @@ class _NoSpan:
 NO_SPAN = _NoSpan()
 # the Recorder of the open recording() block, None outside one
 _recorder = None
+# the Recorder of the last recording() block that closed
+_last = None
 # the program's counters (count()) that Recorder.summary reports, 0 where
 # none was counted: rng_kernel, the launches of kernels/threefry.py's
 # Threefry kernel (a share of the `rng` spans' count); pbrt_kernel, the
 # launches of kernels/pbrt.py's two bounce kernels; reference_kernel, those
-# of kernels/reference.py's two
+# of kernels/reference.py's two. Others are reported where counted: the
+# pbrt trace's closest_rays and shadow_rays (core/integrator_pbrt.py)
 COUNTERS = ("rng_kernel", "pbrt_kernel", "reference_kernel")
 
 
@@ -348,13 +351,30 @@ def span(name: str):
     return Span(rec, name)
 
 
-def count(name: str, n: int = 1) -> None:
+def count(name: str, n=1) -> None:
     """Add `n` to the program counter `name` of the open recording() block,
-    charged to the innermost open span of the calling thread. Outside a
+    charged to the innermost open span of the calling thread. `n` is a
+    number or a one-element tensor on any device, which is not read here:
+    the recorder keeps it and reads all such counts in one copy when the
+    block closes, so a count that lives on the device adds no wait for it
+    (the tensor must not be written after it is counted). Outside a
     recording() block it does nothing but one global check."""
     rec = _recorder
     if rec is not None:
         rec._count(name, n)
+
+
+def last_recording():
+    """The Recorder of the last recording() block that closed without an
+    error, its tensor counts read; None before any. It lets a block's
+    spans and counters be read by code that did not hold the block."""
+    return _last
+
+
+def counting() -> bool:
+    """Whether a recording() block is open, for a count that costs work to
+    make (a device sum) and is made only where it is recorded."""
+    return _recorder is not None
 
 
 class Span:
@@ -396,7 +416,8 @@ class Recorder:
 
     spans: every Span in the order opened. counters: {"syncs": the host's
     waits for the device in the block} while they are counted (on a CUDA
-    device), and {name: total} of each counter count() added to.
+    device), and {name: total} of each counter count() added to (a count
+    given as a tensor only once the block has closed).
     offset_ns: the profiler's clock (epoch
     nanoseconds, as a torch.profiler event's start_ns()) less
     perf_counter_ns, read once; start_ns + offset_ns places a span on a
@@ -408,6 +429,8 @@ class Recorder:
         self.offset_ns = time.time_ns() - time.perf_counter_ns()
         self.spans = []
         self.counters = {"syncs": 0} if count_syncs else {}
+        # (tensor, span or None, counter name) of the counts given as tensors
+        self._pending = []
         self._local = threading.local()
         self._lock = threading.Lock()
         self._unit = None
@@ -453,13 +476,35 @@ class Recorder:
         if stack:
             stack[-1].syncs += 1
 
-    def _count(self, name: str, n: int) -> None:
+    def _count(self, name: str, n) -> None:
         """count() on the calling thread."""
-        self.counters[name] = self.counters.get(name, 0) + n
         stack = self._stack()
-        if stack:
-            counts = stack[-1].counts
-            counts[name] = counts.get(name, 0) + n
+        if torch.is_tensor(n):
+            with self._lock:
+                self._pending.append((n, stack[-1] if stack else None, name))
+            return
+        self._add(name, n, stack[-1] if stack else None)
+
+    def _add(self, name: str, n, span) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+        if span is not None:
+            span.counts[name] = span.counts.get(name, 0) + n
+
+    def _read_pending(self) -> None:
+        """Add the counts given as tensors to the counters and their spans:
+        one stack and one copy to the host per device and dtype, integral
+        values as ints."""
+        groups = {}
+        for k, (t, _, _) in enumerate(self._pending):
+            groups.setdefault((t.device, t.dtype), []).append(k)
+        values = [0] * len(self._pending)
+        for idx in groups.values():
+            read = torch.stack([self._pending[k][0].reshape(()) for k in idx]).cpu().tolist()
+            for k, v in zip(idx, read):
+                values[k] = int(v) if float(v).is_integer() else v
+        for (_, span, name), v in zip(self._pending, values):
+            self._add(name, v, span)
+        self._pending = []
 
     def children(self) -> dict:
         """{span index: [its child spans]}."""
@@ -560,9 +605,10 @@ def recording(device=None):
     torch.cuda.synchronize(), which the mode does not see), each charged
     to the innermost open span of the thread that waited; the previous
     mode and warning filters come back on exit. Off CUDA no wait is
-    counted.
+    counted. The counts count() was given as tensors are read once the
+    block has closed and the waits are no longer counted.
     Recording blocks do not nest."""
-    global _recorder
+    global _recorder, _last
     if _recorder is not None:
         raise RuntimeError("recording() is already open")
     cuda = (torch.device(device).type == "cuda" if device is not None
@@ -577,3 +623,5 @@ def recording(device=None):
             yield rec
         finally:
             _recorder = None
+    rec._read_pending()
+    _last = rec

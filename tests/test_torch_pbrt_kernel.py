@@ -142,7 +142,8 @@ def _dot(a, b):
 def _emulated_hit(n, bounce, k0, rounds, pixel, pixel_stride, sample, sample_stride,
                   sample_const, wide, ro, rd, hit, tri, rows, row_stride, gather, light_data,
                   light_stride, light_nfaces, n_lights, f_max, beta, radiance, alive, prev_pdf,
-                  prev_spec, shadow_scale, s_ro, s_rd, s_t1, nrm_out, nee_out, flags, n_rays):
+                  prev_spec, shadow_scale, s_ro, s_rd, s_t1, nrm_out, nee_out, flags, n_rays,
+                  closest_rays, shadow_rays):
     """pbrt_hit_kernel's contract, in the eager bounce's arithmetic."""
     ctr = _Counter(n, bounce, k0, rounds, pixel, pixel_stride, sample, sample_stride,
                    sample_const, wide)
@@ -151,6 +152,7 @@ def _emulated_hit(n, bounce, k0, rounds, pixel, pixel_stride, sample, sample_str
     prev_pdf = _f32(prev_pdf, n)
     live = alive.clone()
     _f32(n_rays, 1)[0] += live.sum(dtype=torch.float32)
+    _f32(closest_rays, 1)[0] += live.sum(dtype=torch.float32)
     row = _face_rows(ctr, tri, rows, row_stride, gather)
     v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     albedo, sign = row[:, 9:12], row[:, 12]
@@ -201,6 +203,7 @@ def _emulated_hit(n, bounce, k0, rounds, pixel, pixel_stride, sample, sample_str
     _f32(s_ro, n, 3)[:] = torch.where(now[:, None], p, ro)
     _f32(s_rd, n, 3)[:] = torch.where(lambert[:, None], wl, rd)
     _f32(s_t1, n)[:] = torch.where(cand, dist * shadow_scale, 0.0)
+    _f32(shadow_rays, 1)[0] += cand.sum(dtype=torch.float32)
     _f32(nrm_out, n, 3)[now] = nrm[now]
     _f32(nee_out, n, 3)[cand] = (beta * contrib)[cand]
     _mem(ctypes.c_uint8, np.uint8, flags, n)[:] = torch.where(
