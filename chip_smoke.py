@@ -336,6 +336,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    mean over its 64 launches and over the bounce-0 launches, whose lanes
    are all live) beside its bound (the bytes a live lane reads and
    writes, each once).
+38. The film kernel (csrc/film.cu) against its twin film.write_ref on the
+   card: every 2^16-lane Morton chunk of a 1024x1024 film, in float32 and
+   in float64, from sums over many magnitudes with negative zeros, zeros,
+   infinities and a NaN: the staging tensors' bits equal (NaNs at the same
+   places), every pixel written, one launch a chunk; one float32 chunk
+   timed beside its twin, with its bound (the bytes a lane reads and
+   writes, each once).
 
 Wherever a phase counts launches exactly, the Threefry kernel's are among
 them: one launch a draw of the counter RNG, draws() a chunk-trace (on
@@ -346,7 +353,9 @@ debug records, 2 + 3 a bounce; the eager pbrt bounce, under autograd,
 analytic tracer's 1 + 4 a bounce, a harness row's own draws. Where a
 bounce runs on the kernels' path, each chunk-bounce is one launch of each
 of pbrt_hit and pbrt_scatter (pbrt_launches()) or of reference_hit and
-reference_nee (reference_launches()).
+reference_nee (reference_launches()). Where a frame runs uniform passes
+(render/driver.ProgressiveRenderer), each chunk of a pass is one launch of
+the film kernel (film_launches()), on the CPU one call of its twin.
 
 Every main-path run above (the frames of phases 3, 7, 11, 14, 17-21,
 24-25, 27 and 30-33, the CLI runs, the bench rows, the harness, the gradient and
@@ -503,6 +512,10 @@ KERNELS = {
                       "none (pyrenderer_tpu/core/integrator.py trace_reference is jnp ops)"),
     "reference_nee": ("pyrenderer_tpu_torch/csrc/reference.cu",
                       "none (pyrenderer_tpu/core/integrator.py trace_reference is jnp ops)"),
+    # the pass's film order: no Pallas kernel, the JAX driver unpermutes
+    # and flips a pass's results on the host
+    "film": ("pyrenderer_tpu_torch/csrc/film.cu",
+             "none (pyrenderer_tpu/render/driver.py unpermutes on the host)"),
 }
 
 
@@ -549,6 +562,13 @@ def reference_launches(chunk_bounces):
     """The reference bounce kernels' launches of `chunk_bounces` bounces of
     chunk-traces on their path: one of each a bounce."""
     return {"reference_hit": chunk_bounces, "reference_nee": chunk_bounces}
+
+
+def film_launches(chunk_passes):
+    """The film kernel's launches of `chunk_passes` chunks of uniform passes
+    (render/driver.ProgressiveRenderer.render_one_pass): one a chunk a
+    pass, whatever its spp_step."""
+    return {"film": chunk_passes}
 
 
 def counted(fn, label, expect=None, twins=None):
@@ -705,7 +725,7 @@ def main() -> int:
         (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI reference frame",
                                {"closest_hit": expect, "occluded": expect,
                                 "threefry": draws(expect // depth),
-                                **reference_launches(expect)})
+                                **reference_launches(expect), **film_launches(expect // depth)})
         check(rc == 0, f"cli.main returned {rc}")
         check(os.path.getsize(png) > 0 and os.path.getsize(exr) > 0, "outputs missing")
         hdr = read_exr(exr)
@@ -766,7 +786,9 @@ def main() -> int:
     rng_entries = threefry_phase(dev, card)
     pbrt_entries = pbrt_phase(dev, card)
     ref_entries = reference_phase(dev, card, ctx)
-    for entries in (large, binned, probes, rounds, rng_entries, pbrt_entries, ref_entries):
+    film_entries = film_phase(dev, card)
+    for entries in (large, binned, probes, rounds, rng_entries, pbrt_entries, ref_entries,
+                    film_entries):
         max_abs_err.update(entries["max_abs_err"])
         ms.update(entries["ms"])
         plain_ms.update(entries["plain_ms"])
@@ -905,7 +927,8 @@ def large_scene_phases(dev, card):
     expect = 4 * 4 * 4
     film, _ = counted(lambda: renderer.run(quiet=True), "terrain100k cluster frame",
                       {"cluster_closest_hit": expect, "cluster_occluded": expect,
-                       "threefry": draws(expect // 4), **reference_launches(expect)})
+                       "threefry": draws(expect // 4), **reference_launches(expect),
+                       **film_launches(expect // 4)})
     hdr = film.hdr
     check(hdr.shape == (512, 512, 3) and bool(np.isfinite(hdr).all()), "HDR not finite")
     print(f"HDR mean {float(hdr.mean()):.6f}", flush=True)
@@ -1498,7 +1521,7 @@ def pbrt_phases(dev, card, mrays_reference):
         (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI pbrt frame",
                                {"closest_hit": expect, "occluded": expect,
                                 "threefry": draws(expect // depth, depth, "pbrt"),
-                                **pbrt_launches(expect)})
+                                **pbrt_launches(expect), **film_launches(expect // depth)})
         check(rc == 0, f"cli.main returned {rc}")
         hdr = read_exr(exr)
     check(hdr.shape == (res, res, 3) and bool(np.isfinite(hdr).all()), "pbrt HDR not finite")
@@ -1620,9 +1643,10 @@ def resume_phases(dev, card, ctx):
     for rounds, c, expect in (
             (2, cfg2, {"cluster_closest_hit": 128, "cluster_closest_suspend": 64,
                        "cluster_closest_resume": 64, "cluster_occluded": 64,
-                       "threefry": draws(16), **reference_launches(64)}),
+                       "threefry": draws(16), **reference_launches(64), **film_launches(16)}),
             (1, ctx["cfg"], {"cluster_closest_hit": 64, "cluster_occluded": 64,
-                             "threefry": draws(16), **reference_launches(64)})):
+                             "threefry": draws(16), **reference_launches(64),
+                             **film_launches(16)})):
         renderer = ProgressiveRenderer(ctx["scene"], ctx["camera"], c, chunk=1 << 16, accel=cs)
         check(renderer.backend == "cluster" and renderer.tables.cluster_sort
               and renderer.tables.cluster_watertight, f"rounds {rounds}: not the sorted sweep")
@@ -1741,7 +1765,7 @@ def accel_phases(dev, card, ctx):
                           {"cluster_closest_hit": per * per_query,
                            "cluster_occluded": per * per_query,
                            "threefry": draws(per_query // 4),
-                           **reference_launches(per_query)})
+                           **reference_launches(per_query), **film_launches(per_query // 4)})
         check(bool(np.isfinite(film.hdr).all()), f"{backend}: HDR not finite")
         frames[backend] = film.hdr
         mrays[backend] = renderer.rays_traced / renderer.render_seconds / 1e6
@@ -1764,12 +1788,13 @@ def accel_phases(dev, card, ctx):
         renderer = ProgressiveRenderer(*to_device(host8, cam32, where), cfg8, backend="bvh")
         check(renderer.backend == "bvh" and isinstance(renderer.accel, bvh_mod.FlatBVH),
               "not the BVH")
-        # no kernel but the RNG's and the bounce's; on the CPU the RNG's
-        # twin and the eager bounce
+        # no kernel but the RNG's, the bounce's and the film's; on the CPU
+        # the RNG's and the film's twins and the eager bounce
         traces = cfg8.spp * -(-32 * 32 // renderer.chunk)
         on_card = where != "cpu"
-        launches = {"threefry": draws(traces), **reference_launches(traces * 4)}
-        twins = {"threefry": draws(traces, 4, "reference_eager")}
+        launches = {"threefry": draws(traces), **reference_launches(traces * 4),
+                    **film_launches(traces)}
+        twins = {"threefry": draws(traces, 4, "reference_eager"), **film_launches(traces)}
         film, _ = counted(lambda r=renderer: r.run(quiet=True), f"terrain8k bvh frame ({where})",
                           launches if on_card else {}, None if on_card else twins)
         films[str(where)] = (film.hdr, renderer.rays_traced / renderer.render_seconds / 1e6)
@@ -1784,7 +1809,7 @@ def accel_phases(dev, card, ctx):
 
     phase("21 pbrt bounce kernels behind the cluster queries: terrain100k, sort on and off")
     expect = {"cluster_closest_hit": 64, "cluster_occluded": 64,
-              "threefry": draws(16, 4, "pbrt"), **pbrt_launches(64)}
+              "threefry": draws(16, 4, "pbrt"), **pbrt_launches(64), **film_launches(16)}
     hdr, mrays = {}, {}
     for sort in (True, False):
         c = ctx["cfg"].replace(estimator="pbrt", cluster_sort=sort)
@@ -2150,8 +2175,10 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
     expect = depth * (8 * chunks + sum(math.ceil(k / chunk) for k in sweeps))
     print(f"adaptive sweeps refined k_i = {sweeps} pixels; launches of B1 and B2 expected "
           f"4 x (8 x {chunks} + sum ceil(k_i / 2^16)) = {expect}", flush=True)
+    # the 8 uniform passes write the film's staging tensor, the sweeps not
     check(launches == {"closest_hit": expect, "occluded": expect,
-                       "threefry": draws(expect // depth), **reference_launches(expect)},
+                       "threefry": draws(expect // depth), **reference_launches(expect),
+                       **film_launches(8 * chunks)},
           f"adaptive frame: launches {launches}, expected {expect} of each whole-table "
           f"and reference bounce kernel and {draws(expect // depth)} Threefry launches")
     spp = film.spp_map
@@ -2197,7 +2224,8 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
                             "uninterrupted 4-spp frame",
                             {"closest_hit": per_run, "occluded": per_run,
                              "threefry": draws(per_run // depth),
-                             **reference_launches(per_run)})[0]
+                             **reference_launches(per_run),
+                             **film_launches(per_run // depth)})[0]
     render_pass = drv._render_pass
     calls = {"n": 0, "ran": 0}
     # a chunk call in the middle of pass 1 raises before it renders; the
@@ -2225,10 +2253,13 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
     # the raising pass's first chunks, the rejected pass, then the 4 passes
     check(calls["ran"] == raise_at - 1 + 5 * chunks and calls["n"] == calls["ran"] + 1,
           f"chunk calls {calls}: the injections did not fire as planned")
+    # each chunk that rendered wrote the staging tensor, the rejected pass's too
     check(launches == {"closest_hit": expect, "occluded": expect,
-                       "threefry": draws(calls["ran"]), **reference_launches(expect)},
+                       "threefry": draws(calls["ran"]), **reference_launches(expect),
+                       **film_launches(calls["ran"])},
           f"resilient frame: launches {launches}, expected {expect} of each whole-table "
-          f"and reference bounce kernel and {draws(calls['ran'])} Threefry launches")
+          f"and reference bounce kernel, {draws(calls['ran'])} Threefry and "
+          f"{calls['ran']} film launches")
     check(np.array_equal(film.radiance_sum, clean.film.radiance_sum)
           and np.array_equal(film.sq_sum, clean.film.sq_sum)
           and np.array_equal(film.spp_map, clean.film.spp_map),
@@ -2258,7 +2289,8 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
                 "--out", os.path.join(tmp, "l.png"), "--hdr-out", os.path.join(tmp, "l.exr")]
         (rc, log), _ = counted(lambda: run_cli(cli, argv), "CLI --live --resilient 256x256",
                                {"closest_hit": 2 * depth, "occluded": 2 * depth,
-                                "threefry": draws(2), **reference_launches(2 * depth)})
+                                "threefry": draws(2), **reference_launches(2 * depth),
+                                **film_launches(2)})
     check(rc == 0, f"cli.main --live --resilient returned {rc}")
     check("\u2580" in log and "2/2 spp" in log and "Mrays/s" not in log,
           "--live drew no ANSI frame (or did not silence the progress prints)")
@@ -2296,7 +2328,8 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
             ((rc, log), wall), _ = counted(lambda: timed(lambda: run_cli(cli, argv)),
                                            "CLI matmul frame",
                                            {"threefry": draws(16 * chunks),
-                                            **reference_launches(16 * chunks * depth)})
+                                            **reference_launches(16 * chunks * depth),
+                                            **film_launches(16 * chunks)})
             check(rc == 0, f"cli.main --backend matmul returned {rc}")
             hdr = read_exr(exr)
         hit, t, tri = isect.intersect_matmul(scene, ro, rd, T0, T_MAX)
@@ -2308,7 +2341,8 @@ def render_mode_phases(dev, card, hdr_cuda, ro, rd, table):
             lambda: timed(lambda: matmul_decisions(scene, cam, cfg16)),
             "cuda frame with every query asked of the matmul backend too",
             {"closest_hit": 16 * chunks * depth, "occluded": 16 * chunks * depth,
-             "threefry": draws(16 * chunks), **reference_launches(16 * chunks * depth)})
+             "threefry": draws(16 * chunks), **reference_launches(16 * chunks * depth),
+             **film_launches(16 * chunks)})
         check(torch.get_float32_matmul_precision() == "high",
               "the matmul backend did not restore the process's precision")
         # what the guard prevents, on phase 2's rays
@@ -2965,6 +2999,71 @@ def threefry_phase(dev, card):
           f"{b[0]:.6f} ms ({b[1]}) ({card})", flush=True)
     return {"max_abs_err": {"threefry": err}, "ms": {"threefry": ms},
             "plain_ms": {"threefry": plain_ms}, "bounds": {"threefry": b}}
+
+
+def film_phase(dev, card):
+    """Phase 38: the film kernel against its twin on the card, bit for bit
+    on every Morton chunk of a 1024x1024 film in float32 and float64, and
+    timed on one chunk; returns its kernel-line entries."""
+    from pyrenderer_tpu_torch.core.camera import morton_pixel_order
+    from pyrenderer_tpu_torch.kernels import film as fk
+
+    phase(f"38 the film kernel (csrc/film.cu) against its twin: every {N_RAYS}-lane Morton "
+          "chunk of a 1024x1024 film, float32 and float64")
+    w = h = 1024
+    perm, _ = morton_pixel_order(w, h)
+    ys, xs = np.mgrid[0:h, 0:w]
+    px = torch.as_tensor(xs.reshape(-1)[perm], device=dev)
+    py = torch.as_tensor(ys.reshape(-1)[perm], device=dev)
+    g = torch.Generator(device=dev).manual_seed(2**31 + 13)
+
+    def chunk_sums(dtype):
+        """A chunk's sums over many magnitudes, with negative zeros, zeros,
+        infinities and a NaN, and their squares."""
+        scale = torch.exp2(torch.randint(-40, 40, (N_RAYS, 1), device=dev, generator=g).to(dtype))
+        sums = torch.randn(N_RAYS, 3, device=dev, generator=g, dtype=dtype) * scale
+        sums[:64] = -0.0
+        sums[64:128] = 0.0
+        sums[128, 0], sums[129, 1], sums[130, 2] = torch.inf, -torch.inf, torch.nan
+        return sums, sums * sums
+
+    err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        bits = torch.int32 if dtype == torch.float32 else torch.int64
+        got = torch.full((2, h, w, 3), 7.0, device=dev, dtype=dtype)
+        want = got.clone()
+        launches = fk.write.launches
+        for start in range(0, w * h, N_RAYS):
+            x, y = px[start:start + N_RAYS], py[start:start + N_RAYS]
+            sums, sqs = chunk_sums(dtype)
+            fk.write(got, sums, sqs, x, y)
+            fk.write_ref(want, sums, sqs, x, y)
+        torch.cuda.synchronize()
+        check(fk.write.launches == launches + w * h // N_RAYS,
+              f"film {dtype}: {fk.write.launches - launches} launches for {w * h // N_RAYS} "
+              f"chunks")
+        # a NaN's payload is the adder's: compare where it is, then bits
+        nan = torch.isnan(want)
+        same = (torch.equal(torch.isnan(got), nan)
+                and torch.equal(got.view(bits)[~nan], want.view(bits)[~nan]))
+        check(same, f"film {dtype}: the kernel's staging tensor differs from the twin's")
+        check(not bool((want == 7.0).any()), f"film {dtype}: a pixel was left unwritten")
+        fin = torch.isfinite(want)
+        err = max(err, float((got[fin] - want[fin]).abs().max()))
+        print(f"film {str(dtype)[6:]}: {w * h // N_RAYS} Morton chunks, every value's bits "
+              f"equal to the twin's (-0 written as +0, NaNs at the same places)", flush=True)
+    out = torch.empty((2, h, w, 3), device=dev)
+    x, y = px[:N_RAYS], py[:N_RAYS]
+    sums, sqs = chunk_sums(torch.float32)
+    ms, plain_ms = cuda_ms_pair(lambda: fk.write(out, sums, sqs, x, y),
+                                lambda: fk.write_ref(out, sums, sqs, x, y))
+    # a lane reads its sums and squares (12 each) and its pixel (8 + 8),
+    # writes 24, and adds 0 to six values
+    b = bound(6 * N_RAYS, N_RAYS * (12 + 12 + 8 + 8 + 24))
+    print(f"film: one {N_RAYS}-lane chunk, float32: kernel {ms:.5f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {b[0]:.6f} ms ({b[1]}) ({card})", flush=True)
+    return {"max_abs_err": {"film": err}, "ms": {"film": ms}, "plain_ms": {"film": plain_ms},
+            "bounds": {"film": b}}
 
 
 def pbrt_phase(dev, card):

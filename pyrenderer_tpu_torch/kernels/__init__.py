@@ -8,8 +8,8 @@ def wrappers():
     """Every kernel wrapper of the port, by the kernel's name: each counts
     the launches of its kernel (``.launches``) and, apart from them, the
     calls it served with its plain twin (``.twin_calls``)."""
-    from pyrenderer_tpu_torch.kernels import (binned, cluster, intersect, pbrt, reference,
-                                              threefry)
+    from pyrenderer_tpu_torch.kernels import (binned, cluster, film, intersect, pbrt,
+                                              reference, threefry)
     from pyrenderer_tpu_torch.perf import kernelbench
 
     return {
@@ -32,6 +32,7 @@ def wrappers():
         "pbrt_scatter": pbrt.scatter,
         "reference_hit": reference.hit,
         "reference_nee": reference.nee,
+        "film": film.write,
     }
 
 

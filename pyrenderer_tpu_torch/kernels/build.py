@@ -119,6 +119,8 @@ def _declare(lib) -> None:
     lib.pr_reference_hit.restype = ctypes.c_int
     lib.pr_reference_nee.argtypes = [i64, p, p, p, p, p]
     lib.pr_reference_nee.restype = ctypes.c_int
+    lib.pr_film.argtypes = [i64, p, p, p, p, i64, i64, i32, p, p]
+    lib.pr_film.restype = ctypes.c_int
 
 
 def build() -> str:

@@ -27,6 +27,7 @@ from pyrenderer_tpu_torch.core.camera import morton_pixel_order
 from pyrenderer_tpu_torch.core.film import Film
 from pyrenderer_tpu_torch.core.integrator import TraceTables, render_sample
 from pyrenderer_tpu_torch.core.tonemap import tonemap
+from pyrenderer_tpu_torch.kernels import film as film_kernel
 from pyrenderer_tpu_torch.scene.types import Camera, Scene
 from pyrenderer_tpu_torch.utils.checks import assert_all_finite
 from pyrenderer_tpu_torch.utils.image_io import write_hdr, write_png
@@ -38,13 +39,14 @@ REPORT_INTERVAL = 10  # passes between samples/s reports
 def _render_pass(scene, camera, cfg: RenderConfig, tables, first_sample: int,
                  n_samples: int, pixel_x, pixel_y):
     """(sum, sum of squares, rays traced) of `n_samples` sample radiances
-    per pixel, on the device, not synchronised."""
-    total = sq = rays = 0.0
+    per pixel, on the device, not synchronised. The sums start from the
+    first sample's values: kernels/film.write adds them to 0.0, which gives
+    the bits of a sum started from 0.0."""
+    rays = 0.0
     for s in range(n_samples):
         r, n = render_sample(scene, camera, cfg, cfg.seed, first_sample + s, pixel_x, pixel_y,
                              tables=tables, with_stats=True)
-        total = total + r
-        sq = sq + r * r
+        total, sq = (r, r * r) if s == 0 else (total + r, sq + r * r)
         rays = rays + n
     return total, sq, rays
 
@@ -98,15 +100,20 @@ class ProgressiveRenderer:
         self._validate = False
         # pixel coordinates in row-major order from the bottom row (the
         # adaptive sweeps index them); the uniform passes trace them in
-        # Morton order so each chunk is a compact screen block, and
-        # unpermute the results before they land on the film
+        # Morton order so each chunk is a compact screen block, and each
+        # chunk's sums land at its pixels' film places in the staging
+        # tensor, which reaches the host in one copy a pass
         ys, xs = np.mgrid[0:h, 0:w]
         self._px_np = xs.reshape(-1)
         self._py_np = ys.reshape(-1)
-        self._perm, self._inv_perm = morton_pixel_order(w, h)
+        perm, _ = morton_pixel_order(w, h)
         self.device = scene.vertices.device
-        self._px = torch.as_tensor(self._px_np[self._perm], device=self.device)
-        self._py = torch.as_tensor(self._py_np[self._perm], device=self.device)
+        self._px = torch.as_tensor(self._px_np[perm], device=self.device)
+        self._py = torch.as_tensor(self._py_np[perm], device=self.device)
+        dtype = scene.vertices.dtype
+        self._staging = torch.empty((2, h, w, 3), dtype=dtype, device=self.device)
+        self._host = torch.empty((2, h, w, 3), dtype=dtype,
+                                 pin_memory=self.device.type == "cuda")
         self._rays = torch.zeros((), dtype=torch.float64, device=self.device)
         self.render_seconds = 0.0
 
@@ -120,23 +127,19 @@ class ProgressiveRenderer:
     def render_one_pass(self) -> None:
         """One uniform spp_step pass over all pixels."""
         with span("pass"):
-            w, h = self.camera.resolution
-            sums, sqs, rays = [], [], 0.0
-            for start in range(0, w * h, self.chunk):
+            rays = 0.0
+            for start in range(0, self._px.shape[0], self.chunk):
+                px = self._px[start:start + self.chunk]
+                py = self._py[start:start + self.chunk]
                 with span("chunk"):
-                    s, q, n = _render_pass(
-                        self.scene, self.camera, self.cfg, self.tables, self.film.next_sample,
-                        self.cfg.spp_step, self._px[start:start + self.chunk],
-                        self._py[start:start + self.chunk])
-                sums.append(s)
-                sqs.append(q)
+                    s, q, n = _render_pass(self.scene, self.camera, self.cfg, self.tables,
+                                           self.film.next_sample, self.cfg.spp_step, px, py)
+                    film_kernel.write(self._staging, s, q, px, py)
                 rays = rays + n
             with span("readback"):
-                img = torch.cat(sums).cpu()
-                sq = torch.cat(sqs).cpu()
+                self._host.copy_(self._staging)
             with span("film"):
-                img = img.numpy()[self._inv_perm].reshape(h, w, 3)[::-1]
-                sq = sq.numpy()[self._inv_perm].reshape(h, w, 3)[::-1]
+                img, sq = self._host.numpy()
                 if self._validate:
                     # run_resilient's guard, before the film absorbs the
                     # pass: it can be retried with the same RNG counters

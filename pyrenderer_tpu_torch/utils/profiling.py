@@ -222,7 +222,8 @@ GRAPH_REPS = 8
 PORT_KERNEL = re.compile(
     r"(void )?\(anonymous namespace\)::(closest|anyhit|cluster_closest|cluster_anyhit|"
     r"binned_prepass|binned_peel|binned_leaf|binned_leaf_streamed|kb_leaf|kb_extract|"
-    r"kb_cond|kb_ctz|threefry|pbrt_hit|pbrt_scatter|reference_hit|reference_nee)_kernel\b")
+    r"kb_cond|kb_ctz|threefry|pbrt_hit|pbrt_scatter|reference_hit|reference_nee|film)"
+    r"_kernel\b")
 # torch.cuda._sleep's kernel
 SENTINEL = "spin_kernel"
 
@@ -334,9 +335,11 @@ _last = None
 # none was counted: rng_kernel, the launches of kernels/threefry.py's
 # Threefry kernel (a share of the `rng` spans' count); pbrt_kernel, the
 # launches of kernels/pbrt.py's two bounce kernels; reference_kernel, those
-# of kernels/reference.py's two. Others are reported where counted: the
-# pbrt trace's closest_rays and shadow_rays (core/integrator_pbrt.py)
-COUNTERS = ("rng_kernel", "pbrt_kernel", "reference_kernel")
+# of kernels/reference.py's two; film_kernel, those of kernels/film.py's
+# (one a chunk of a uniform pass on CUDA). Others are reported where
+# counted: the pbrt trace's closest_rays and shadow_rays
+# (core/integrator_pbrt.py)
+COUNTERS = ("rng_kernel", "pbrt_kernel", "reference_kernel", "film_kernel")
 
 
 def span(name: str):

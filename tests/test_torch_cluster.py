@@ -587,13 +587,13 @@ def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in c]
     assert sorted(c.split(" -c ")[1].split()[0].rsplit("/", 1)[1] for c in compiles) \
-        == ["binned.cu", "cluster.cu", "intersect.cu", "kernelbench.cu", "pbrt.cu",
+        == ["binned.cu", "cluster.cu", "film.cu", "intersect.cu", "kernelbench.cu", "pbrt.cu",
             "reference.cu", "rng.cu"]
     assert all(c.startswith(" ".join(build.NVCC_FLAGS)) for c in compiles)
     (link,) = [c for c in calls if " -c " not in c]
-    assert "-shared" in link and link.count(".o") == 7
+    assert "-shared" in link and link.count(".o") == 8
     assert os.path.exists(lib) and build.build() == lib   # reused by digest
-    assert len(log.read_text().splitlines()) == 8
+    assert len(log.read_text().splitlines()) == 9
 
 
 @pytest.mark.cuda

@@ -288,16 +288,18 @@ def test_wrappers_on_cpu_run_the_twins(operands):
 
 
 def test_kernel_counts_cover_every_wrapper(operands):
-    """kernels.wrappers() names the nineteen wrappers (the resume mode's two
-    passes, Threefry and both estimators' two bounce kernels among them);
+    """kernels.wrappers() names the twenty wrappers (the resume mode's two
+    passes, Threefry, both estimators' two bounce kernels and the film's
+    among them);
     reset_counters zeroes all of them and counts() reports the nonzero
     ones."""
     from pyrenderer_tpu_torch import kernels
 
     fns = kernels.wrappers()
-    assert len(fns) == 19 and {"kb_leaf", "kb_ctz", "closest_hit", "cluster_closest_suspend",
+    assert len(fns) == 20 and {"kb_leaf", "kb_ctz", "closest_hit", "cluster_closest_suspend",
                                "cluster_closest_resume", "threefry", "pbrt_hit",
-                               "pbrt_scatter", "reference_hit", "reference_nee"} <= set(fns)
+                               "pbrt_scatter", "reference_hit", "reference_nee",
+                               "film"} <= set(fns)
     assert all(hasattr(fn, "launches") and hasattr(fn, "twin_calls") for fn in fns.values())
     rcol, tri = operands
     kernels.reset_counters()

@@ -290,8 +290,10 @@ def test_count_charges_the_innermost_span():
         with prof.span("pass"):
             pass
     assert rec.counters == {} and rec.summary("pass")["rng_kernel"] == 0.0
-    assert set(prof.COUNTERS) == {"rng_kernel", "pbrt_kernel", "reference_kernel"}
-    assert rec.summary("pass")["pbrt_kernel"] == rec.summary("pass")["reference_kernel"] == 0.0
+    assert set(prof.COUNTERS) == {"rng_kernel", "pbrt_kernel", "reference_kernel",
+                                  "film_kernel"}
+    assert (rec.summary("pass")["pbrt_kernel"] == rec.summary("pass")["reference_kernel"]
+            == rec.summary("pass")["film_kernel"] == 0.0)
 
 
 def test_threads_keep_their_own_stacks():
