@@ -84,7 +84,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the prepass and of the path's leaf kernel, at least one launch of its
    overflow stage (the sweep, or the peel), no twin call and no
    whole-table launch, and the HDR against phase 7's "cluster" frame (close
-   > 0.999 at rtol 1e-3, median |diff| 0); prints the three frames' Mrays/s.
+   > 0.999 at rtol 1e-3, median |diff| 0); each frame recorded
+   (utils/profiling.recording), its counters against its launches: binned
+   pairs > 0 (at most W a live ray on the resident path), overflow rays at
+   most the live rays and counted on the resident path alone, one
+   bin_prepass span a prepass or peel launch; prints the three frames'
+   Mrays/s.
    Then one CLI render with --backend cluster_binned (Cornell, 64x64).
 12. Timings on the bounce-1 wavefront: each binned kernel alone and its
    twin, with its bound and ptxas's registers and spill; the prepass also
@@ -1211,6 +1216,7 @@ def binned_phases(dev, card, ctx):
     from pyrenderer_tpu_torch.perf.kernelbench import cuda_ms
     from pyrenderer_tpu_torch.render import cli
     from pyrenderer_tpu_torch.render.driver import ProgressiveRenderer
+    from pyrenderer_tpu_torch.utils.profiling import recording
 
     cs, refs = ctx["cs"], ctx["refs"]
     names = ("binned_prepass", "binned_peel", "binned_leaf", "binned_leaf_streamed")
@@ -1249,7 +1255,8 @@ def binned_phases(dev, card, ctx):
         check(renderer.backend == backend and renderer.tables.cluster_watertight
               and not renderer.tables.cluster_sort,
               f"{backend}: resolved {renderer.backend}, watertight/sort not on/off")
-        film, run = counted(lambda: renderer.run(quiet=True), f"terrain100k {backend} frame")
+        with recording(dev) as rec:
+            film, run = counted(lambda: renderer.run(quiet=True), f"terrain100k {backend} frame")
         hdr = film.hdr
         check(hdr.shape == (512, 512, 3) and bool(np.isfinite(hdr).all()), "HDR not finite")
         ref = ctx["hdr_cluster"]
@@ -1267,6 +1274,21 @@ def binned_phases(dev, card, ctx):
               f"{backend}: the overflow stage never ran")
         check("closest_hit" not in run and "occluded" not in run,
               f"{backend}: the path reached the whole-table kernels")
+        # the binned queries' counters and spans (kernels/binned.py) against
+        # the launches: one bin_prepass span a prepass or peel launch, each
+        # with its one read
+        c = rec.counters
+        rays, pairs, ovf = (c.get(k, 0) for k in ("binned_rays", "binned_pairs",
+                                                 "overflow_rays"))
+        n_prepass = sum(s.name == "bin_prepass" for s in rec.spans)
+        print(f"{backend}: binned_rays {rays}, binned_pairs {pairs}, overflow_rays {ovf}, "
+              f"bin_prepass spans {n_prepass}, syncs {c.get('syncs')}", flush=True)
+        most = kb._w_slots() * rays if backend == "cluster_binned" else float("inf")
+        check(0 < pairs <= most, f"{backend}: binned_pairs {pairs} against binned_rays {rays}")
+        check(ovf <= rays and (ovf > 0) == (backend == "cluster_binned"),
+              f"{backend}: overflow_rays {ovf} against binned_rays {rays}")
+        check(n_prepass == run["binned_prepass"] + run.get("binned_peel", 0),
+              f"{backend}: {n_prepass} bin_prepass spans against the prepass and peel launches")
         check(close > 0.999 and med == 0.0, f"{backend}: frame differs from the cluster frame")
         mrays[backend] = renderer.rays_traced / renderer.render_seconds / 1e6
     print("frames (terrain100k, 512x512, 4 spp, 4 bounces, Mrays/s as bench.py counts): "

@@ -34,12 +34,27 @@ Overflow rays (more than W crossing bins) are finished in one of two ways:
     memory.
 
 The leaf runs over the real pairs only: the one device-to-host read of a
-query (resident) or of a round (streamed), ``_count``, returns whether
-any ray overflowed together with the number of real pairs, and the sorted
-stream is cut to that prefix (the TPU's ``_tier_caps`` picked a static
-prefix for XLA's static shapes instead). Rays need no padding: a CUDA
-block per span of rays, one warp per live ray (prepass) or per ray with
-bits left (peel), one warp per pair (both leaves).
+query (resident) or of a round (streamed), ``_count``, returns the number
+of rays that overflowed together with the number of real pairs (and, on a
+query's first read inside a recording() block, the live rays the prepass
+tested), and the sorted stream is cut to that prefix (the TPU's
+``_tier_caps`` picked a static prefix for XLA's static shapes instead).
+Rays need no padding: a CUDA block per span of rays, one warp per live
+ray (prepass) or per ray with bits left (peel), one warp per pair (both
+leaves).
+
+Inside a recording() block (utils/profiling) a query records four spans:
+``bin_prepass`` (the prepass, or a streamed round's peel, and its
+``_count`` read: the query's host wait), ``bin_sort`` (the pair sort and
+its cut; the streamed path's blockify), ``bin_leaf`` (the leaf and the
+scatter-min) and ``bin_overflow`` (the
+resident path's residual sweep of the overflow rays, where some ray
+overflowed), each launch a ``launch`` span inside them; and three
+counters, host numbers from ``_count``'s read, so counting adds no wait:
+``binned_rays`` (the live rays the prepass tested: t1 >= t0, the
+kernel's rule), ``binned_pairs`` (the real pairs the leaves tested, every
+round) and ``overflow_rays`` (the rays the residual sweep finishes; the
+resident path only).
 
 Each kernel wrapper (``prepass``, ``peel``, ``leaf``, ``leaf_streamed``)
 takes the device from its tensors: on a CUDA tensor it launches the kernel
@@ -70,6 +85,7 @@ from pyrenderer_tpu_torch.accel.clusters import (
 )
 from pyrenderer_tpu_torch.kernels import build
 from pyrenderer_tpu_torch.kernels import cluster as sweep
+from pyrenderer_tpu_torch.utils.profiling import count, counting, span
 
 # Candidate bins per ray and pass. Both defaults are the TPU's (W = 6 covers
 # ~p95 of its bounce and shadow wavefronts; the streamed path pays a whole
@@ -331,12 +347,12 @@ reset_counters()
 # glue (torch ops) and the public queries
 # ---------------------------------------------------------------------------
 
-def _count(ids, ovf):
-    """The one device-to-host read of a query or round: (some ray
-    overflowed, the number of real pairs)."""
-    any_ovf, n_real = torch.stack([ovf.any().to(torch.int64),
-                                   (ids != SENTINEL).sum()]).tolist()
-    return bool(any_ovf), n_real
+def _count(ids, ovf, live=None):
+    """The one device-to-host read of a query or round: [the rays that
+    overflowed, the real pairs] and, with the (N,) bool `live`, its
+    count."""
+    parts = [ovf.sum(), (ids != SENTINEL).sum()]
+    return torch.stack(parts if live is None else parts + [live.sum()]).tolist()
 
 
 def sort_pairs(ids, n_real):
@@ -373,13 +389,15 @@ def _round(cs, ids, n_real, rays, t0, watertight, streamed):
     kmin = torch.full((rays.shape[0],), MISS_KEY, dtype=torch.int64, device=rays.device)
     if n_real == 0:
         return kmin
-    sortd, pair_ray = sort_pairs(ids, n_real)
-    if streamed:
-        keys = leaf_streamed(cs, blocks_for(sortd, cs.n_clusters // BIN), pair_ray,
-                             rays, t0, watertight)
-    else:
-        keys = leaf(cs, sortd, pair_ray, rays, t0, watertight)
-    return kmin.scatter_reduce_(0, pair_ray, keys, "amin")
+    with span("bin_sort"):
+        sortd, pair_ray = sort_pairs(ids, n_real)
+        blocks = blocks_for(sortd, cs.n_clusters // BIN) if streamed else None
+    with span("bin_leaf"):
+        if streamed:
+            keys = leaf_streamed(cs, blocks, pair_ray, rays, t0, watertight)
+        else:
+            keys = leaf(cs, sortd, pair_ray, rays, t0, watertight)
+        return kmin.scatter_reduce_(0, pair_ray, keys, "amin")
 
 
 def _trace(cs, ro, rd, t0, t1, watertight, streamed):
@@ -391,20 +409,31 @@ def _trace(cs, ro, rd, t0, t1, watertight, streamed):
         sweep._check_cuda_args(cs, ro, rd)
     rays, _ = sweep._prepare(cs, ro, rd, t1, sort=False)
     w = _w_slots(streamed)
+    with span("bin_prepass"):
+        if streamed:
+            ids, ovf, words = prepass(cs, rays, t0, w, emit_words=True)
+        else:
+            ids, ovf = prepass(cs, rays, t0, w)
+        # the live rays are summed only where they are recorded
+        n_ovf, n_real, *n_live = _count(ids, ovf, rays[:, 6] >= t0 if counting() else None)
+        if n_live:
+            count("binned_rays", n_live[0])
+        count("binned_pairs", n_real)
+        if not streamed:
+            count("overflow_rays", n_ovf)
     if not streamed:
-        ids, ovf = prepass(cs, rays, t0, w)
-        any_ovf, n_real = _count(ids, ovf)
         kmin = _round(cs, ids, n_real, rays, t0, watertight, False)
-        return kmin, (ovf if any_ovf else None), rays
-    ids, ovf, words = prepass(cs, rays, t0, w, emit_words=True)
+        return kmin, (ovf if n_ovf else None), rays
     kmin = None
     while True:
-        any_ovf, n_real = _count(ids, ovf)
         k = _round(cs, ids, n_real, rays, t0, watertight, True)
         kmin = k if kmin is None else torch.minimum(kmin, k)
-        if not any_ovf:
+        if not n_ovf:
             return kmin, None, rays
-        ids, ovf, words = peel(words, w)
+        with span("bin_prepass"):
+            ids, ovf, words = peel(words, w)
+            n_ovf, n_real = _count(ids, ovf)
+            count("binned_pairs", n_real)
 
 
 def decode(kmin):
@@ -435,9 +464,10 @@ def closest_hit(cs: ClusterScene, ro, rd, t0, t1, watertight=False, streamed=Fal
     face = slot_to_face(cs, slot).to(torch.int32)
     if ovf is None:
         return hit, t, face
-    h2, t2, f2 = sweep.closest_hit(cs, ro, rd, t0, torch.where(ovf, rays[:, 6], 0.0),
-                                   sort=False, watertight=watertight, exact_t=exact_t)
-    return torch.where(ovf, h2, hit), torch.where(ovf, t2, t), torch.where(ovf, f2, face)
+    with span("bin_overflow"):
+        h2, t2, f2 = sweep.closest_hit(cs, ro, rd, t0, torch.where(ovf, rays[:, 6], 0.0),
+                                       sort=False, watertight=watertight, exact_t=exact_t)
+        return torch.where(ovf, h2, hit), torch.where(ovf, t2, t), torch.where(ovf, f2, face)
 
 
 def occluded(cs: ClusterScene, ro, rd, t0, t1, watertight=False, streamed=False):
@@ -450,6 +480,7 @@ def occluded(cs: ClusterScene, ro, rd, t0, t1, watertight=False, streamed=False)
     occ = kmin != MISS_KEY
     if ovf is None:
         return occ
-    occ2 = sweep.occluded(cs, ro, rd, t0, torch.where(ovf, rays[:, 6], 0.0), sort=False,
-                          watertight=watertight)
-    return torch.where(ovf, occ2, occ)
+    with span("bin_overflow"):
+        occ2 = sweep.occluded(cs, ro, rd, t0, torch.where(ovf, rays[:, 6], 0.0), sort=False,
+                              watertight=watertight)
+        return torch.where(ovf, occ2, occ)

@@ -18,8 +18,10 @@ Counterpart of pyrenderer_tpu/utils/profiling.py:
   one call.
 - ``span``, ``count`` and ``recording``: the program's own spans at its
   layer boundaries (a pass, a chunk, a bounce and the pbrt bounce's NEE
-  and scatter, a Threefry evaluation, a query, a launch, a training step
-  and its halves) and its counters
+  and scatter, a Threefry evaluation, a query and, inside a binned one,
+  its four parts ``bin_prepass``, ``bin_sort``, ``bin_leaf`` and
+  ``bin_overflow`` (kernels/binned.py), a launch, a training step and its
+  halves) and its counters
   (COUNTERS), recorded only inside a ``recording()`` block, with the count
   of the host's waits for the device and each counter charged to the
   innermost open span. The JAX package has nothing like them (it has only
@@ -338,7 +340,8 @@ _last = None
 # of kernels/reference.py's two; film_kernel, those of kernels/film.py's
 # (one a chunk of a uniform pass on CUDA). Others are reported where
 # counted: the pbrt trace's closest_rays and shadow_rays
-# (core/integrator_pbrt.py)
+# (core/integrator_pbrt.py), and a binned query's binned_rays, binned_pairs
+# and overflow_rays (kernels/binned.py, host numbers of its one read)
 COUNTERS = ("rng_kernel", "pbrt_kernel", "reference_kernel", "film_kernel")
 
 
